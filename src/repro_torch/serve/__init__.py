@@ -1,0 +1,16 @@
+"""Distributed GNN inference serving over the p2p halo wire:
+:class:`ServingEngine` (micro-batched queries, drift-gated embedding cache,
+``auto:qos`` rate × width control) and :class:`EmbeddingCache`.
+
+Example::
+
+    from repro_torch.serve import ServingEngine
+    eng = ServingEngine(g, params, cfg, q=4)   # device="cuda"
+    eng.refresh(force=True)                    # cold start: exact halos
+    emb, status = eng.serve([3, 17, 101])      # status == "FRESH"
+"""
+
+from repro_torch.serve.cache import EmbeddingCache
+from repro_torch.serve.frontend import MicroBatcher, Query, ServingEngine
+
+__all__ = ["EmbeddingCache", "MicroBatcher", "Query", "ServingEngine"]

@@ -1,0 +1,88 @@
+"""Guards of the port's boundaries: it imports neither ``jax`` nor the JAX
+package, and its entry points default to the card instead of quietly
+running on the CPU."""
+
+from __future__ import annotations
+
+import ast
+import inspect
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module or "")
+    return mods
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20 and all(f.exists() for f in files)
+    return files
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    bad = {}
+    for path in _port_files():
+        hits = sorted(m for m in _imported_modules(path)
+                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        if hits:
+            bad[str(path.relative_to(ROOT))] = hits
+    assert not bad, f"the port must not import jax or repro: {bad}"
+
+
+def test_import_scan_sees_relative_and_nested_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    import jax.numpy as jnp\n"
+                   "from repro.graph import data\nfrom . import x\n")
+    assert _imported_modules(src) == {"jax.numpy", "repro.graph"}
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.dist.ratectl import init_halo_cache
+    from repro_torch.graph.partition import PartitionedGraph
+    from repro_torch.nn.gnn import centralized_forward, init_gnn
+    from repro_torch.serve import ServingEngine
+
+    for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
+               centralized_forward, init_halo_cache,
+               PartitionedGraph.device_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.nn.gnn import GNNConfig, init_gnn
+    from repro_torch.serve import ServingEngine
+
+    g = tiny_graph(n=64, feat_dim=128)
+    cfg = GNNConfig(in_dim=128, hidden=128, out_dim=g.num_classes, layers=2)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(g, params, cfg, q=2)
+    pg = partition_graph(g, 2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        attach_p2p(pg.device_arrays("cpu"), pg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pg.device_arrays()
+    # and the CPU, when asked for, runs
+    eng = ServingEngine(g, params, cfg, q=2, device="cpu")
+    eng.refresh(force=True)
+    assert np.isfinite(eng.serve([0, 1])[0]).all()
