@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py                 # the full-size serving slice
+    python3 chip_smoke.py                 # the full-size serving + training
     python3 chip_smoke.py --nodes 20000   # a quicker, smaller graph
 
 Phases, each fatal on failure (exit code 1, no result line):
@@ -17,23 +17,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    card, and a ``ServingEngine`` over GraphSAGE at the paper's width (in
    128, hidden 256, out 40, 3 layers) with weights from a seeded
    ``torch.Generator``.
-4. kernels — each kernel at the slice's shapes and at a ragged shape,
-   against its plain PyTorch version on the same inputs (pack/unpack
-   bitwise, ELL within 1e-5: FMA contraction reorders f32 sums), with
-   CUDA-event times of the kernel, the plain version and one PyTorch
-   library call where one computes the same function, beside the least
-   time the card could take (bytes over 3.35 TB/s, flops over 67 TFLOP/s
-   f32).
-5. slice   — launch counts set to 0, then the main path: ``refresh(force=
-   True)``, a few hundred node and edge queries through ``submit``/
+4. kernels — each kernel at the paths' shapes and at a ragged shape,
+   against its plain PyTorch version on the same inputs (pack/unpack and
+   the fused quantised codecs bitwise, ELL within 1e-5: FMA contraction
+   reorders f32 sums), with CUDA-event times of the kernel, the plain
+   version and one PyTorch library call where one computes the same
+   function, beside the least time the card could take (bytes over 3.35
+   TB/s, flops over 67 TFLOP/s f32).  The ELL SpMM also runs over the
+   reversed lists (the training backward), and each autograd function's
+   backward on the card is held to the plain version's autograd within
+   1e-4 (atomic scatters reorder f32 sums).
+5. slice   — launch counts set to 0, then the serving path: ``refresh(
+   force=True)``, a few hundred node and edge queries through ``submit``/
    ``flush``, and three non-forced ``refresh()`` calls under the default
    ``auto:qos:<bits>:w8`` policy with queries between them; launch counts
-   read right after (each kernel must have run).  The ``FRESH`` answers of
-   the cold refresh must match ``centralized_forward`` on the card within
-   1e-4 (atomic scatter-adds and FMA contraction reorder f32 sums).
+   read right after (each serving kernel must have run).  The ``FRESH``
+   answers of the cold refresh must match ``centralized_forward`` on the
+   card within 1e-4 (atomic scatter-adds and FMA contraction reorder f32
+   sums).
+6. train   — launch counts set to 0, then the training path, ``train_gnn``
+   on the engine's partitioned graph: one ``sgd(0.1)`` step under
+   ``full`` (its step-0 loss and updated parameters must match the
+   centralized loss and one autograd step of ``centralized_forward``
+   within 1e-4: the grad-sync identity), then ``full``, ``varco:linear:5``
+   and ``auto:budget:<half the full-rate transport>:w8``, 5 epochs each
+   with AdamW; launch counts read right after (every kernel must have
+   run, the quantised codecs during the w8 run).  Every loss must be
+   finite and ``full``'s must fall; per-epoch loss, rate, width, bits,
+   step time and the peak device memory are printed.
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is the ``{"kernels": [...]}`` summary (launches
+from the training path); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 ELL_TOL = 1e-5
 FRESH_TOL = 1e-4
+GRAD_TOL = 1e-4
+TRAIN_EPOCHS = 5
 
 KERNELS = {
     "ell_spmm": {"source": "src/repro_torch/csrc/ell_spmm.cu",
@@ -64,7 +81,22 @@ KERNELS = {
                    "replaces": "src/repro/kernels/varco_pack.py:66"},
     "varco_unpack": {"source": "src/repro_torch/csrc/varco_pack.cu",
                      "replaces": "src/repro/kernels/varco_pack.py:256"},
+    "varco_pack_quant": {"source": "src/repro_torch/csrc/varco_pack_quant.cu",
+                         "replaces": "src/repro/kernels/varco_pack.py:158"},
+    "varco_unpack_quant": {
+        "source": "src/repro_torch/csrc/varco_pack_quant.cu",
+        "replaces": "src/repro/kernels/varco_pack.py:213"},
 }
+
+
+def launch_counters() -> dict:
+    from repro_torch.kernels.ell_spmm import ell_spmm
+    from repro_torch.kernels import varco_pack as vp
+
+    return {"ell_spmm": ell_spmm, "varco_pack": vp.varco_pack,
+            "varco_unpack": vp.varco_unpack,
+            "varco_pack_quant": vp.varco_pack_quant,
+            "varco_unpack_quant": vp.varco_unpack_quant}
 
 
 def emit(obj) -> None:
@@ -234,6 +266,112 @@ def _unpack_case(name, packed, inv, reps):
     return rec
 
 
+def _quant_case(name, x, kept, inv, width, reps):
+    """The fused codecs at one shape and width: ``varco_pack_quant`` then
+    ``varco_unpack_quant`` on its output, each bitwise against its plain
+    version.  Returns the two records."""
+    from repro_torch.kernels.ops import qmax_of
+    from repro_torch.kernels.varco_pack import (LANE, varco_pack_quant,
+                                                varco_pack_quant_plain,
+                                                varco_unpack_quant,
+                                                varco_unpack_quant_plain)
+
+    b, h, f = x.shape
+    k, nb = kept.shape[1], inv.shape[1]
+    qmax = qmax_of(width).expand(b).contiguous().to(x.device)
+    payload, scales = varco_pack_quant(x, kept, qmax, width)
+    p_ref, s_ref = varco_pack_quant_plain(x, kept, qmax, width)
+    out = varco_unpack_quant(payload, scales, inv, width)
+    out_ref = varco_unpack_quant_plain(payload, scales, inv, width)
+    torch.cuda.synchronize()
+    check(torch.equal(payload, p_ref) and torch.equal(scales, s_ref),
+          f"varco_pack_quant {name}: not bitwise equal")
+    check(torch.equal(out, out_ref),
+          f"varco_unpack_quant {name}: not bitwise equal")
+    pay_bytes = b * h * k * LANE * width // 8
+    sc_bytes = b * h * k * 4
+    shape = {"x": list(x.shape), "kept": list(kept.shape), "width": width}
+    recs = []
+    for kernel, fn, plain, n_bytes in (
+            ("varco_pack_quant",
+             lambda: varco_pack_quant(x, kept, qmax, width),
+             lambda: varco_pack_quant_plain(x, kept, qmax, width),
+             b * h * k * LANE * 4 + kept.numel() * 4 + b * 4 + pay_bytes +
+             sc_bytes),
+            ("varco_unpack_quant",
+             lambda: varco_unpack_quant(payload, scales, inv, width),
+             lambda: varco_unpack_quant_plain(payload, scales, inv, width),
+             pay_bytes + sc_bytes + inv.numel() * 4 + b * h * nb * LANE * 4)):
+        b_ms, b_by = bound_ms(n_bytes)
+        rec = {"kernel": kernel, "case": name, "shape": shape,
+               "max_abs_err": 0.0, "kernel_ms": cuda_ms(fn, reps),
+               "plain_ms": cuda_ms(plain, max(reps // 5, 1)),
+               "library_ms": None,   # no single PyTorch call quantises
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def _grad_err(fn, ref_fn, x, gen):
+    """Max abs difference between ``fn``'s input cotangent (the autograd
+    function, kernels on the card) and ``ref_fn``'s (the plain version's
+    autograd) for one random upstream cotangent."""
+    a = x.detach().clone().requires_grad_(True)
+    y = fn(a)
+    g = torch.randn(y.shape, generator=gen, device=x.device)
+    (ga,) = torch.autograd.grad(y, a, g)
+    r = x.detach().clone().requires_grad_(True)
+    (gr,) = torch.autograd.grad(ref_fn(r), r, g)
+    torch.cuda.synchronize()
+    return float((ga - gr).abs().max())
+
+
+def vjp_phase(eng, gen):
+    """Each autograd function's backward on the card at the training
+    path's shapes against the plain version's autograd, within 1e-4."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_spmm import ell_spmm_plain
+    from repro_torch.kernels.varco_pack import (LANE, varco_pack_plain,
+                                                varco_unpack_plain,
+                                                worker_block_maps_pos)
+
+    dev = eng.device
+    meta, graph = eng.meta, eng.graph
+    q, p_sz, b_sz = meta.q, meta.part_size, meta.halo_size
+    d_hops, h_w = max(q - 1, 1), meta.p2p_hop_width
+    kept, inv, _ = worker_block_maps_pos(prng.key(9), q, 2, 1)
+    kept, inv = torch.from_numpy(kept).to(dev), torch.from_numpy(inv).to(dev)
+    nbr, w = graph["ell_nbr"], graph["ell_w"]
+    rnbr, rslot = graph["ell_rnbr"], graph["ell_rslot"]
+    bk = (torch.arange(q * d_hops, device=dev) // d_hops)
+    kept_b, inv_b = kept[bk].contiguous(), inv[bk].contiguous()
+    qmax = torch.full((q * d_hops,), 127.0, device=dev)
+    cases = {
+        "ell_aggregate": (
+            lambda a: ops.ell_aggregate(a, nbr, w, rnbr, rslot),
+            lambda a: ell_spmm_plain(a, nbr, w), (q, p_sz, 256)),
+        "wire_pack": (lambda a: ops.wire_pack(a, kept, inv),
+                      lambda a: varco_pack_plain(a, kept), (q, b_sz, 256)),
+        "wire_unpack": (lambda a: ops.wire_unpack(a, inv, kept),
+                        lambda a: varco_unpack_plain(a, inv),
+                        (q, b_sz, LANE)),
+        "quant_hop": (lambda a: ops.quant_hop(a, kept_b, inv_b, qmax, 8),
+                      lambda a: varco_unpack_plain(
+                          varco_pack_plain(a, kept_b), inv_b),
+                      (q * d_hops, h_w, 256)),
+    }
+    errs = {}
+    for name, (fn, ref_fn, shape) in cases.items():
+        x = torch.randn(shape, generator=gen, device=dev)
+        errs[name] = _grad_err(fn, ref_fn, x, gen)
+        check(errs[name] <= GRAD_TOL,
+              f"{name} backward differs from the plain autograd by "
+              f"{errs[name]}")
+    emit({"phase": "vjp", "max_abs_err": errs})
+
+
 def kernels_phase(eng, reps: int = 20):
     """Every kernel at the slice's shapes (taken from the engine's graph:
     ELL lists, boundary block, hop buffers) and at one ragged shape.
@@ -259,6 +397,17 @@ def kernels_phase(eng, reps: int = 20):
         x = torch.randn((q, p_sz, f), generator=gen, device=dev)
         keep(_ell_case(f"slice_f{f}", x, graph["ell_nbr"], graph["ell_w"],
                        reps), f == 256)
+    # the training backward: the same kernel over the reversed lists, with
+    # the forward weights gathered through rslot
+    w = graph["ell_w"]
+    rslot = graph["ell_rslot"]
+    rw = torch.gather(w.reshape(q, -1), 1,
+                      rslot.reshape(q, -1).clamp(min=0).long())
+    rw = torch.where(rslot >= 0, rw.reshape(rslot.shape),
+                     torch.zeros((), device=dev)).contiguous()
+    keep(_ell_case("reverse_f256",
+                   torch.randn((q, p_sz, 256), generator=gen, device=dev),
+                   graph["ell_rnbr"], rw, reps), False)
     for f in (128, 256):
         nb = f // LANE
         publish = torch.randn((q, b_sz, f), generator=gen, device=dev)
@@ -273,6 +422,28 @@ def kernels_phase(eng, reps: int = 20):
                                device=dev)
             keep(_unpack_case(f"slice_f{f}_k{k}", hops, inv_t, reps),
                  f == 256 and k == nb)
+    # the fused quantised codecs at the hop shapes: B = Q·D (sender, ring
+    # hop) rows of H hop rows each, one kept map per sender
+    bk = np.arange(q * d_hops) // d_hops
+    for f, k in ((256, 2), (256, 1), (128, 1)):
+        kept, inv, _ = worker_block_maps_pos(prng.key(f + k), q, f // LANE,
+                                             k)
+        x = torch.randn((q * d_hops, h_w, f), generator=gen, device=dev)
+        for width in (8, 4, 2):
+            for rec in _quant_case(
+                    f"hop_f{f}_k{k}_w{width}", x,
+                    torch.from_numpy(kept[bk]).to(dev),
+                    torch.from_numpy(inv[bk]).to(dev), width, reps):
+                keep(rec, (f, k, width) == (256, 2, 8))
+    kept, inv, _ = worker_block_maps_pos(prng.key(4), 3, 3, 2)
+    for width in (8, 4, 2):
+        for rec in _quant_case(
+                f"ragged_w{width}",
+                torch.randn((3, 1001, 384), generator=gen, device=dev),
+                torch.from_numpy(kept).to(dev), torch.from_numpy(inv).to(dev),
+                width, 5):
+            keep(rec, False)
+    vjp_phase(eng, gen)
     # ragged shapes: odd row counts, a width off the float4 grid, pad slots
     rng = np.random.default_rng(0)
     for f in (42, 384):
@@ -354,12 +525,9 @@ def _queries(eng, rng, n_nodes: int, n_edges: int, lat: list) -> int:
 
 
 def slice_phase(g, cfg, params, eng, seed: int = 0):
-    from repro_torch.kernels.ell_spmm import ell_spmm
-    from repro_torch.kernels.varco_pack import varco_pack, varco_unpack
     from repro_torch.nn.gnn import centralized_forward
 
-    counters = {"ell_spmm": ell_spmm, "varco_pack": varco_pack,
-                "varco_unpack": varco_unpack}
+    counters = launch_counters()
     rng = np.random.default_rng(seed)
     lat: list[float] = []
     refreshes = []
@@ -389,8 +557,9 @@ def slice_phase(g, cfg, params, eng, seed: int = 0):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the main path")
+    for name in ("ell_spmm", "varco_pack", "varco_unpack"):
+        check(launches[name] > 0, f"{name} never launched on the serving "
+              f"path")
     emb, _ = eng.serve(np.arange(0, g.num_nodes, 97))
     check(np.isfinite(emb).all() and emb.shape[1] == cfg.out_dim,
           "served embeddings malformed")
@@ -416,6 +585,102 @@ def slice_phase(g, cfg, params, eng, seed: int = 0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training slice
+# ---------------------------------------------------------------------------
+
+
+def _grad_sync_identity(res, g, cfg, params) -> dict:
+    """The ``full`` run's step-0 loss and its parameters after one
+    ``sgd(0.1)`` step against the centralized loss and one autograd step
+    of ``centralized_forward`` on the card."""
+    from repro_torch.nn.gnn import (centralized_forward,
+                                    masked_loss_and_correct)
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    dev = tree_leaves(params)[0].device
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+    logits = centralized_forward(live, cfg, g, device=dev)
+    loss_sum, _ = masked_loss_and_correct(
+        logits, torch.from_numpy(g.labels).to(dev),
+        torch.from_numpy(g.train_mask).to(dev))
+    loss = loss_sum / int(g.train_mask.sum())
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    loss = float(loss.detach())
+    p_err = max(float((got - (p.detach() - 0.1 * gr)).abs().max())
+                for got, p, gr in zip(tree_leaves(res.params),
+                                      tree_leaves(live), grads))
+    return {"loss_err": abs(res.history.loss[0] - loss),
+            "param_err": p_err, "centralized_loss": loss}
+
+
+def train_phase(g, cfg, params, eng, seed: int = 0):
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist.ratectl import exchange_widths
+    from repro_torch.train.optim import sgd
+    from repro_torch.train.trainer import train_gnn
+
+    counters = launch_counters()
+    pg = eng.pg
+    common = dict(hidden=cfg.hidden, layers=cfg.layers, wire="p2p",
+                  seed=seed, eval_every=1, device=eng.device, params=params)
+    full_bits = 2.0 * 32.0 * pg.halo_demand * sum(exchange_widths(cfg)) * \
+        TRAIN_EPOCHS
+    specs = {"full": "full", "varco": "varco:linear:5",
+             "auto_w8": f"auto:budget:{0.5 * full_bits:g}:w8"}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = train_gnn(pg, policy=CommPolicy.parse("full", 1), epochs=1,
+                    optimizer=sgd(0.1), **common)
+    runs, quant_launches = {}, {}
+    for name, spec in specs.items():
+        before = {k: fn.launches for k, fn in counters.items()}
+        res = train_gnn(pg, policy=CommPolicy.parse(
+            spec, TRAIN_EPOCHS, compressor="blockmask"),
+            epochs=TRAIN_EPOCHS, **common)
+        runs[name] = res.history
+        quant_launches[name] = {
+            k: counters[k].launches - before[k]
+            for k in ("varco_pack_quant", "varco_unpack_quant")}
+        h = res.history
+        for i, ep in enumerate(h.epoch):
+            emit({"phase": "train_epoch", "run": name, "policy": spec,
+                  "epoch": ep, "loss": h.loss[i], "rate": h.rate[i],
+                  "width": h.width[i], "step_ms": h.step_s[i] * 1e3,
+                  "transport_gfloats": h.transport_gfloats[i],
+                  "halo_gfloats": h.halo_gfloats[i],
+                  "test_acc": h.test_acc[i]})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ident = _grad_sync_identity(one, g, cfg, params)
+    summary = {"phase": "train", "wall_s": wall, "epochs": TRAIN_EPOCHS,
+               "launches": launches, "quant_launches": quant_launches,
+               "grad_sync_identity": ident, "peak_mem_gb": peak,
+               "step_ms_median": {
+                   k: float(np.median(np.asarray(h.step_s[1:]) * 1e3))
+                   for k, h in runs.items()},
+               "final_loss": {k: h.loss[-1] for k, h in runs.items()},
+               "transport_gfloats": {k: h.transport_gfloats[-1]
+                                     for k, h in runs.items()}}
+    emit(summary)
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the training path")
+    for name, count in quant_launches["auto_w8"].items():
+        check(count > 0, f"{name} never launched during the w8 run")
+    check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
+          f"grad-sync identity broken: {ident}")
+    for name, h in runs.items():
+        check(bool(np.isfinite(h.loss).all()), f"{name}: non-finite loss")
+    check(runs["full"].loss[-1] < runs["full"].loss[0],
+          f"full: loss did not fall ({runs['full'].loss})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=169_343,
@@ -426,7 +691,8 @@ def main(argv=None) -> int:
         build_phase()
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
         main_recs = kernels_phase(eng)
-        launches = slice_phase(g, cfg, params, eng)
+        slice_phase(g, cfg, params, eng)
+        launches = train_phase(g, cfg, params, eng)
     except Failure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

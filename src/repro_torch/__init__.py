@@ -3,17 +3,39 @@
 The package mirrors ``repro``'s module names (``repro_torch.graph.partition``
 is the counterpart of ``repro.graph.partition``, and so on).  It imports
 ``torch`` and numpy only: the host-side graph, halo and cache code is kept
-as its own numpy copy, and every Pallas TPU kernel on the ported path is a
-hand-written CUDA kernel under ``csrc/`` (built with ``nvcc`` for
+as its own numpy copy, and every Pallas TPU kernel on the ported paths is
+a hand-written CUDA kernel under ``csrc/`` (built with ``nvcc`` for
 ``sm_90a`` at first use, bound through ``ctypes``).
 
 Entry points take an explicit ``device=`` that defaults to ``"cuda"``; the
 tests pass ``device="cpu"``, where each kernel wrapper runs its plain
 PyTorch version because the tensor it was given lies on the CPU.
 
-Ported so far: the serving slice — ``repro_torch.serve.ServingEngine`` over
-the p2p halo wire, with the ``ell_spmm``, ``varco_pack`` and
-``varco_unpack`` kernels.
+Ported so far:
+
+* the serving slice — :class:`repro_torch.serve.ServingEngine` over the
+  p2p halo wire;
+* the training slice — :func:`repro_torch.train.train_gnn` (Algorithm 1,
+  every partition stacked on one card) under the open-loop policies and
+  the ``budget`` controller, with the kernels' backward passes;
+
+over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
+``varco_pack_quant`` and ``varco_unpack_quant`` kernels.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+__all__ = ["CommPolicy", "ServingEngine", "train_gnn"]
+
+
+def __getattr__(name):
+    # lazy, so importing the package stays cheap and cycle-free
+    if name == "CommPolicy":
+        from repro_torch.core.varco import CommPolicy
+        return CommPolicy
+    if name == "ServingEngine":
+        from repro_torch.serve import ServingEngine
+        return ServingEngine
+    if name == "train_gnn":
+        from repro_torch.train.trainer import train_gnn
+        return train_gnn
+    raise AttributeError(name)

@@ -1,7 +1,10 @@
-"""Policy layer: the closed-loop communication policy, the bit ledger and
-the eq.-(8) linear schedule the budget pacing references."""
+"""Policy layer: the communication policy (open-loop schedules and the
+closed-loop controllers' specs), the bit ledger and the rate schedules."""
 
-from .schedulers import Scheduler, linear
-from .varco import CommLedger, CommPolicy
+from .schedulers import (Scheduler, constant, cosine, exponential,
+                         fixed_step, linear)
+from .varco import FULL_COMM, NO_COMM, CommLedger, CommPolicy, fixed, varco
 
-__all__ = ["CommLedger", "CommPolicy", "Scheduler", "linear"]
+__all__ = ["CommLedger", "CommPolicy", "FULL_COMM", "NO_COMM", "Scheduler",
+           "constant", "cosine", "exponential", "fixed", "fixed_step",
+           "linear", "varco"]

@@ -1,29 +1,32 @@
-"""Partition-parallel GNN forward over the p2p halo wire (paper Algorithm 1).
+"""Partition-parallel GNN training and inference (paper Algorithm 1).
 
-Counterpart of the serving-side part of ``repro/dist/gnn_parallel.py``.
-All ``Q`` partitions live stacked as ``[Q, ...]`` tensors on one device —
-the JAX package's emulated backend, with its ``vmap`` over partitions
-written out as a leading batch dimension.  A layer's aggregation is
+Counterpart of ``repro/dist/gnn_parallel.py``'s emulated backend.  All
+``Q`` partitions live stacked as ``[Q, ...]`` tensors on one device — the
+JAX package's ``vmap`` over partitions written out as a leading batch
+dimension.  A layer's aggregation is
 
 * a **local** ELL aggregation over edges whose endpoints are both owned
-  (the ``ell_spmm`` kernel, one launch for all partitions), plus
+  (the ``ell_spmm`` kernel, one launch for all partitions; its backward
+  is the same kernel over the reversed lists), plus
 * a **remote** scatter over cross edges whose source rows arrive through
-  the p2p halo exchange: every sender packs its boundary block down to the
-  kept 128-lane blocks (``varco_pack``), slices one hop buffer per ring
-  offset out of the packed rows, and each receiver unpacks its hops
-  (``varco_unpack``) into a compact halo buffer.
+  the p2p halo exchange: every sender slices one hop buffer per ring
+  offset out of its boundary block, and each receiver reads its hops out
+  of a compact halo buffer.
 
-This module ports the **p2p rate-map branch** only: per-pair ``[Q, Q]``
-rate and width maps from the closed-loop controllers, the drift-gated hop
-cache (skipped pairs are served from ``cache`` at zero wire bits) and the
-quantised hop paths (round-to-nearest-even).  The dense and packed all-gather wires, the
-scalar-rate p2p branch, error-feedback residuals, stochastic rounding and
-the fault channels belong to the training port (ROADMAP queue 1).
+Wires: ``"p2p"`` carries every policy — ``full``/``none``, the
+scalar-rate open-loop policies (``fixed``/``varco``: each sender packs its
+boundary block to the kept 128-lane blocks with ``varco_pack`` and the
+receiver scatters them back with ``varco_unpack``) and the closed-loop
+per-pair ``[Q, Q]`` rate and width maps (nested kept sets carved out by
+column masks; quantised pairs through the fused ``varco_pack_quant`` /
+``varco_unpack_quant`` hop when every pair quantises, with optional
+error-feedback residuals).  ``"dense"`` (the all-gather of the boundary
+blocks) runs uncompressed only: it is the evaluation wire.
 
 Mask indices and the per-pair bookkeeping (kept counts, column masks,
-ledger rows) are tiny and computed on the host with the JAX package's
-key stream (``repro_torch.prng``); the ``[Q, P, F]`` activations stay on
-the device.
+ledger rows) are tiny and computed on the host with the JAX package's key
+stream (``repro_torch.prng``); the ``[Q, P, F]`` activations stay on the
+device.
 """
 
 from __future__ import annotations
@@ -35,14 +38,20 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.kernels.ops import (WIRE_WIDTHS, dequant_bits,
-                                     ell_aggregate, pack_bits,
-                                     per_block_wire_bits, quant_levels,
-                                     wire_pack, wire_quant, wire_unpack)
-from repro_torch.kernels.varco_pack import LANE, worker_block_maps_pos
-from repro_torch.nn.gnn import GNNConfig, gnn_forward
+from repro_torch.core.varco import FULL_COMM, CommPolicy
+from repro_torch.kernels.ops import (WIRE_WIDTHS, ell_aggregate,
+                                     per_block_wire_bits, qmax_of,
+                                     quant_hop, wire_pack, wire_quant,
+                                     wire_unpack)
+from repro_torch.kernels.varco_pack import (LANE, worker_block_maps,
+                                            worker_block_maps_pos)
+from repro_torch.nn.gnn import (GNNConfig, gnn_forward,
+                                masked_loss_and_correct)
+from repro_torch.train.optim import (Optimizer, apply_updates, tree_leaves,
+                                     tree_map)
 
-WIRES = ("p2p",)
+WIRES = ("dense", "p2p")
+_F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +61,13 @@ WIRES = ("p2p",)
 
 @dataclasses.dataclass(frozen=True)
 class DistMeta:
-    """Static (hashable) facts about a partitioning, shared by every
-    forward: sizes, the paper's ``halo_demand`` unit (distinct (requesting
-    partition, remote node) pairs), each layer's input width, and the p2p
-    wire's hop width ``H``, compact-buffer height and ``[Q·Q]`` per-pair
-    halo row counts (receiver-major, diagonal 0)."""
+    """Static (hashable) facts about a partitioning, shared by every step:
+    sizes, the paper's ``halo_demand`` unit (distinct (requesting
+    partition, remote node) pairs), each layer's input width, and — on
+    the p2p wire — the hop width ``H``, compact-buffer height and ``[Q·Q]``
+    per-pair halo row counts (receiver-major, diagonal 0).  Split sizes
+    are global, so per-partition losses normalise identically and their
+    sum's gradient is the centralized gradient."""
 
     q: int
     part_size: int
@@ -76,22 +87,29 @@ class DistMeta:
     pair_rows: tuple = ()
 
     def __post_init__(self):
-        if self.wire not in WIRES:
+        if self.wire == "packed":
             raise NotImplementedError(
-                f"wire {self.wire!r} is not ported yet (ROADMAP queue 1: "
-                f"dense/packed wires); the port runs wire='p2p'")
+                "the packed all-gather wire is not ported (ROADMAP queue 1)"
+                "; the port runs wire='p2p' (and 'dense' uncompressed)")
+        if self.wire not in WIRES:
+            raise ValueError(f"wire must be one of {WIRES}, got "
+                             f"{self.wire!r}")
 
     @staticmethod
     def build(pg, params: dict, wire: str = "p2p") -> "DistMeta":
-        from repro_torch.dist.halo import build_halo_spec
-
         dims = []
         for layer in params["layers"]:
             if "self" in layer:                       # sage
                 dims.append(int(layer["self"]["w"].shape[0]))
             else:                                     # poly taps
                 dims.append(int(layer["taps"][0]["w"].shape[0]))
-        spec = build_halo_spec(pg)
+        hop_w = compact = 0
+        pair_rows: tuple = ()
+        if wire == "p2p":
+            from repro_torch.dist.halo import build_halo_spec
+            spec = build_halo_spec(pg)
+            hop_w, compact = spec.hop_width, spec.compact_rows
+            pair_rows = spec.pair_rows
         return DistMeta(
             q=pg.q, part_size=pg.part_size, halo_size=pg.halo_size,
             num_nodes=pg.num_nodes, feat_dim=pg.feat_dim,
@@ -100,26 +118,107 @@ class DistMeta:
             n_train=int(pg.train_mask.sum()), n_val=int(pg.val_mask.sum()),
             n_test=int(pg.test_mask.sum()),
             layer_dims=tuple(dims), wire=wire,
-            p2p_hop_width=spec.hop_width, p2p_compact=spec.compact_rows,
-            pair_rows=spec.pair_rows)
+            p2p_hop_width=hop_w, p2p_compact=compact, pair_rows=pair_rows)
 
     def pair_table(self) -> np.ndarray:
         """``[Q, Q]`` per-pair halo row counts (receiver × sender)."""
         if not self.pair_rows:
             raise ValueError("DistMeta.pair_rows is empty — build the meta "
-                             "via DistMeta.build(...)")
+                             "via DistMeta.build(..., wire='p2p')")
         return np.asarray(self.pair_rows, np.int64).reshape(self.q, self.q)
 
+    def ledger_bits(self, feat: int, rate=1.0) -> torch.Tensor:
+        """Analytic wire bits of one halo exchange at width ``feat``."""
+        return torch.tensor(self.halo_demand * feat * 32.0, dtype=_F32) / \
+            torch.as_tensor(rate, dtype=_F32)
+
+    def packed_width(self, feat: int, rate: float = 1.0) -> int:
+        """Columns of a packed payload: ``K·128`` with ``K = max(floor(
+        (feat/128)/rate), 1)``."""
+        if feat % LANE:
+            raise ValueError(f"packed payloads need feat % {LANE} == 0, "
+                             f"got {feat}")
+        return max(int(feat // LANE / max(float(rate), 1.0)), 1) * LANE
+
+    def _wire_width(self, feat: int, rate: float) -> int:
+        """On-wire column count at ``rate``: dense rows uncompressed, the
+        kept lane-blocks on a compressing p2p exchange."""
+        if self.wire == "p2p" and float(rate) > 1.0:
+            return self.packed_width(feat, rate)
+        return feat
+
+    def transport_bits(self, feat: int, rate: float = 1.0) -> torch.Tensor:
+        """Bits the active wire ships per halo exchange, charged per
+        needed boundary row (the ``halo_demand`` unit of
+        :meth:`ledger_bits`)."""
+        return torch.tensor(self.halo_demand * self._wire_width(feat, rate)
+                            * 32.0, dtype=_F32)
+
 
 # ---------------------------------------------------------------------------
-# Per-pair rate maps — host-side static facts
+# Scalar-rate helpers
 # ---------------------------------------------------------------------------
+
+
+def _varco_blend(w: torch.Tensor, w_iso: torch.Tensor, policy: CommPolicy,
+                 rate) -> torch.Tensor:
+    """VARCO blends the local weights toward the isolated-subgraph
+    renormalisation, ``w + (1 - 1/r)·(w_iso - w)``, so heavy early
+    compression degrades toward the No-Comm operator instead of
+    under-scaling every aggregation; other modes keep ``w``."""
+    if policy.mode != "varco":
+        return w
+    mix = 1.0 - 1.0 / torch.clamp(torch.as_tensor(rate, dtype=_F32),
+                                  min=1.0)
+    return w + mix * (w_iso - w)
+
+
+def _local_w_for(graph: dict, policy: CommPolicy, rate) -> torch.Tensor:
+    """The blended edge-list weights ``[Q, E]`` (the dense wire)."""
+    return _varco_blend(graph["local_w"], graph["local_w_iso"], policy, rate)
+
+
+def _ell_w_for(graph: dict, policy: CommPolicy, rate) -> torch.Tensor:
+    """The blended ELL weights ``[Q, P, K]`` (the p2p wire; pad entries
+    are 0 in both operands, so they stay 0)."""
+    return _varco_blend(graph["ell_w"], graph["ell_w_iso"], policy, rate)
+
+
+def _exchange_bits(meta: DistMeta, f: int, rate,
+                   wire_width: int | None = None) -> torch.Tensor:
+    """Per-exchange ledger charge ``[analytic, transport]`` (float32 on
+    the host); ``wire_width`` is the on-wire column count (``K·128`` when
+    packed, the full ``f`` when ``None``)."""
+    transport = meta.halo_demand * (f if wire_width is None
+                                    else wire_width) * 32.0
+    return torch.stack([meta.ledger_bits(f, rate),
+                        torch.tensor(transport, dtype=_F32)])
+
+
+def _keep_of(f: int, rate, packed_k: dict | None) -> int:
+    """Kept-block count of a packed exchange at width ``f``: from the
+    step's ``packed_k`` map when given, else from the rate directly."""
+    n_blocks = f // LANE
+    if packed_k is not None:
+        return packed_k[n_blocks]
+    return max(int(n_blocks / max(float(rate), 1.0)), 1)
 
 
 def _exchanged_nbs(meta: DistMeta) -> tuple:
     """Sorted distinct lane-block counts of every exchanged width."""
     return tuple(sorted({d // LANE for d in (meta.feat_dim,
                                              *meta.layer_dims)}))
+
+
+def _packed_k_for(meta: DistMeta, rate_f: float) -> tuple:
+    """A concrete rate's kept-block count at every exchanged width."""
+    return tuple((nb, max(int(nb / max(rate_f, 1.0)), 1))
+                 for nb in _exchanged_nbs(meta))
+
+
+# ---------------------------------------------------------------------------
+# Per-pair rate maps — host-side static facts
+# ---------------------------------------------------------------------------
 
 
 def _pair_keep(nb: int, rate_map, k_max: int) -> np.ndarray:
@@ -278,52 +377,84 @@ def _pair_ledger(meta: DistMeta, f: int, rate_map, row_bits, pair_err,
 
 
 # ---------------------------------------------------------------------------
-# The p2p rate-map aggregation oracle
+# The aggregation oracle
 # ---------------------------------------------------------------------------
 
 
-def _make_aggregate_emulated(graph: dict, meta: DistMeta, key,
-                             packed_k: dict | None, rate_map,
-                             skip=None, cache=None,
-                             cache_out: list | None = None,
-                             width_map=None, store_w: int = 0):
-    """AggregateFn over stacked ``[Q, P, F]`` tensors on one device — the
-    JAX package's ``_make_aggregate_emulated`` on the p2p wire with a
-    per-pair rate map.
+def _scatter_rows(x: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
+                  w: torch.Tensor, p_sz: int) -> torch.Tensor:
+    """Per-partition edge-list aggregation ``out[q, dst] += w · x[q,
+    src]`` over ``[Q, E]`` lists (pad edges point at the dropped row
+    ``P``)."""
+    q, _, f = x.shape
+    vals = w[..., None] * _rows_of(x, src, p_sz)
+    off = (torch.arange(q, device=x.device) * (p_sz + 1))[:, None]
+    out = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype, device=x.device)
+    out = out.index_add(0, (dst.long() + off).reshape(-1),
+                        vals.reshape(-1, f))
+    return out.reshape(q, p_sz + 1, f)[:, :p_sz]
 
-    ``key`` is the refresh's raw key (``repro_torch.prng``); exchange
+
+def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
+                             rate, key, packed_k: dict | None = None,
+                             rate_map=None, skip=None, cache=None,
+                             cache_out: list | None = None,
+                             width_map=None, resid=None,
+                             resid_out: list | None = None,
+                             store_w: int = 0):
+    """AggregateFn over stacked ``[Q, P, F]`` tensors on one device — the
+    JAX package's ``_make_aggregate_emulated`` (rounding ``"rint"``).
+
+    ``key`` is the step's raw key (``repro_torch.prng``); exchange
     ``call`` draws worker ``i``'s kept blocks from ``fold_in(fold_in(key,
-    call), i)``.  ``rate_map`` (host ``[Q, Q]`` or ``[L, Q, Q]``) sets each
-    pair's kept count under the static maximum ``packed_k``; ``width_map``
-    quantises each pair's hop at its width (``store_w`` > 0: true sub-byte
-    bytes rebuilt as ``levels · scale``).  ``skip``/``cache``/``cache_out``
-    are the drift-gated hop reuse: a pair with ``skip[i, j] == 1`` is served
-    ``cache[call]``'s rows at zero wire bits, and the fresh hop buffers
-    (``[Q, D, H, F]`` per exchange) land in ``cache_out``.  Rounding is
-    round-to-nearest-even (the JAX package's ``rounding="rint"``).
+    call), i)``.  The call counter lives in this closure, so build one
+    oracle per forward (the backward never advances it).
+
+    Without ``rate_map`` the p2p wire runs the scalar ``rate``: a
+    compressing policy packs each sender's boundary block to
+    ``packed_k``'s kept blocks and scatters it back; ``none`` exchanges
+    nothing and aggregates local edges with the isolated weights.  A host
+    ``[Q, Q]`` (or ``[L, Q, Q]``) ``rate_map`` sets each pair's kept
+    count under the static maximum ``packed_k``; ``width_map`` quantises
+    each pair's hop at its width — with ``store_w`` > 0 (every pair
+    quantises) through the fused sub-byte hop (:func:`quant_hop`), else
+    through the straight-through ``wire_quant``.  ``resid``/``resid_out``
+    are the error-feedback residuals (one full-width ``[Q, D, H, F]``
+    buffer per exchange): injected before quantising, replaced by the
+    fresh quantisation error.  ``skip``/``cache``/``cache_out`` are the
+    drift-gated hop reuse of serving: a pair with ``skip[i, j] == 1`` is
+    served ``cache[call]``'s rows at zero wire bits, and the fresh hop
+    buffers land in ``cache_out``.
 
     The oracle carries the split-phase API: ``start(li, x) -> (token,
-    bits)`` packs and ships, ``complete(li, x, token)`` runs the local ELL
+    bits)`` packs and ships, ``complete(li, x, token)`` runs the local
     aggregation and folds in the delivered halo.
     """
-    if meta.wire != "p2p":
-        raise NotImplementedError("only the p2p wire is ported")
-    if rate_map is None:
+    p2p = meta.wire == "p2p"
+    if rate_map is not None and not p2p:
+        raise ValueError("per-pair rate maps need wire='p2p'; the dense "
+                         "wire keeps the scalar path")
+    if policy.compresses and not p2p:
         raise NotImplementedError(
-            "the scalar-rate p2p branch is not ported yet (ROADMAP queue 1:"
-            " training slice); pass a [Q, Q] rate map")
+            "the dense compressing wire is not ported (ROADMAP queue 1); "
+            "compressing policies run on wire='p2p'")
+    if width_map is not None and rate_map is None:
+        raise ValueError("per-pair width maps ride the rate-map wire; pass "
+                         "rate_map alongside width_map")
     if store_w and width_map is None:
         raise ValueError("store_w (sub-byte storage) rides the width map; "
                          "pass width_map alongside it")
     if width_map is not None:
         _rate_tensor_layers(meta, width_map)
-    q, p_sz = meta.q, meta.part_size
+    q, p_sz, b_sz = meta.q, meta.part_size, meta.halo_size
     n_layers = _rate_tensor_layers(meta, rate_map)
-    rate_map = np.asarray(rate_map, np.float32)
+    if rate_map is not None:
+        rate_map = np.asarray(rate_map, np.float32)
     width_map = None if width_map is None else \
         np.asarray(width_map, np.float32)
     skip = None if skip is None else np.asarray(skip, np.float32)
     dev = graph["features"].device
+    rate = torch.as_tensor(rate, dtype=_F32)
     jj, rv = _ring_targets(q)
     d_hops = rv.shape[1]
     calls = itertools.count()
@@ -332,55 +463,79 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, key,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
-    def start(li, x):                                  # x: [Q, P, F]
-        """Issue layer ``li``'s exchange: pack, mask, ship.  Returns
-        ``(compact halo [Q, C, F], ledger vector)``."""
-        call = next(calls)
-        f = x.shape[-1]
+    def hops_of(rows: torch.Tensor) -> torch.Tensor:
+        """Per-pair hop buffers ``[Q, D, H, F']`` sliced out of each
+        sender's ``[Q, B, F']`` rows (padding rows zeroed)."""
+        return _rows_of(rows, graph["p2p_send_slot"], b_sz) * \
+            graph["p2p_send_valid"][..., None]
+
+    def start_rate_map(li, publish, call):
+        """The per-pair rate-map hop path: ``(sent [Q, D, H, F], ledger
+        vector)``."""
+        f = publish.shape[-1]
         rm = rate_map if rate_map.ndim == 2 else rate_map[li]
         lix = 0 if n_layers == 1 else li
         wm = None
         if width_map is not None:
             wm = width_map if width_map.ndim == 2 else width_map[li]
-
-        # boundary block [Q, B, F]; packed once per sender, the hop buffers
-        # are sliced out of the packed rows
-        publish = _rows_of(x, graph["send_idx"], p_sz) * \
-            graph["send_valid"][..., None]
         nb = f // LANE
-        n_keep = packed_k[nb]
-        k_call = prng.fold_in(key, call)
-        kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+        n_keep = _keep_of(f, rate, packed_k)
+        kept, inv, pos_all = worker_block_maps_pos(prng.fold_in(key, call),
+                                                   q, nb, n_keep)
         pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
         k_pairs = _pair_keep(nb, rm, n_keep)                     # [Q, Q]
         k_jd = k_pairs[rv, jj]                                   # [Q, D]
-        packed = wire_pack(publish.contiguous(), to_dev(kept))
-        b_sz = publish.shape[1]
-        hops = _rows_of(packed, graph["p2p_send_slot"], b_sz) * \
-            graph["p2p_send_valid"][..., None]      # [Q, D, H, K·128]
-        cmask = (pos_kept[:, None, :] < k_jd[..., None]).astype(np.float32)
-        cmask_l = to_dev(np.repeat(cmask, LANE, axis=-1)[:, :, None, :])
-        hops = hops * cmask_l
-        if wm is not None:
-            w_jd = to_dev(wm[rv, jj][:, :, None, None])          # [Q, D, 1, 1]
-            if store_w:
-                # sub-byte wire: the hop stack that would ride the wire is
-                # the bit-packed levels + fp32 scales; the delivered values
-                # are rebuilt from those bytes alone
-                levels, scales = quant_levels(hops, w_jd)
-                hops = dequant_bits(pack_bits(levels, store_w), scales,
-                                    store_w)
-            else:
-                hops = wire_quant(hops, w_jd)
-        h_w = hops.shape[2]
-        sent = wire_unpack(hops.reshape(q, d_hops * h_w, -1).contiguous(),
-                           to_dev(inv)).reshape(q, d_hops, h_w, f)
+        kept_t, inv_t = to_dev(kept), to_dev(inv)
+        valid = graph["p2p_send_valid"][..., None]
+        if wm is not None and store_w:
+            # sub-byte wire: each (sender, hop) row block is quantised at
+            # its pair's width into store_w-bit storage and rebuilt from
+            # those bytes alone — one fused launch each way for all hops
+            colmask = np.repeat(pos_all[:, None, :] < k_jd[..., None],
+                                LANE, axis=-1)[:, :, None, :]    # [Q,D,1,F]
+            rows = hops_of(publish)
+            if resid is not None:
+                rows = rows + resid[call] * valid
+            pre = rows * to_dev(colmask, _F32)
+            h_w = pre.shape[2]
+            qmax = qmax_of(wm[rv, jj]).reshape(-1)               # [Q·D]
+            sent = quant_hop(pre.reshape(q * d_hops, h_w, f),
+                             to_dev(np.repeat(kept, d_hops, axis=0)),
+                             to_dev(np.repeat(inv, d_hops, axis=0)),
+                             qmax, store_w).reshape(q, d_hops, h_w, f)
+            if resid_out is not None:
+                resid_out.append((pre - sent).detach())
+        else:
+            packed = wire_pack(publish, kept_t, inv_t)
+            hops = hops_of(packed)                      # [Q, D, H, K·128]
+            cmask = (pos_kept[:, None, :] < k_jd[..., None])     # [Q, D, K]
+            cmask_l = to_dev(np.repeat(cmask, LANE, axis=-1)
+                             [:, :, None, :], _F32)
+            hops = hops * cmask_l
+            h_w = hops.shape[2]
+            if wm is not None:
+                w_jd = to_dev(wm[rv, jj][:, :, None, None])      # [Q,D,1,1]
+                if resid is not None:
+                    r_pack = wire_pack(
+                        resid[call].reshape(q, d_hops * h_w, f), kept_t,
+                        inv_t).reshape(hops.shape)
+                    hops = hops + r_pack * cmask_l * valid
+                hops_q = wire_quant(hops, w_jd)
+                if resid_out is not None:
+                    err = (hops - hops_q).detach()
+                    resid_out.append(wire_unpack(
+                        err.reshape(q, d_hops * h_w, -1), inv_t, kept_t
+                    ).reshape(q, d_hops, h_w, f))
+                hops = hops_q
+            sent = wire_unpack(hops.reshape(q, d_hops * h_w, -1), inv_t,
+                               kept_t).reshape(q, d_hops, h_w, f)
+        pub = publish.detach()
         pair_err = _scatter_pairs(
-            (_pair_hop_energy(publish, graph["p2p_send_slot"],
+            (_pair_hop_energy(pub, graph["p2p_send_slot"],
                               graph["p2p_send_valid"]) *
              to_dev(pos_all[:, None, :] >= k_jd[:, :, None],
-                    torch.float32)).sum(-1), q)
-        pair_delta = torch.zeros((q, q), dtype=torch.float32, device=dev)
+                    _F32)).sum(-1), q)
+        pair_delta = torch.zeros((q, q), dtype=_F32, device=dev)
         live = None
         if cache is not None:
             c = cache[call]
@@ -400,6 +555,34 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, key,
         bits = _pair_ledger(meta, f, rm, row_bits, pair_err, pair_delta,
                             live=live, li=lix, n_layers=n_layers,
                             width_map=wm)
+        return sent, bits
+
+    def start(li, x):                                  # x: [Q, P, F]
+        """Issue layer ``li``'s exchange: pack, mask, ship.  Returns
+        ``(halo token, ledger vector)``."""
+        call = next(calls)
+        f = x.shape[-1]
+        if not policy.communicates:                    # No-Comm baseline
+            return None, torch.zeros((2,), dtype=_F32, device=dev)
+        publish = _rows_of(x, graph["send_idx"], p_sz) * \
+            graph["send_valid"][..., None]             # [Q, B, F]
+        if not p2p:                                    # dense all-gather
+            return publish.reshape(q * b_sz, f), \
+                _exchange_bits(meta, f, rate).to(dev)
+        if rate_map is not None:
+            sent, bits = start_rate_map(li, publish, call)
+        else:
+            wire_width = None
+            if policy.compresses:
+                n_keep = _keep_of(f, rate, packed_k)
+                wire_width = n_keep * LANE
+                kept, inv = worker_block_maps(prng.fold_in(key, call), q,
+                                              f // LANE, n_keep)
+                kept_t, inv_t = to_dev(kept), to_dev(inv)
+                publish = wire_unpack(wire_pack(publish, kept_t, inv_t),
+                                      inv_t, kept_t)
+            sent = hops_of(publish)                    # [Q, D, H, F]
+            bits = _exchange_bits(meta, f, rate, wire_width).to(dev)
         # route: receiver i's hop-d rows come from worker (i - d) mod q
         if q > 1:
             src_w = (np.arange(q)[:, None] - np.arange(1, q)[None, :]) % q
@@ -411,17 +594,35 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, key,
         return compact, bits
 
     def complete(li, x, token):
-        """Consume layer ``li``'s delivered halo: the local ELL
-        aggregation plus the remote scatter out of the compact buffer."""
+        """Consume layer ``li``'s delivered halo: the local aggregation
+        (ELL on the p2p wire) plus the remote scatter out of the token."""
         del li
         f = x.shape[-1]
-        loc = ell_aggregate(x.contiguous(), graph["ell_nbr"], graph["ell_w"])
+        if not policy.communicates:                    # No-Comm baseline
+            return _scatter_rows(x, graph["local_dst"], graph["local_src"],
+                                 graph["local_w_iso"], p_sz)
+        if not p2p:
+            local = _scatter_rows(x, graph["local_dst"], graph["local_src"],
+                                  _local_w_for(graph, policy, rate), p_sz)
+            vals = graph["remote_w"][..., None] * token.index_select(
+                0, graph["remote_src"].long().reshape(-1)).reshape(
+                    q, -1, f)
+            off = (torch.arange(q, device=dev) * (p_sz + 1))[:, None]
+            rem = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype,
+                              device=dev).index_add(
+                0, (graph["remote_dst"].long() + off).reshape(-1),
+                vals.reshape(-1, f))
+            return local + rem.reshape(q, p_sz + 1, f)[:, :p_sz]
+        loc = ell_aggregate(x, graph["ell_nbr"],
+                            _ell_w_for(graph, policy, rate),
+                            graph["ell_rnbr"], graph["ell_rslot"])
         vals = graph["remote_w"][..., None] * \
             _rows_of(token, graph["remote_src_p2p"], token.shape[1])
         off = (torch.arange(q, device=dev) * (p_sz + 1))[:, None]
-        rem = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype, device=dev)
-        rem.index_add_(0, (graph["remote_dst"].long() + off).reshape(-1),
-                       vals.reshape(-1, f))
+        rem = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype,
+                          device=dev).index_add(
+            0, (graph["remote_dst"].long() + off).reshape(-1),
+            vals.reshape(-1, f))
         return loc + rem.reshape(q, p_sz + 1, f)[:, :p_sz]
 
     def aggregate(li, x):
@@ -431,6 +632,147 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, key,
     aggregate.start = start
     aggregate.complete = complete
     return aggregate
+
+
+# ---------------------------------------------------------------------------
+# Train, eval and inference steps
+# ---------------------------------------------------------------------------
+
+
+def _per(n: int) -> float:
+    """``1 / max(n, 1)`` rounded to float32: the JAX package divides by
+    split sizes and counts that are compile-time constants, which XLA
+    turns into a multiply by the float32 reciprocal, so the port
+    multiplies by the same number to round alike."""
+    return float(np.float32(1.0) / np.float32(max(n, 1)))
+
+
+def _value_and_grad(fn, params):
+    """``((value, aux), grads)`` of ``fn(params) -> (scalar, aux)`` with
+    respect to every tensor leaf of ``params`` (``jax.value_and_grad``
+    with ``has_aux``); the inputs are left untouched."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    value, aux = fn(live)
+    flat = iter(torch.autograd.grad(value, tree_leaves(live)))
+    return (value.detach(), aux), tree_map(lambda _: next(flat), live)
+
+
+def _local_loss_fn(params, cfg: GNNConfig, graph: dict, aggregate,
+                   meta: DistMeta):
+    """Masked CE over owned train nodes, normalised by the GLOBAL count,
+    so the per-partition losses' summed gradient is the centralized
+    gradient.  Returns ``(loss, forward wire bits)``."""
+    logits, bits = gnn_forward(params, cfg, graph["features"], aggregate)
+    loss_sum, _ = masked_loss_and_correct(logits, graph["labels"],
+                                          graph["train_mask"])
+    return loss_sum * _per(meta.n_train), bits
+
+
+def _step_metrics(loss, rate, bits) -> dict:
+    """Common step metrics: ``bits`` is the forward ``[analytic,
+    transport]`` pair; a train step ships it twice (activations +
+    cotangents)."""
+    bits = bits.cpu()
+    return {"loss": loss, "rate": torch.as_tensor(rate, dtype=_F32),
+            "halo_bits": 2.0 * bits[0], "transport_bits": 2.0 * bits[1]}
+
+
+def _optimize(opt: Optimizer, grads, opt_state, params):
+    with torch.no_grad():
+        updates, new_state = opt.update(grads, opt_state, params)
+        return apply_updates(params, updates), new_state
+
+
+def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
+                    meta: DistMeta, mesh=None, sync: str = "grad"):
+    """One full-batch step of Algorithm 1 on the emulated backend.
+
+    ``step(params, opt_state, graph, step_idx, key) -> (params, opt_state,
+    {loss, rate, halo_bits, transport_bits})``.  The schedule's rate is
+    quantised to the static kept-block counts on the host
+    (:func:`_packed_k_for`); a compressing policy on the p2p wire must use
+    the ``blockmask`` compressor, which the pack/unpack kernels realise.
+
+    Example::
+
+        step = make_train_step(cfg, varco(300, compressor="blockmask"),
+                               adamw(5e-3), meta)
+        params, opt_state, m = step(params, opt_state, graph, 0,
+                                    prng.key(0))
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the shard_map backend is not ported (ROADMAP queue 1): the "
+            "port runs the emulated backend, every partition on one card")
+    if sync not in ("grad", "fedavg"):
+        raise ValueError(f"sync must be 'grad' or 'fedavg', got {sync!r}")
+    if policy.mode == "auto":
+        raise ValueError(
+            "auto policies plan per-pair rate maps closed-loop; build the "
+            "step with repro_torch.dist.ratectl.make_auto_train_step "
+            "(train_gnn routes there automatically)")
+    p2p = meta.wire == "p2p"
+    if policy.compresses and not p2p:
+        raise NotImplementedError(
+            "the dense compressing wire is not ported (ROADMAP queue 1); "
+            "run compressing policies with wire='p2p'")
+    if p2p and policy.compresses:
+        if policy.compressor_name != "blockmask":
+            raise ValueError(
+                f"the p2p wire ships PRNG-selected lane-blocks; a "
+                f"compressing policy must use the 'blockmask' compressor, "
+                f"got {policy.compressor_name!r}")
+        for f_ in {meta.feat_dim, *meta.layer_dims}:
+            if f_ % LANE:
+                raise ValueError(
+                    f"the p2p wire packs lane-blocks under a compressing "
+                    f"policy, so every exchanged width must be divisible "
+                    f"by {LANE}; got {f_}")
+    needs_kb = p2p and policy.compresses
+
+    def step(params, opt_state, graph, step_idx, key):
+        rate = policy.rate(step_idx)
+        kb = dict(_packed_k_for(meta, float(rate))) if needs_kb else None
+
+        def loss_fn(p):
+            agg = _make_aggregate_emulated(graph, meta, policy, rate, key,
+                                           packed_k=kb)
+            return _local_loss_fn(p, cfg, graph, agg, meta)
+
+        (loss, bits), grads = _value_and_grad(loss_fn, params)
+        new_params, new_state = _optimize(opt, grads, opt_state, params)
+        return new_params, new_state, _step_metrics(loss, rate, bits)
+
+    return step
+
+
+def make_eval_step(cfg: GNNConfig, meta: DistMeta, mesh=None):
+    """Full-communication accuracy over the train/val/test splits:
+    ``evaluate(params, graph) -> {"train": acc, "val": acc, "test":
+    acc}`` (float32 tensors), always over the dense wire."""
+    if mesh is not None:
+        raise NotImplementedError("the shard_map backend is not ported "
+                                  "(ROADMAP queue 1)")
+    meta = dataclasses.replace(meta, wire="dense")
+    splits = (("train", "train_mask", meta.n_train),
+              ("val", "val_mask", meta.n_val),
+              ("test", "test_mask", meta.n_test))
+
+    def evaluate(params, graph):
+        with torch.no_grad():
+            agg = _make_aggregate_emulated(graph, meta, FULL_COMM,
+                                           torch.ones((), dtype=_F32),
+                                           prng.key(0))
+            logits, _ = gnn_forward(params, cfg, graph["features"], agg)
+            pred = logits.argmax(-1)
+            out = {}
+            for name, mask_key, n in splits:
+                correct = ((pred == graph["labels"]) *
+                           graph[mask_key].to(_F32)).sum()
+                out[name] = (correct * _per(n)).cpu()
+        return out
+
+    return evaluate
 
 
 def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta):
@@ -475,14 +817,16 @@ def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta):
         cache = tuple(cache)
         cache_out: list = []
         hidden: list = []
-        agg = _make_aggregate_emulated(
-            graph, meta, key, packed_k=dict(kb), rate_map=rm,
-            skip=np.asarray(plan.skip, np.float32) if cache else None,
-            cache=cache if cache else None,
-            cache_out=cache_out if cache else None,
-            width_map=wm, store_w=_packed_store_w(meta, wm))
-        logits, bits = gnn_forward(params, cfg, graph["features"], agg,
-                                   hidden_out=hidden)
+        with torch.no_grad():
+            agg = _make_aggregate_emulated(
+                graph, meta, policy, torch.ones((), dtype=_F32), key,
+                packed_k=dict(kb), rate_map=rm,
+                skip=np.asarray(plan.skip, np.float32) if cache else None,
+                cache=cache if cache else None,
+                cache_out=cache_out if cache else None,
+                width_map=wm, store_w=_packed_store_w(meta, wm))
+            logits, bits = gnn_forward(params, cfg, graph["features"], agg,
+                                       hidden_out=hidden)
         bits = bits.cpu()                 # the one device -> host sync
         n_layers = 1 if rm.ndim == 2 else rm.shape[0]
         lq2 = n_layers * q * q

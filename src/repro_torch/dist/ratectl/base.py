@@ -66,6 +66,22 @@ class RateController:
         return self.plan_fn(state, step)
 
 
+def uniform_plan(q: int, rate) -> RatePlan:
+    """A scalar rate as a (diagonal-1) ``[Q, Q]`` rate map, no skips."""
+    eye = torch.eye(q, dtype=torch.bool)
+    rates = torch.where(eye, _f32(1.0), _f32(rate))
+    return RatePlan(rates, torch.zeros((q, q), dtype=_F32))
+
+
+def uniform_layer_plan(q: int, rates_l) -> RatePlan:
+    """Per-layer uniform rates ``rates_l [L]`` as an ``[L, Q, Q]`` tensor
+    (diagonal 1 per layer), no skips."""
+    r = _f32(rates_l)
+    eye = torch.eye(q, dtype=torch.bool)[None].expand(r.shape[0], q, q)
+    rates = torch.where(eye, _f32(1.0), r[:, None, None].expand(-1, q, q))
+    return RatePlan(rates, torch.zeros((q, q), dtype=_F32))
+
+
 def waterfill(density, rows, cap, y_floor, y_max: float = 1.0,
               iters: int = 60) -> torch.Tensor:
     """Proportional (log-utility) water-filling of keep fractions: solve
@@ -119,9 +135,12 @@ class Pacing:
 def make_pacing(meta, widths, total_steps: int, budget_bits: float,
                 c_max: float = 128.0, c_min: float = 1.0,
                 slope: float = 5.0, kp: float = 4.0,
-                ki: float = 0.25) -> Pacing:
+                ki: float = 0.25, layer_widths=None) -> Pacing:
     """Build the pacing state for ``meta`` (needs ``halo_demand``) and the
-    per-step exchange ``widths`` (``driver.exchange_widths``)."""
+    per-step exchange ``widths`` (``driver.exchange_widths``).
+    ``layer_widths`` (each layer's summed exchange width,
+    ``driver.layer_exchange_widths``) fills ``layer_bits`` for the
+    per-layer controllers; it must sum to ``sum(widths)``."""
     if budget_bits <= 0:
         raise ValueError(f"budget_bits must be positive, got {budget_bits}")
     total = max(total_steps, 1)
@@ -129,11 +148,20 @@ def make_pacing(meta, widths, total_steps: int, budget_bits: float,
     phi = 1.0 / np.asarray([float(sched(t)) for t in range(total)])
     cum = np.concatenate([[0.0], np.cumsum(phi)])
     d_full = 2.0 * 32.0 * float(meta.halo_demand) * float(sum(widths))
+    layer_bits = None
+    if layer_widths is not None:
+        if sum(layer_widths) != sum(widths):
+            raise ValueError(
+                f"layer_widths {tuple(layer_widths)} must sum to the "
+                f"exchange widths' total {sum(widths)}")
+        layer_bits = _f32([2.0 * 32.0 * float(meta.halo_demand) * float(w)
+                           for w in layer_widths])
     return Pacing(total_steps=int(total), budget_bits=float(budget_bits),
                   d_full=d_full, c_max=float(c_max), c_min=float(c_min),
                   kp=float(kp), ki=float(ki),
                   phi=torch.from_numpy(phi.astype(np.float32)),
-                  cum=torch.from_numpy(cum.astype(np.float32)))
+                  cum=torch.from_numpy(cum.astype(np.float32)),
+                  layer_bits=layer_bits)
 
 
 def allowance(p: Pacing, spent, integ, step):
@@ -150,6 +178,22 @@ def allowance(p: Pacing, spent, integ, step):
     share = p.phi[ti] / torch.maximum(p.cum[-1] - p.cum[ti], _f32(1e-12))
     left = torch.maximum(_f32(p.budget_bits) - spent, _f32(0.0))
     return left * share * gain, integ
+
+
+def rate_of_allowance(p: Pacing, bits) -> torch.Tensor:
+    """Uniform rate realising a per-step bit allowance: ``d_full / bits``
+    clamped to ``[max(c_min, 1), c_max]``."""
+    r = _f32(p.d_full) / torch.clamp(_f32(bits), min=1.0)
+    return torch.clamp(r, max(p.c_min, 1.0), p.c_max)
+
+
+def sustainable_cap(p: Pacing, spent, step, bits) -> torch.Tensor:
+    """Clamp one step's allowance to what the remaining budget can
+    sustain for the steps left (committed monotone allocations hold for
+    the rest of the run)."""
+    remaining = torch.clamp(_f32(p.budget_bits) - _f32(spent), min=0.0)
+    steps_left = torch.clamp(_f32(p.total_steps) - _f32(step), min=1.0)
+    return torch.minimum(_f32(bits), remaining / steps_left)
 
 
 # ---------------------------------------------------------------------------
@@ -193,3 +237,57 @@ def refine_widths(y, candidates, live):
     widths = torch.take_along_dim(torch.broadcast_to(cands, y_w.shape).
                                   contiguous(), idx, dim=0)[0]
     return torch.where(live, y_real, y), torch.where(live, widths, _f32(32.0))
+
+
+def best_uniform_width(bits, d_full: float, candidates):
+    """The uniform controllers' width pick: the single width whose cost
+    retains the most of this step's allowance, ``argmax_w min(bits /
+    (d_full·cost_w), 1)·(1 − eps_w)``.  Returns ``(width, cost)`` f32."""
+    cands = _f32(list(candidates))
+    costs = _f32([width_cost(w) for w in candidates])
+    eps = _f32([width_eps(w) for w in candidates])
+    y_w = torch.minimum(_f32(bits) / torch.clamp(d_full * costs, min=1e-30),
+                        _f32(1.0))
+    idx = torch.argmax(y_w * (1.0 - eps))
+    return cands[idx], costs[idx]
+
+
+def widths_map(q: int, width) -> torch.Tensor:
+    """A scalar width as a (diagonal-32) ``[Q, Q]`` width map."""
+    eye = torch.eye(q, dtype=torch.bool)
+    return torch.where(eye, _f32(32.0), _f32(width))
+
+
+# ---------------------------------------------------------------------------
+# Per-layer fill (the per-layer budget controller)
+# ---------------------------------------------------------------------------
+
+
+def init_layer_fill(p: Pacing) -> dict:
+    """Per-layer fill state: the dropped-energy EMA (initialised to
+    ``layer_bits``: uniform density) and the monotone keep-fraction
+    floors."""
+    return {"ema": _f32(p.layer_bits).clone(),
+            "y": torch.full(p.layer_bits.shape, 1.0 / p.c_max, dtype=_F32)}
+
+
+def plan_layer_fill(p: Pacing, state: dict, step, cost_factor=1.0):
+    """One per-layer planning step: PI allowance → sustainable cap →
+    water-fill over ``layer_bits`` weighted by the dropped-energy EMA,
+    floored at the prior commitments.  ``cost_factor`` (the chosen
+    width's :func:`width_cost`) deflates the cap into fp32-equivalent
+    keep units.  Returns ``(rates_l [L], integ', y')``."""
+    bits, integ = allowance(p, state["spent"], state["integ"], step)
+    cap = sustainable_cap(p, state["spent"], step, bits) / cost_factor
+    density = state["ema"] / torch.clamp(p.layer_bits, min=1e-30)
+    y = waterfill(density, p.layer_bits, cap, state["y"], 1.0)
+    rates_l = torch.clamp(1.0 / torch.clamp(y, 1.0 / p.c_max, 1.0),
+                          max(p.c_min, 1.0), p.c_max)
+    return rates_l, integ, y
+
+
+def fold_layer_err(state: dict, obs: dict, ema_decay: float) -> dict:
+    """The per-layer observe update: fold ``obs["layer_err"]`` (summed
+    over pairs) into the dropped-energy EMA.  The key is required."""
+    err_l = _f32(obs["layer_err"]).sum(dim=(1, 2))
+    return {"ema": ema_decay * state["ema"] + (1.0 - ema_decay) * err_l}

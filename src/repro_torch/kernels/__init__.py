@@ -1,10 +1,15 @@
-"""Hand-written Hopper kernels of the ported path, each beside its plain
+"""Hand-written Hopper kernels of the ported paths, each beside its plain
 PyTorch version and a launch counter:
 
-* ``ell_spmm``   — ELLPACK neighbour aggregation (``csrc/ell_spmm.cu``)
-* ``varco_pack`` — lane-block pack / unpack of the wire
-  (``csrc/varco_pack.cu``)
+* ``ell_spmm``         — ELLPACK neighbour aggregation
+  (``csrc/ell_spmm.cu``); its backward is the same kernel over the
+  reversed lists
+* ``varco_pack``       — lane-block pack / unpack of the wire
+  (``csrc/varco_pack.cu``), each the other's VJP
+* ``varco_pack_quant`` — the fused quantised-wire codecs
+  (``csrc/varco_pack_quant.cu``)
 
-``ops`` dispatches by the tensor's device; ``_build`` compiles the CUDA
-sources with ``nvcc`` at first use.
+``ops`` dispatches by the tensor's device and wires the autograd
+functions; ``_build`` compiles the CUDA sources with ``nvcc`` at first
+use.
 """

@@ -1,23 +1,27 @@
 """Public wire and aggregation ops, dispatched by the tensor's device.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving forward.  Each op
-that has a kernel runs it on a CUDA tensor and its plain PyTorch version
-on a CPU tensor; any other device raises.  There is no fallback from the
-kernel to the plain version and no global backend switch — the tensor
-decides.
+Counterpart of ``repro/kernels/ops.py``.  Each op that has a kernel runs
+it on a CUDA tensor and its plain PyTorch version on a CPU tensor; any
+other device raises.  There is no fallback from the kernel to the plain
+version and no global backend switch — the tensor decides.
 
 * :func:`wire_pack` / :func:`wire_unpack` — lane-block gather/scatter
-  (``varco_pack`` / ``varco_unpack`` kernels);
+  (``varco_pack`` / ``varco_unpack`` kernels), differentiable: each is the
+  other's VJP under the same ``(kept, inv)`` pair;
 * :func:`ell_aggregate` — the local-edge ELL aggregation (``ell_spmm``
-  kernel), forward only;
-* the quantised-wire codecs (:func:`quant_levels`, :func:`pack_bits`,
-  :func:`dequant_bits`, :func:`quant_dequant`, :func:`wire_quant`) —
-  elementwise PyTorch on every device, as the JAX runtime composes jnp
-  ``quant_levels`` + ``pack_bits`` on its sub-byte hop path.
+  kernel); its x-cotangent is the same kernel over the reversed lists;
+* :func:`pack_quant` / :func:`unpack_quant` — the fused quantised-wire
+  codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels), and
+  :func:`quant_hop`, the straight-through sub-byte hop built from them;
+* the elementwise quantised-wire codecs (:func:`quant_levels`,
+  :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
+  :func:`wire_quant`) — PyTorch on every device, as the JAX runtime
+  composes them from jnp ops.
 
 Every op takes a leading batch dimension (``[Q, N, F]`` with per-batch
 index rows) or, for the wire ops, an unbatched ``[N, F]`` with one index
-vector.
+vector.  Each differentiable op is a ``torch.autograd.Function`` whose
+backward launches kernels too.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ import torch
 
 from . import ref
 from .ell_spmm import ell_spmm, ell_spmm_plain
-from .varco_pack import (LANE, varco_pack, varco_pack_plain, varco_unpack,
-                         varco_unpack_plain)
+from .varco_pack import (LANE, varco_pack, varco_pack_plain,
+                         varco_pack_quant, varco_pack_quant_plain,
+                         varco_unpack, varco_unpack_plain,
+                         varco_unpack_quant, varco_unpack_quant_plain)
 
 #: wire bit-widths the quantised codecs speak — 32 is the fp32 passthrough,
 #: the rest symmetric per-lane-block int formats bit-packed to sub-byte
@@ -35,42 +41,216 @@ from .varco_pack import (LANE, varco_pack, varco_pack_plain, varco_unpack,
 WIRE_WIDTHS = (2, 4, 8, 32)
 
 
-def _route(kernel, plain, *tensors):
-    dev = tensors[0].device
+def _route(kernel, plain, *args):
+    dev = args[0].device
     if dev.type == "cuda":
-        return kernel(*tensors)
+        return kernel(*args)
     if dev.type == "cpu":
-        return plain(*tensors)
+        return plain(*args)
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
-def _batched(fn, x, idx):
+def _pack(x, kept):
+    return _route(varco_pack, varco_pack_plain, x.contiguous(), kept)
+
+
+def _unpack(packed, inv):
+    return _route(varco_unpack, varco_unpack_plain, packed.contiguous(), inv)
+
+
+class _WirePack(torch.autograd.Function):
+    """``varco_pack`` forward, ``varco_unpack`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, kept, inv):
+        ctx.save_for_backward(inv)
+        return _pack(x, kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        _need_index(inv, "wire_pack", "inv")
+        return _unpack(g, inv), None, None
+
+
+class _WireUnpack(torch.autograd.Function):
+    """``varco_unpack`` forward, ``varco_pack`` backward."""
+
+    @staticmethod
+    def forward(ctx, packed, inv, kept):
+        ctx.save_for_backward(kept)
+        return _unpack(packed, inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        kept, = ctx.saved_tensors
+        _need_index(kept, "wire_unpack", "kept")
+        return _pack(g, kept), None, None
+
+
+def _no_index(like: torch.Tensor) -> torch.Tensor:
+    """The placeholder of an index a forward-only call leaves out."""
+    return torch.empty((0,), dtype=torch.int32, device=like.device)
+
+
+def _need_index(idx: torch.Tensor, op: str, name: str) -> None:
+    if idx.numel() == 0:
+        raise ValueError(f"{op}'s backward needs {name}: pass it to make "
+                         f"the op differentiable")
+
+
+def _batched(fn, x, *idx):
     if x.dim() == 2:
-        return fn(x[None], idx[None])[0]
-    return fn(x, idx)
+        return fn(x[None], *(None if i is None else i[None] for i in idx))[0]
+    return fn(x, *idx)
 
 
-def wire_pack(x: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+def wire_pack(x: torch.Tensor, kept: torch.Tensor,
+              inv: torch.Tensor | None = None) -> torch.Tensor:
     """Gather kept lane-blocks: ``[Q, N, F] -> [Q, N, K·128]`` with
-    ``kept [Q, K]`` (or ``[N, F]`` with ``kept [K]``)."""
-    return _batched(lambda a, b: _route(varco_pack, varco_pack_plain, a, b),
-                    x, kept)
+    ``kept [Q, K]`` (or ``[N, F]`` with ``kept [K]``).  ``inv``, the
+    matched scatter map, serves the backward; without it the op is
+    forward-only."""
+    return _batched(lambda a, k, i: _WirePack.apply(
+        a, k, _no_index(a) if i is None else i), x, kept, inv)
 
 
-def wire_unpack(packed: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+def wire_unpack(packed: torch.Tensor, inv: torch.Tensor,
+                kept: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter a wire payload back: ``[Q, M, K·128] -> [Q, M, F]`` with
-    ``inv [Q, F/128]``, zero-filling dropped blocks (``inv < 0``)."""
-    return _batched(
-        lambda a, b: _route(varco_unpack, varco_unpack_plain, a, b),
-        packed, inv)
+    ``inv [Q, F/128]``, zero-filling dropped blocks (``inv < 0``).
+    ``kept`` serves the backward; without it the op is forward-only."""
+    return _batched(lambda a, i, k: _WireUnpack.apply(
+        a, i, _no_index(a) if k is None else k), packed, inv, kept)
 
 
-def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor
-                  ) -> torch.Tensor:
+class _EllAggregate(torch.autograd.Function):
+    """``ell_spmm`` forward; ``ell_spmm`` over the reversed lists for the
+    x-cotangent, K-sliced plain PyTorch for the weight cotangent (the JAX
+    package computes it outside any kernel too)."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, w, rnbr, rslot):
+        ctx.save_for_backward(x, nbr, w, rnbr, rslot)
+        return _route(ell_spmm, ell_spmm_plain, x.contiguous(), nbr, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, nbr, w, rnbr, rslot = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            _need_index(rnbr, "ell_aggregate", "the reversed lists "
+                        "(rnbr, rslot)")
+            q = w.shape[0]
+            # rw[q, s, r] = w[q].flat[rslot[q, s, r]]: the gather is per
+            # partition, so the flat slot needs no q·P·K offset
+            rw = torch.gather(w.reshape(q, -1), 1,
+                              rslot.reshape(q, -1).clamp(min=0).long())
+            rw = torch.where(rslot >= 0, rw.reshape(rslot.shape),
+                             torch.zeros((), dtype=w.dtype, device=w.device))
+            dx = _route(ell_spmm, ell_spmm_plain, g, rnbr, rw.contiguous())
+        if ctx.needs_input_grad[2]:
+            q, n_src, f = x.shape
+            off = (torch.arange(q, device=x.device) * n_src)[:, None]
+            xf = x.reshape(q * n_src, f).float()
+            dw = torch.zeros(nbr.shape, dtype=torch.float32, device=x.device)
+            for kk in range(nbr.shape[-1]):
+                rows = (nbr[:, :, kk].long() + off).reshape(-1)
+                dw[:, :, kk] = (g.float() * xf.index_select(0, rows)
+                                .reshape(g.shape)).sum(-1)
+            dw = dw.to(w.dtype)
+        return dx, None, dw, None, None
+
+
+def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                  rnbr: torch.Tensor | None = None,
+                  rslot: torch.Tensor | None = None) -> torch.Tensor:
     """ELL aggregation ``out[q, i] = Σ_k w[q, i, k] x[q, nbr[q, i, k]]``
-    over every partition at once (forward only; the reversed-list
-    backward is a later port)."""
-    return _route(ell_spmm, ell_spmm_plain, x, nbr, w)
+    over every partition at once.  ``rnbr``/``rslot [Q, P, RK]`` are the
+    reversed lists (``repro_torch.dist.halo.build_reverse_ell``) the
+    x-cotangent runs over; without them the op is forward-only."""
+    empty = _no_index(x)
+    return _EllAggregate.apply(x, nbr, w,
+                               empty if rnbr is None else rnbr,
+                               empty if rslot is None else rslot)
+
+
+# ---------------------------------------------------------------------------
+# Fused quantised-wire codecs
+# ---------------------------------------------------------------------------
+
+
+def qmax_of(width) -> torch.Tensor:
+    """``2^(w-1) - 1`` in float32 (127, 7, 1 at widths 8, 4, 2)."""
+    w = torch.as_tensor(width, dtype=torch.float32)
+    return 2.0 ** (w - 1.0) - 1.0
+
+
+def pack_quant(x: torch.Tensor, kept: torch.Tensor, width: int,
+               qmax: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused gather + quantise + bit-pack: ``[B, N, F]`` with ``kept [B,
+    K]`` -> ``(payload uint8 [B, N, K·128·width/8], scales f32 [B, N,
+    K])`` (or unbatched ``[N, F]`` with ``kept [K]``).  ``qmax [B]``
+    defaults to ``2^(width-1) - 1`` for every row — the JAX package's
+    static-width ``pack_quant``; a smaller per-row ``qmax`` quantises that
+    row at a narrower width inside the same storage."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x, kept = x[None], kept[None]
+    if qmax is None:
+        qmax = qmax_of(width).expand(x.shape[0])
+    qmax = qmax.to(device=x.device, dtype=torch.float32).contiguous()
+    payload, scales = _route(varco_pack_quant, varco_pack_quant_plain,
+                             x.contiguous(), kept, qmax, width)
+    return (payload[0], scales[0]) if squeeze else (payload, scales)
+
+
+def unpack_quant(payload: torch.Tensor, scales: torch.Tensor,
+                 inv: torch.Tensor, width: int) -> torch.Tensor:
+    """Fused bit-unpack + dequantise + scatter: ``(payload uint8 [B, N,
+    K·128·width/8], scales [B, N, K], inv [B, F/128]) -> f32 [B, N, F]``
+    with dropped blocks zero-filled (or unbatched)."""
+    if payload.dim() == 2:
+        return unpack_quant(payload[None], scales[None], inv[None],
+                            width)[0]
+    return _route(varco_unpack_quant, varco_unpack_quant_plain,
+                  payload.contiguous(), scales.contiguous(), inv, width)
+
+
+class _QuantHop(torch.autograd.Function):
+    """The sub-byte hop: ``unpack_quant(pack_quant(x))`` forward, the
+    straight-through estimator followed by ``wire_unpack``'s VJP
+    backward — the cotangent passes unchanged on kept blocks and is zero
+    on dropped ones."""
+
+    @staticmethod
+    def forward(ctx, x, kept, inv, qmax, width):
+        payload, scales = _route(varco_pack_quant, varco_pack_quant_plain,
+                                 x, kept, qmax, width)
+        ctx.save_for_backward(inv)
+        return _route(varco_unpack_quant, varco_unpack_quant_plain,
+                      payload, scales, inv, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        keep = (inv >= 0).to(g.dtype).repeat_interleave(LANE, dim=-1)
+        return g * keep[:, None, :], None, None, None, None
+
+
+def quant_hop(x: torch.Tensor, kept: torch.Tensor, inv: torch.Tensor,
+              qmax: torch.Tensor, width: int) -> torch.Tensor:
+    """What a receiver rebuilds from a sub-byte hop: ``x [B, H, F]`` (the
+    full-width pre-quantisation rows), each batch row's ``kept [B, K]`` /
+    ``inv [B, F/128]`` and ``qmax [B]``, stored at ``width`` bits ->
+    ``[B, H, F]`` f32, bitwise ``wire_unpack(dequant_bits(pack_bits(
+    quant_levels(wire_pack(x)))))``.  Gradients pass straight through to
+    ``x`` on the kept blocks."""
+    return _QuantHop.apply(x.contiguous(), kept, inv,
+                           qmax.to(device=x.device,
+                                   dtype=torch.float32).contiguous(), width)
 
 
 # ---------------------------------------------------------------------------
@@ -116,10 +296,11 @@ def quant_dequant(x: torch.Tensor, width) -> torch.Tensor:
 
 
 def wire_quant(x: torch.Tensor, width) -> torch.Tensor:
-    """The quantised wire's delivered values, ``x + (quant_dequant(x) -
-    x)`` — the JAX package's straight-through form, kept term for term so
-    the rounding matches (serving runs no backward)."""
-    return x + (quant_dequant(x, width) - x)
+    """Straight-through :func:`quant_dequant`: the forward sees the
+    quantised wire values, ``x + (quant_dequant(x) - x)`` term for term as
+    the JAX package rounds them; the backward passes gradients through
+    unchanged."""
+    return x + (quant_dequant(x, width) - x).detach()
 
 
 def pack_bits(levels: torch.Tensor, width: int) -> torch.Tensor:

@@ -1,14 +1,21 @@
 """Plain PyTorch counterparts of the JAX package's kernel oracles
 (``repro/kernels/ref.py``), unbatched like those: ``[N, F]`` rows with one
 index vector.  The batched plain versions the kernels are checked against
-live beside each kernel (``varco_pack_plain``, ``ell_spmm_plain``)."""
+live beside each kernel (``varco_pack_plain``, ``varco_pack_quant_plain``,
+``ell_spmm_plain``)."""
 
 from __future__ import annotations
 
 import torch
 
 from .ell_spmm import ell_spmm_plain
-from .varco_pack import LANE, varco_pack_plain, varco_unpack_plain
+from .varco_pack import (LANE, pack_bits_plain, unpack_bits_plain,
+                         varco_pack_plain, varco_unpack_plain)
+
+#: bit-pack int-``width`` levels (8/width lanes per byte, little-endian)
+pack_bits_reference = pack_bits_plain
+#: sign-extending inverse of :func:`pack_bits_reference`
+unpack_bits_reference = unpack_bits_plain
 
 
 def pack_reference(x: torch.Tensor, block_idx: torch.Tensor) -> torch.Tensor:
@@ -28,47 +35,6 @@ def ell_spmm_reference(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor
     return ell_spmm_plain(x[None], nbr[None], w[None])[0]
 
 
-def pack_bits_reference(levels: torch.Tensor, width: int) -> torch.Tensor:
-    """Bit-pack int-``width`` levels into bytes: int8 ``[..., M]`` ->
-    uint8 ``[..., ceil(M / (8/width))]``, ``8/width`` consecutive lanes per
-    byte, little-endian within the byte, low ``width`` bits of each two's
-    complement.  ``width == 8`` is the identity reinterpret; tail lanes
-    are zero-padded into the last byte."""
-    if width not in (2, 4, 8):
-        raise ValueError(f"width must be 2, 4 or 8, got {width}")
-    lv = levels.to(torch.int8)
-    if width == 8:
-        return lv.view(torch.uint8)
-    vpb = 8 // width
-    pad = (-lv.shape[-1]) % vpb
-    if pad:
-        lv = torch.nn.functional.pad(lv, (0, pad))
-    u = lv.view(torch.uint8) & (2 ** width - 1)
-    u = u.reshape(*lv.shape[:-1], -1, vpb)
-    out = u[..., 0].clone()
-    for j in range(1, vpb):
-        out |= u[..., j] << (j * width)
-    return out
-
-
-def unpack_bits_reference(packed: torch.Tensor, width: int,
-                          m: int | None = None) -> torch.Tensor:
-    """Inverse of :func:`pack_bits_reference`: uint8 bytes -> sign-extended
-    int8 levels (``m`` trims the tail byte's zero-pad lanes)."""
-    if width not in (2, 4, 8):
-        raise ValueError(f"width must be 2, 4 or 8, got {width}")
-    if width == 8:
-        out = packed.view(torch.int8)
-        return out if m is None else out[..., :m]
-    vpb = 8 // width
-    shifts = torch.arange(vpb, dtype=torch.uint8, device=packed.device) \
-        * width
-    v = ((packed[..., None] >> shifts) & (2 ** width - 1)).to(torch.int32)
-    v = torch.where(v >= 2 ** (width - 1), v - 2 ** width, v)
-    out = v.to(torch.int8).reshape(*packed.shape[:-1], -1)
-    return out[..., : (m if m is not None else out.shape[-1])]
-
-
 def quant_levels_reference(packed: torch.Tensor, width: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(row, block) symmetric quantisation of a packed fp32 payload:
@@ -82,3 +48,32 @@ def quant_levels_reference(packed: torch.Tensor, width: int
     scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
     q = torch.clamp(torch.round(pb / scale[..., None]), -qmax, qmax)
     return q.to(torch.int8).reshape(n, kf), scale
+
+
+def pack_quant_reference(x: torch.Tensor, block_idx: torch.Tensor,
+                         width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused pack+quantise oracle: x [N, F], block_idx [K] -> (payload
+    uint8 [N, K*LANE*width/8], scales f32 [N, K]) — exactly
+    ``pack_bits(quant_levels(pack(x)))``."""
+    levels, scale = quant_levels_reference(pack_reference(x, block_idx),
+                                           width)
+    return pack_bits_reference(levels, width), scale
+
+
+def quant_dequant_reference(levels: torch.Tensor, scales: torch.Tensor
+                            ) -> torch.Tensor:
+    """Decode *unpacked* quantisation levels: int8 [N, K*LANE] × scales
+    [N, K] -> f32 [N, K*LANE]."""
+    n, kf = levels.shape
+    k = kf // LANE
+    pb = levels.to(torch.float32).reshape(n, k, LANE)
+    return (pb * scales[..., None]).reshape(n, kf)
+
+
+def unpack_quant_reference(payload: torch.Tensor, scales: torch.Tensor,
+                           width: int) -> torch.Tensor:
+    """Receiver's side of :func:`pack_quant_reference`: sub-byte payload
+    uint8 [N, K*LANE*width/8] × scales [N, K] -> f32 [N, K*LANE]."""
+    k = scales.shape[-1]
+    levels = unpack_bits_reference(payload, width, k * LANE)
+    return quant_dequant_reference(levels, scales)

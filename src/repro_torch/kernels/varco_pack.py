@@ -21,14 +21,34 @@ row as 32 coalesced 16-byte loads, each block loads its own ``kept``/``inv``
 row, and a leading batch dimension ``Q`` with one index row per sender lets
 one launch serve every sender (the JAX package vmaps over them).
 
-Beside each kernel: its plain PyTorch version (``varco_pack_plain`` /
-``varco_unpack_plain``, what CPU tensors run) and a launch counter
-(``varco_pack.launches``), bumped only where the kernel is launched.
+The quantised wire fuses the gather with the codec (CUDA C++,
+``csrc/varco_pack_quant.cu``):
+
+* :func:`varco_pack_quant` replaces ``repro/kernels/varco_pack.py::
+  varco_pack_quant`` (``_pack_quant_kernel``, ``varco_pack.py:158``):
+  gather + per-(row, block) amax/scale + round-half-even + clamp +
+  sub-byte bit-pack (``8/w`` lanes per byte);
+* :func:`varco_unpack_quant` replaces ``varco_pack.py::varco_unpack_quant``
+  (``_unpack_quant_kernel``, ``varco_pack.py:213``): bit-unpack +
+  sign-extend + ``× scale`` + scatter with zero-fill.
+
+Both are bound by device-memory bytes.  One warp per (batch row, block);
+the block amax is a warp shuffle max-reduce and each lane's four levels
+fill whole bytes at every width, so the kernels need neither shared
+memory nor atomics.  The TPU kernels take one static ``qmax``; here each
+batch row (one sender's hop to one receiver) carries its own ``qmax``,
+so pairs planned below the storage width share the launch.
+
+Beside each kernel: its plain PyTorch version (``varco_pack_plain``,
+``varco_pack_quant_plain``, ...; what CPU tensors run) and a launch
+counter (``varco_pack.launches``), bumped only where the kernel is
+launched.
 
 The mask builders (:func:`block_mask_indices_k`,
-:func:`block_mask_indices_pos`, :func:`worker_block_maps_pos`) draw from
-the bitwise port of the JAX key stream (``repro_torch.prng``), so kept
-sets equal the JAX package's for the same key.
+:func:`block_mask_indices_pos`, :func:`worker_block_maps`,
+:func:`worker_block_maps_pos`) draw from the bitwise port of the JAX key
+stream (``repro_torch.prng``), so kept sets equal the JAX package's for
+the same key.
 """
 
 from __future__ import annotations
@@ -49,6 +69,14 @@ _FUNCS = {
     "varco_unpack_f32": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 +
     [ctypes.c_int, ctypes.c_void_p],
 }
+_QUANT_FUNCS = {
+    "varco_pack_quant_f32": [ctypes.c_void_p] * 5 +
+    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "varco_unpack_quant_f32": [ctypes.c_void_p] * 4 +
+    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+#: sub-byte storage widths of the quantised wire (8/w lanes per byte)
+STORE_WIDTHS = (2, 4, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +105,14 @@ def block_mask_indices_pos(key: np.ndarray, n_blocks: int, k: int
     inv = np.full(n_blocks, -1, np.int32)
     inv[kept] = np.arange(k, dtype=np.int32)
     return kept, inv, pos
+
+
+def worker_block_maps(key: np.ndarray, q: int, n_blocks: int, k: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Every worker's ``(kept [Q, k], inv [Q, n_blocks])`` for one
+    exchange (the scalar-rate wires' masks)."""
+    kept, inv, _ = worker_block_maps_pos(key, q, n_blocks, k)
+    return kept, inv
 
 
 def worker_block_maps_pos(key: np.ndarray, q: int, n_blocks: int, k: int
@@ -116,6 +152,78 @@ def varco_unpack_plain(packed: torch.Tensor, inv: torch.Tensor
     return torch.where(live, out, torch.zeros((), dtype=out.dtype,
                                               device=out.device)
                        ).reshape(q, m, nb * LANE)
+
+
+def pack_bits_plain(levels: torch.Tensor, width: int) -> torch.Tensor:
+    """Bit-pack int-``width`` levels into bytes: int8 ``[..., M]`` ->
+    uint8 ``[..., ceil(M / (8/width))]``, ``8/width`` consecutive lanes per
+    byte, little-endian within the byte, low ``width`` bits of each two's
+    complement.  ``width == 8`` is the identity reinterpret; tail lanes
+    are zero-padded into the last byte."""
+    if width not in STORE_WIDTHS:
+        raise ValueError(f"width must be 2, 4 or 8, got {width}")
+    lv = levels.to(torch.int8)
+    if width == 8:
+        return lv.view(torch.uint8)
+    vpb = 8 // width
+    pad = (-lv.shape[-1]) % vpb
+    if pad:
+        lv = torch.nn.functional.pad(lv, (0, pad))
+    u = lv.view(torch.uint8) & (2 ** width - 1)
+    u = u.reshape(*lv.shape[:-1], -1, vpb)
+    out = u[..., 0].clone()
+    for j in range(1, vpb):
+        out |= u[..., j] << (j * width)
+    return out
+
+
+def unpack_bits_plain(packed: torch.Tensor, width: int,
+                      m: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`pack_bits_plain`: uint8 bytes -> sign-extended
+    int8 levels (``m`` trims the tail byte's zero-pad lanes)."""
+    if width not in STORE_WIDTHS:
+        raise ValueError(f"width must be 2, 4 or 8, got {width}")
+    if width == 8:
+        out = packed.view(torch.int8)
+        return out if m is None else out[..., :m]
+    vpb = 8 // width
+    shifts = torch.arange(vpb, dtype=torch.uint8, device=packed.device) \
+        * width
+    v = ((packed[..., None] >> shifts) & (2 ** width - 1)).to(torch.int32)
+    v = torch.where(v >= 2 ** (width - 1), v - 2 ** width, v)
+    out = v.to(torch.int8).reshape(*packed.shape[:-1], -1)
+    return out[..., : (m if m is not None else out.shape[-1])]
+
+
+def varco_pack_quant_plain(x: torch.Tensor, kept: torch.Tensor,
+                           qmax: torch.Tensor, width: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x ``[B, N, F]``, kept ``[B, K]``, qmax ``[B]`` -> ``(payload uint8
+    [B, N, K·128·width/8], scales f32 [B, N, K])``: the kept blocks'
+    per-(row, block) symmetric levels ``clamp(round(x / scale), ±qmax)``
+    with ``scale = amax / qmax`` (1 for an all-zero block), bit-packed at
+    ``width``."""
+    packed = varco_pack_plain(x, kept)
+    b, n, kf = packed.shape
+    k = kf // LANE
+    pb = packed.reshape(b, n, k, LANE)
+    qm = qmax.to(torch.float32).reshape(b, 1, 1)
+    amax = pb.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qm, torch.ones_like(amax))
+    lv = torch.round(pb / scale[..., None])
+    lv = torch.minimum(torch.maximum(lv, -qm[..., None]), qm[..., None])
+    return pack_bits_plain(lv.to(torch.int8).reshape(b, n, kf), width), scale
+
+
+def varco_unpack_quant_plain(payload: torch.Tensor, scales: torch.Tensor,
+                             inv: torch.Tensor, width: int) -> torch.Tensor:
+    """payload uint8 ``[B, N, K·128·width/8]``, scales ``[B, N, K]``, inv
+    ``[B, NB]`` -> f32 ``[B, N, NB·128]``: ``level · scale`` scattered back,
+    zero where ``inv < 0``."""
+    b, n, k = scales.shape
+    levels = unpack_bits_plain(payload, width, k * LANE)
+    deq = levels.to(torch.float32).reshape(b, n, k, LANE) * scales[..., None]
+    return varco_unpack_plain(deq.reshape(b, n, k * LANE), inv)
 
 
 # ---------------------------------------------------------------------------
@@ -186,5 +294,74 @@ def varco_unpack(packed: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def varco_pack_quant(x: torch.Tensor, kept: torch.Tensor, qmax: torch.Tensor,
+                     width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA fused pack + quantise + bit-pack: x ``[B, N, F]`` f32, kept
+    ``[B, K]`` int32, qmax ``[B]`` f32 -> ``(payload uint8 [B, N,
+    K·128·width/8], scales f32 [B, N, K])``, ``width`` in {2, 4, 8}."""
+    if x.dtype != torch.float32 or kept.dtype != torch.int32 or \
+            qmax.dtype != torch.float32:
+        raise TypeError(f"varco_pack_quant needs f32 x/qmax and int32 kept, "
+                        f"got {x.dtype}, {qmax.dtype}, {kept.dtype}")
+    if width not in STORE_WIDTHS:
+        raise ValueError(f"varco_pack_quant width must be 2, 4 or 8, got "
+                         f"{width}")
+    if x.dim() != 3 or kept.dim() != 2 or kept.shape[0] != x.shape[0] or \
+            qmax.shape != (x.shape[0],) or x.shape[2] % LANE:
+        raise ValueError(f"varco_pack_quant needs x [B, N, F·128], kept "
+                         f"[B, K] and qmax [B], got {tuple(x.shape)}, "
+                         f"{tuple(kept.shape)}, {tuple(qmax.shape)}")
+    dev = _check_cuda("varco_pack_quant", x=x, kept=kept, qmax=qmax)
+    b, n, f = x.shape
+    k = kept.shape[1]
+    payload = torch.empty((b, n, k * LANE * width // 8), dtype=torch.uint8,
+                          device=dev)
+    scales = torch.empty((b, n, k), dtype=torch.float32, device=dev)
+    lib = _build.library("varco_pack_quant", _QUANT_FUNCS)
+    _build.check(lib.varco_pack_quant_f32(
+        x.data_ptr(), kept.data_ptr(), qmax.data_ptr(), payload.data_ptr(),
+        scales.data_ptr(), b, n, f // LANE, k, width, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), "varco_pack_quant")
+    varco_pack_quant.launches += 1
+    return payload, scales
+
+
+def varco_unpack_quant(payload: torch.Tensor, scales: torch.Tensor,
+                       inv: torch.Tensor, width: int) -> torch.Tensor:
+    """CUDA fused bit-unpack + dequantise + scatter: payload uint8 ``[B, N,
+    K·128·width/8]``, scales f32 ``[B, N, K]``, inv int32 ``[B, NB]`` ->
+    f32 ``[B, N, NB·128]``, zero-filling blocks with ``inv < 0``."""
+    if payload.dtype != torch.uint8 or scales.dtype != torch.float32 or \
+            inv.dtype != torch.int32:
+        raise TypeError(f"varco_unpack_quant needs uint8 payload, f32 scales "
+                        f"and int32 inv, got {payload.dtype}, {scales.dtype},"
+                        f" {inv.dtype}")
+    if width not in STORE_WIDTHS:
+        raise ValueError(f"varco_unpack_quant width must be 2, 4 or 8, got "
+                         f"{width}")
+    if payload.dim() != 3 or scales.dim() != 3 or inv.dim() != 2 or \
+            scales.shape[:2] != payload.shape[:2] or \
+            inv.shape[0] != payload.shape[0] or \
+            payload.shape[2] != scales.shape[2] * LANE * width // 8:
+        raise ValueError(f"varco_unpack_quant needs payload [B, N, "
+                         f"K·128·w/8], scales [B, N, K] and inv [B, NB], got "
+                         f"{tuple(payload.shape)}, {tuple(scales.shape)}, "
+                         f"{tuple(inv.shape)}")
+    dev = _check_cuda("varco_unpack_quant", payload=payload, scales=scales,
+                      inv=inv)
+    b, n, k = scales.shape
+    nb = inv.shape[1]
+    out = torch.empty((b, n, nb * LANE), dtype=torch.float32, device=dev)
+    lib = _build.library("varco_pack_quant", _QUANT_FUNCS)
+    _build.check(lib.varco_unpack_quant_f32(
+        payload.data_ptr(), scales.data_ptr(), inv.data_ptr(),
+        out.data_ptr(), b, n, nb, k, width, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), "varco_unpack_quant")
+    varco_unpack_quant.launches += 1
+    return out
+
+
 varco_pack.launches = 0
 varco_unpack.launches = 0
+varco_pack_quant.launches = 0
+varco_unpack_quant.launches = 0

@@ -1,9 +1,11 @@
 from .gnn import (GNNConfig, centralized_aggregate_fn, centralized_forward,
-                  gnn_forward, init_gnn, params_from_jax, params_to)
+                  gnn_forward, init_gnn, masked_loss_and_correct,
+                  params_from_jax, params_to)
 from .modules import dense, dense_init
 
 __all__ = [
     "GNNConfig", "centralized_aggregate_fn", "centralized_forward",
-    "gnn_forward", "init_gnn", "params_from_jax", "params_to",
+    "gnn_forward", "init_gnn", "masked_loss_and_correct",
+    "params_from_jax", "params_to",
     "dense", "dense_init",
 ]

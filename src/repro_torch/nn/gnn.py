@@ -64,16 +64,23 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator,
 
 
 def params_from_jax(tree, device="cuda"):
-    """Carry the JAX package's parameters into the port: ``tree`` is the
-    JAX parameter pytree with every leaf already converted to numpy by the
-    caller (``jax.tree_util.tree_map(np.asarray, params)``).  Dicts and
-    lists keep their structure, each array becomes a float32 tensor on
-    ``device``; dense weights stay ``[d_in, d_out]``."""
+    """Carry the JAX package's state into the port: ``tree`` is a JAX
+    pytree (parameters, an optimiser state ``{"step", "mu", "nu"}``, an
+    error-feedback residual tuple) with every leaf already converted to
+    numpy by the caller (``jax.tree_util.tree_map(np.asarray, tree)``).
+    Dicts, lists and tuples keep their structure and ``None`` stays
+    ``None``; a floating array becomes a float32 tensor on ``device``, an
+    integer one keeps its dtype; dense weights stay ``[d_in, d_out]``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, np.float32)).to(device)
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    if tree is None:
+        return None
+    a = np.asarray(tree)
+    if not np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def params_to(params, device):
@@ -81,8 +88,8 @@ def params_to(params, device):
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
+        return type(params)(params_to(v, device) for v in params)
+    return None if params is None else params.to(device)
 
 
 def gnn_forward(params: dict, cfg: GNNConfig, x: torch.Tensor,
@@ -130,6 +137,19 @@ def gnn_forward(params: dict, cfg: GNNConfig, x: torch.Tensor,
         if hidden_out is not None:
             hidden_out.append(h)
     return h, bits
+
+
+def masked_loss_and_correct(logits: torch.Tensor, labels: torch.Tensor,
+                            mask: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum of softmax cross-entropy over masked nodes and the count of
+    correct predictions (``logsumexp - gold``, as the JAX package)."""
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.logsumexp(logits, dim=-1) - gold
+    m = mask.to(torch.float32)
+    loss_sum = (ce * m).sum()
+    correct = ((logits.argmax(-1) == labels) * m).sum()
+    return loss_sum, correct
 
 
 def centralized_aggregate_fn(n: int, dst: torch.Tensor, src: torch.Tensor,

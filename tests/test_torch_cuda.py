@@ -5,9 +5,12 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Pack/unpack are pure copies and must agree bitwise; the ELL SpMM within
-1e-5 (the kernel contracts ``acc + w·x`` into an FMA, the plain version
-rounds the product first).
+Pack/unpack and the fused quantised codecs must agree bitwise (IEEE
+division, round-half-even, one multiply per decoded lane); the ELL SpMM
+within 1e-5 (the kernel contracts ``acc + w·x`` into an FMA, the plain
+version rounds the product first).  Each autograd ``Function``'s backward
+on the card is held to the plain version's autograd on the CPU within
+1e-5 (atomic scatters and FMA contraction reorder f32 sums).
 """
 
 from __future__ import annotations
@@ -97,3 +100,113 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
         tvp.varco_pack(x, kept.long())
     with pytest.raises(ValueError):
         tvp.varco_pack(torch.zeros((1, 8, 100), device=cuda_device), kept)
+
+
+def _quant_inputs(rng, b, n, nb, k, zero_block=True):
+    x = rng.normal(size=(b, n, nb * LANE)).astype(np.float32)
+    if zero_block and n > 1:
+        x[0, 1] = 0.0                                  # all-zero blocks
+    masks = [_masks(rng, nb, k) for _ in range(b)]
+    kept = np.stack([m[0] for m in masks])
+    inv = np.stack([m[1] for m in masks])
+    return x, kept, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 4, 8])
+@pytest.mark.parametrize("b,n,nb,k", [(12, 1000, 2, 2), (12, 333, 2, 1),
+                                      (3, 77, 3, 2), (1, 1, 1, 1)])
+def test_cuda_quant_codecs_match_plain_bitwise(cuda_device, width, b, n, nb,
+                                               k):
+    rng = np.random.default_rng(width * 1000 + n + k)
+    x, kept, inv = _quant_inputs(rng, b, n, nb, k)
+    # per-row qmax at or below the storage width (a mixed-width plan)
+    qmax = np.asarray([2.0 ** (rng.choice([w for w in (2, 4, 8)
+                                            if w <= width]) - 1) - 1
+                       for _ in range(b)], np.float32)
+    xt, kt, it, qt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (x, kept, inv, qmax))
+    before = (tvp.varco_pack_quant.launches, tvp.varco_unpack_quant.launches)
+    payload, scales = tops.pack_quant(xt, kt, width, qt)
+    out = tops.unpack_quant(payload, scales, it, width)
+    torch.cuda.synchronize()
+    assert (tvp.varco_pack_quant.launches,
+            tvp.varco_unpack_quant.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    p_ref, s_ref = tvp.varco_pack_quant_plain(xt, kt, qt, width)
+    assert torch.equal(payload, p_ref)
+    assert torch.equal(scales, s_ref)
+    assert torch.equal(out, tvp.varco_unpack_quant_plain(payload, scales, it,
+                                                         width))
+
+
+def _grad_pair(fn, inputs, cuda_device, seed):
+    """``fn``'s output and input cotangents on the card and on the CPU
+    (plain versions) for one seeded upstream cotangent."""
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [a.to(dev) for a in inputs]
+        args[0] = args[0].clone().requires_grad_(True)
+        y = fn(*args)
+        g = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=tuple(y.shape)).astype(np.float32)).to(dev)
+        (gx,) = torch.autograd.grad(y, args[0], g)
+        outs.append((y.detach().cpu(), gx.cpu()))
+    return outs
+
+
+@pytest.mark.cuda
+def test_cuda_wire_pack_unpack_backward(cuda_device):
+    rng = np.random.default_rng(11)
+    x, kept, inv = _quant_inputs(rng, 4, 300, 2, 1, zero_block=False)
+    xt, kt, it = map(torch.from_numpy, (x, kept, inv))
+    before = (tvp.varco_pack.launches, tvp.varco_unpack.launches)
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, k, i: tops.wire_pack(a, k, i), [xt, kt, it], cuda_device, 1)
+    assert tvp.varco_unpack.launches == before[1] + 1     # the VJP
+    assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+    packed = torch.from_numpy(rng.normal(size=(4, 300, LANE))
+                              .astype(np.float32))
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, i, k: tops.wire_unpack(a, i, k), [packed, it, kt],
+        cuda_device, 2)
+    assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_ell_aggregate_backward(cuda_device):
+    """The x-cotangent is the ``ell_spmm`` kernel over the reversed
+    lists; held to the plain version's autograd within 1e-5."""
+    from repro_torch.dist.halo import build_reverse_ell
+
+    rng = np.random.default_rng(12)
+    q, p, k, f = 3, 500, 9, 256
+    parts = [_ell_inputs(rng, p, p, k, f) for _ in range(q)]
+    x, nbr, w = (torch.from_numpy(np.stack([pp[i] for pp in parts]))
+                 for i in range(3))
+    rev = [build_reverse_ell(nbr[i].numpy(), w[i].numpy() != 0, p)
+           for i in range(q)]
+    rk = max(r[0].shape[1] for r in rev)
+    rnbr = np.zeros((q, p, rk), np.int32)
+    rslot = np.full((q, p, rk), -1, np.int32)
+    for i, (rn, rs) in enumerate(rev):
+        rnbr[i, :, :rn.shape[1]], rslot[i, :, :rs.shape[1]] = rn, rs
+    before = tell.ell_spmm.launches
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, n_, w_, rn, rs: tops.ell_aggregate(a, n_, w_, rn, rs),
+        [x, nbr, w, torch.from_numpy(rnbr), torch.from_numpy(rslot)],
+        cuda_device, 3)
+    assert tell.ell_spmm.launches == before + 2           # forward + VJP
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gx, gx_ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_hop_forward_and_backward(cuda_device):
+    rng = np.random.default_rng(13)
+    x, kept, inv = _quant_inputs(rng, 12, 400, 2, 1)
+    qmax = np.full(12, 127.0, np.float32)
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, k, i, qm: tops.quant_hop(a, k, i, qm, 8),
+        [torch.from_numpy(a) for a in (x, kept, inv, qmax)], cuda_device, 4)
+    assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)

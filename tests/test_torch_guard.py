@@ -52,14 +52,15 @@ def test_import_scan_sees_relative_and_nested_imports(tmp_path):
 
 def test_entry_points_default_to_cuda():
     from repro_torch.dist.halo import attach_p2p
-    from repro_torch.dist.ratectl import init_halo_cache
+    from repro_torch.dist.ratectl import init_halo_cache, init_wire_residuals
     from repro_torch.graph.partition import PartitionedGraph
     from repro_torch.nn.gnn import centralized_forward, init_gnn
     from repro_torch.serve import ServingEngine
+    from repro_torch.train.trainer import train_gnn
 
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
-               centralized_forward, init_halo_cache,
-               PartitionedGraph.device_arrays):
+               centralized_forward, init_halo_cache, init_wire_residuals,
+               PartitionedGraph.device_arrays, train_gnn):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -77,6 +78,11 @@ def test_default_device_raises_without_a_card():
     params = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(g, params, cfg, q=2)
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.train.trainer import train_gnn
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_gnn(g, q=2, policy=CommPolicy.parse("full", 1), epochs=1,
+                  hidden=128, layers=2)
     pg = partition_graph(g, 2)
     with pytest.raises((RuntimeError, AssertionError)):
         attach_p2p(pg.device_arrays("cpu"), pg)

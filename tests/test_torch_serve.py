@@ -214,9 +214,10 @@ def test_policy_parse_matches_jax():
         assert (pt.controller, pt.budget_bits, pt.max_width,
                 pt.per_layer) == (pj.controller, pj.budget_bits,
                                   pj.max_width, pj.per_layer)
-    for bad in ("full", "fixed:4", "varco:linear:5"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CommPolicy.parse(bad, 10)
+    # the open-loop modes are ported with the training slice
+    for spec in ("full", "fixed:4", "varco:linear:5"):
+        pt, pj = CommPolicy.parse(spec, 10), JPolicy.parse(spec, 10)
+        assert (str(pt), pt.mode) == (str(pj), pj.mode)
     with pytest.raises(ValueError):
         CommPolicy.parse("auto:qos:1e8:w3", 10)
 
