@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py                 # the full-size serving + training
+    python3 chip_smoke.py                 # the full-size GNN serving +
+                                          # training, then LM serving
     python3 chip_smoke.py --nodes 20000   # a quicker, smaller graph
 
 Phases, each fatal on failure (exit code 1, no result line):
@@ -46,14 +47,39 @@ Phases, each fatal on failure (exit code 1, no result line):
    finite and ``full``'s must fall; per-epoch loss, rate, width, bits,
    step time and the peak device memory are printed.
 
+7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
+   ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
+   over as the model's ``[B, S, H, D]`` views), at D = 256 (gemma's
+   heads), with a window, at a ragged S and in f32; ``ssd_chunk`` at
+   mamba2-130m's (x ``[8, 8, 256, 24, 64]``, B/C ``[8, 8, 256, 1, 128]``,
+   f32, strided like the conv output) and at a two-group ragged shape.
+   Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
+   bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
+   absolute), with kernel, plain and library times (flash: ``scaled_dot_
+   product_attention(is_causal=True, enable_gqa=True)``, timed here only;
+   SSD: none) and the bound (bf16 products against the 989 TFLOP/s
+   tensor-core peak, f32 against 67 TFLOP/s).
+8. lm — launch counts set to 0, then ``serve`` on granite-3-2b and on
+   mamba2-130m at full size (40 bf16 / 24 f32 layers, random weights from
+   a seeded generator on the card): batch 8, prompt 2048, 32 new tokens;
+   counts read right after each.  Each prefill must launch its kernel
+   once per layer (40 flash, 24 SSD) and decode neither.  The kernel-path
+   prefill logits must match the plain-path ones (the same call with the
+   plain versions swapped in) within 5e-2 (granite, bf16) and 1e-4
+   (mamba2, f32) of the largest logit; decode consistency — prefill over
+   S − 1 tokens plus one decode step against the prefill over S — within
+   1e-3 of the largest logit (granite's bf16 weights run in f32 for this
+   check; mamba2 at S = 256, since 2047 is no multiple of its chunk).
+
 The line before the last is the ``{"kernels": [...]}`` summary (launches
-from the training path); the last line is ``{"ok": true, "device":
-{...}}``.
+from the training path for the GNN kernels, from the LM prefills for the
+LM kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -69,10 +95,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 ELL_TOL = 1e-5
 FRESH_TOL = 1e-4
 GRAD_TOL = 1e-4
 TRAIN_EPOCHS = 5
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_RTOL, SSD_ATOL = 1e-5, 1e-4
+PLAIN_PATH_TOL = {"granite-3-2b": 5e-2, "mamba2-130m": 1e-4}
+CONSISTENCY_TOL = 1e-3
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
 
 KERNELS = {
     "ell_spmm": {"source": "src/repro_torch/csrc/ell_spmm.cu",
@@ -86,17 +118,31 @@ KERNELS = {
     "varco_unpack_quant": {
         "source": "src/repro_torch/csrc/varco_pack_quant.cu",
         "replaces": "src/repro/kernels/varco_pack.py:213"},
+    "flash_attention": {
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:108"},
+    "ssd_chunk": {"source": "src/repro_torch/csrc/ssd_chunk.cu",
+                  "replaces": "src/repro/kernels/ssd_chunk.py:77"},
 }
+
+
+GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
+               "varco_unpack_quant")
+#: kernel -> the arch whose prefill runs it (once per layer)
+LM_KERNELS = {"flash_attention": "granite-3-2b", "ssd_chunk": "mamba2-130m"}
 
 
 def launch_counters() -> dict:
     from repro_torch.kernels.ell_spmm import ell_spmm
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels import varco_pack as vp
 
     return {"ell_spmm": ell_spmm, "varco_pack": vp.varco_pack,
             "varco_unpack": vp.varco_unpack,
             "varco_pack_quant": vp.varco_pack_quant,
-            "varco_unpack_quant": vp.varco_unpack_quant}
+            "varco_unpack_quant": vp.varco_unpack_quant,
+            "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}
 
 
 def emit(obj) -> None:
@@ -127,9 +173,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float = 0.0,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time the card could take: the larger of ``n_bytes`` over
+    the memory rate and ``flops`` over the peak of their type."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOPS_PER_S * 1e3
+    t_f = flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -668,8 +717,9 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
                "transport_gfloats": {k: h.transport_gfloats[-1]
                                      for k, h in runs.items()}}
     emit(summary)
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the training path")
+    for name in GNN_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the training "
+              f"path")
     for name, count in quant_launches["auto_w8"].items():
         check(count > 0, f"{name} never launched during the w8 run")
     check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
@@ -679,6 +729,253 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     check(runs["full"].loss[-1] < runs["full"].loss[0],
           f"full: loss did not fall ({runs['full'].loss})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _within(got, want, rtol, atol) -> bool:
+    """``|got − want| <= atol + rtol·|want|`` everywhere (in f32)."""
+    want = want.float()
+    return bool(((got.float() - want).abs() <= atol + rtol * want.abs())
+                .all())
+
+
+def _attn_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for one head: the work the data
+    needs."""
+    q = np.arange(s)
+    hi = q if causal else np.full(s, s - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(s, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
+                library=False):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    dev = gen.device
+    # the model's [B, S, H, D] layout, handed over as transposed views
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev,
+                           dtype=dtype).transpose(1, 2)
+               for n in (h, kv, kv))
+    out = flash_attention(q, k, v, True, window)
+    ref = flash_attention_plain(q, k, v, True, window).float()
+    torch.cuda.synchronize()
+    err = float((out.float() - ref).abs().max())
+    tol = FLASH_TOL[dtype]
+    check(_within(out, ref, tol, tol),
+          f"flash_attention {name}: max abs err {err} (tol {tol})")
+    elt = q.element_size()
+    n_bytes = elt * d * s * b * (2 * h + 2 * kv)       # q, k, v, out
+    flops = 4.0 * d * _attn_pairs(s, True, window) * b * h
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
+                          if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    lib_ms = None
+    if library:
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        check(_within(lib, ref, tol, tol), "scaled_dot_product_attention "
+              "disagrees with the plain version")
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps)
+    rec = {"kernel": "flash_attention", "case": name,
+           "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
+                     "dtype": str(dtype), "window": window},
+           "max_abs_err": err,
+           "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v, True,
+                                                        window), reps),
+           "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True,
+                                                             window),
+                               max(reps // 5, 1)),
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "flops": flops, "bytes": n_bytes}
+    emit(rec)
+    return rec
+
+
+def _ssd_case(name, b, nc, q, h, p, g, n, reps, gen):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
+
+    dev = gen.device
+    # x, B and C as strided views of one conv-output-like buffer
+    wide = torch.randn((b, nc, q, h * p + 2 * g * n), generator=gen,
+                       device=dev)
+    x = wide[..., :h * p].reshape(b, nc, q, h, p)
+    bm = wide[..., h * p:h * p + g * n].reshape(b, nc, q, g, n)
+    cm = wide[..., h * p + g * n:].reshape(b, nc, q, g, n)
+    dt = torch.rand((b, nc, q, h), generator=gen, device=dev) * 0.099 + 1e-3
+    a = -torch.exp(torch.rand((h,), generator=gen, device=dev) * 2 - 1)
+    cum = torch.cumsum(dt * a, dim=2)
+    args = (x, dt, cum, bm, cm)
+    y, st = ssd_chunk(*args)
+    y_ref, st_ref = ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((y - y_ref).abs().max()), float((st - st_ref).abs()
+                                                    .max()))
+    for got, want, what in ((y, y_ref, "y"), (st, st_ref, "state")):
+        check(_within(got, want, SSD_RTOL, SSD_ATOL),
+              f"ssd_chunk {name}: {what} differs from the plain version "
+              f"(max abs err {err})")
+    pairs = q * (q + 1) // 2
+    flops = 2.0 * b * nc * h * (pairs * n + pairs * p + q * p * n)
+    n_bytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * bm.numel() +
+                   st.numel())                  # x, y; dt, cum; B, C; s
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    rec = {"kernel": "ssd_chunk", "case": name,
+           "shape": {"x": [b, nc, q, h, p], "bc": [b, nc, q, g, n]},
+           "max_abs_err": err,
+           "kernel_ms": cuda_ms(lambda: ssd_chunk(*args), reps),
+           "plain_ms": cuda_ms(lambda: ssd_chunk_plain(*args),
+                               max(reps // 5, 1)),
+           "library_ms": None,    # no single PyTorch call computes it
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": n_bytes}
+    emit(rec)
+    return rec
+
+
+def lm_kernels_phase(reps: int = 10) -> dict:
+    """Both LM kernels at the LM paths' shapes (main rows) and at the
+    other shapes they take.  Returns ``{kernel: main record}`` with the
+    largest error over its cases."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash = [
+        _flash_case("granite_prefill", 8, 32, 8, 2048, 64, bf16, 0, reps,
+                    gen, library=True),
+        _flash_case("d256", 2, 16, 16, 2048, 256, bf16, 0, reps, gen),
+        _flash_case("window1024", 8, 32, 8, 2048, 64, bf16, 1024, reps, gen),
+        _flash_case("ragged_s1000", 2, 32, 8, 1000, 64, bf16, 0, reps, gen),
+        _flash_case("f32", 2, 32, 8, 2048, 64, f32, 0, reps, gen),
+    ]
+    ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
+           _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen)]
+    return {recs[0]["kernel"]: {**recs[0], "max_abs_err": max(
+        r["max_abs_err"] for r in recs)} for recs in (flash, ssd)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the LM serving slice
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the model with the plain versions in place of the LM kernels
+    (for the comparison of the two paths on the card only)."""
+    from repro_torch.kernels import ops
+
+    saved = ops.flash_attention, ops.ssd_chunk_kernel
+    ops.flash_attention = ops.flash_attention_plain
+    ops.ssd_chunk_kernel = ops.ssd_chunk_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_chunk_kernel = saved
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got − want| over the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() /
+                 want.abs().max().clamp(min=1e-30))
+
+
+def _consistency(cfg, params, prompts, s):
+    """prefill(s − 1) + one decode step against prefill(s), relative to
+    the largest logit."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    want, _ = prefill(params, cfg, {"tokens": prompts[:, :s]})
+    _, cache = prefill(params, cfg, {"tokens": prompts[:, :s - 1]},
+                       max_len=s + 8)
+    got, _ = decode_step(params, cfg, {"tokens": prompts[:, s - 1:s]},
+                         cache)
+    return _rel_err(got, want)
+
+
+def lm_phase(seed: int = 0) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_lm, prefill
+    from repro_torch.nn.modules import param_count
+
+    counters = launch_counters()
+    launches = {}
+    for arch in ("granite-3-2b", "mamba2-130m"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_lm(cfg, torch.Generator(device="cuda")
+                         .manual_seed(seed), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)) \
+            .cuda()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        out = serve(cfg, params, prompts, LM_NEW, device="cuda")
+        got = {name: counters[name].launches for name in LM_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for name, owner in LM_KERNELS.items():
+            want = cfg.n_layers if owner == arch else 0
+            check(got[name] == want, f"{arch}: {name} launched {got[name]} "
+                  f"times in one prefill + {LM_NEW - 1} decode steps, "
+                  f"expected {want}")
+            if owner == arch:
+                launches[name] = got[name]
+        check(tuple(out.tokens.shape) == (LM_BATCH, LM_NEW) and
+              bool(((out.tokens >= 0) & (out.tokens < cfg.vocab_size))
+                   .all()), f"{arch}: malformed tokens")
+        check(bool(torch.isfinite(out.prefill_logits.float()).all()),
+              f"{arch}: non-finite prefill logits")
+        with plain_kernels():
+            plain, _ = prefill(params, cfg, {"tokens": prompts},
+                               max_len=LM_PROMPT + LM_NEW)
+        plain_err = _rel_err(out.prefill_logits, plain)
+        if cfg.mamba is not None:
+            # S = one chunk: 2047 tokens would be no multiple of it
+            cons = _consistency(cfg, params, prompts, cfg.mamba.chunk)
+        else:
+            # the identity in f32: a bf16 decode rounds its scores before
+            # the softmax; batch 2 of the prompts
+            cons = _consistency(
+                cfg.with_(param_dtype="float32", activ_dtype="float32"),
+                _tree_float(params), prompts[:2], LM_PROMPT)
+        rec = {"phase": "lm", "arch": arch, "params": param_count(params),
+               "dtype": cfg.param_dtype, "layers": cfg.n_layers,
+               "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+               "init_s": init_s, "prefill_ms": out.prefill_s * 1e3,
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / out.prefill_s,
+               "decode_s": out.decode_s,
+               "decode_tokens_per_s": out.decode_tokens_per_s,
+               "decode_ms_per_step": out.decode_s / (LM_NEW - 1) * 1e3,
+               "peak_mem_gb": peak, "launches": got,
+               "plain_path_rel_err": plain_err,
+               "decode_consistency_rel_err": cons,
+               "first_tokens": out.tokens[0, :8].tolist()}
+        emit(rec)
+        check(plain_err <= PLAIN_PATH_TOL[arch],
+              f"{arch}: kernel-path prefill logits differ from the plain "
+              f"path by {plain_err} of the largest logit")
+        check(cons <= CONSISTENCY_TOL,
+              f"{arch}: prefill + decode differs from prefill by {cons}")
+        del params, out, plain
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def main(argv=None) -> int:
@@ -693,6 +990,10 @@ def main(argv=None) -> int:
         main_recs = kernels_phase(eng)
         slice_phase(g, cfg, params, eng)
         launches = train_phase(g, cfg, params, eng)
+        del eng
+        torch.cuda.empty_cache()
+        main_recs.update(lm_kernels_phase())
+        launches.update(lm_phase())
     except Failure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

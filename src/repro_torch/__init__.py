@@ -20,11 +20,18 @@ Ported so far:
   the ``budget`` controller, with the kernels' backward passes;
 
 over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
-``varco_pack_quant`` and ``varco_unpack_quant`` kernels.
+``varco_pack_quant`` and ``varco_unpack_quant`` kernels; and
+
+* the LM serving slice — :func:`serve_lm` (``repro_torch.launch.serve.
+  serve``: prefill a prompt batch, greedy-decode) over
+  :func:`init_lm` / :func:`prefill` / :func:`decode_step` for
+  granite-3-2b and mamba2-130m, whose prefill runs the
+  ``flash_attention`` and ``ssd_chunk`` kernels.
 """
 
 __version__ = "0.2.0"
-__all__ = ["CommPolicy", "ServingEngine", "train_gnn"]
+__all__ = ["CommPolicy", "ServingEngine", "decode_step", "init_lm",
+           "prefill", "serve_lm", "train_gnn"]
 
 
 def __getattr__(name):
@@ -35,6 +42,12 @@ def __getattr__(name):
     if name == "ServingEngine":
         from repro_torch.serve import ServingEngine
         return ServingEngine
+    if name == "serve_lm":
+        from repro_torch.launch.serve import serve
+        return serve
+    if name in ("init_lm", "prefill", "decode_step"):
+        from repro_torch.models import transformer
+        return getattr(transformer, name)
     if name == "train_gnn":
         from repro_torch.train.trainer import train_gnn
         return train_gnn

@@ -8,6 +8,10 @@ PyTorch version and a launch counter:
   (``csrc/varco_pack.cu``), each the other's VJP
 * ``varco_pack_quant`` — the fused quantised-wire codecs
   (``csrc/varco_pack_quant.cu``)
+* ``flash_attention``  — causal / sliding-window GQA attention of the LM
+  prefill (``csrc/flash_attention.cu``)
+* ``ssd_chunk``        — the Mamba2 SSD intra-chunk quadratic form and
+  chunk-state contribution (``csrc/ssd_chunk.cu``)
 
 ``ops`` dispatches by the tensor's device and wires the autograd
 functions; ``_build`` compiles the CUDA sources with ``nvcc`` at first

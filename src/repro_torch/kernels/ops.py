@@ -13,6 +13,9 @@ version and no global backend switch — the tensor decides.
 * :func:`pack_quant` / :func:`unpack_quant` — the fused quantised-wire
   codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels), and
   :func:`quant_hop`, the straight-through sub-byte hop built from them;
+* :func:`mha` — flash attention of the LM prefill (``flash_attention``
+  kernel), and :func:`ssd_chunk` — the Mamba2 intra-chunk form
+  (``ssd_chunk`` kernel); forward only, as in the JAX package;
 * the elementwise quantised-wire codecs (:func:`quant_levels`,
   :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
   :func:`wire_quant`) — PyTorch on every device, as the JAX runtime
@@ -30,6 +33,9 @@ import torch
 
 from . import ref
 from .ell_spmm import ell_spmm, ell_spmm_plain
+from .flash_attention import flash_attention, flash_attention_plain
+from .ssd_chunk import ssd_chunk as ssd_chunk_kernel
+from .ssd_chunk import ssd_chunk_plain
 from .varco_pack import (LANE, varco_pack, varco_pack_plain,
                          varco_pack_quant, varco_pack_quant_plain,
                          varco_unpack, varco_unpack_plain,
@@ -174,6 +180,30 @@ def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     return _EllAggregate.apply(x, nbr, w,
                                empty if rnbr is None else rnbr,
                                empty if rslot is None else rslot)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels
+# ---------------------------------------------------------------------------
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Flash attention: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]`` (views
+    with a contiguous last dim) -> ``[B, H, S, D]`` in q's dtype; masks
+    from indices (causal, optional sliding window), GQA by ``h // group``,
+    fully masked rows 0."""
+    return _route(flash_attention, flash_attention_plain, q, k, v, causal,
+                  window)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD intra-chunk form: x ``[B, NC, Q, H, P]``, dt/cum ``[B,
+    NC, Q, H]``, b/c un-expanded ``[B, NC, Q, G, N]`` -> (y_intra ``[B, NC,
+    Q, H, P]``, state_contrib ``[B, NC, H, P, N]``), f32."""
+    return _route(ssd_chunk_kernel, ssd_chunk_plain, x, dt, cum, b, c)
 
 
 # ---------------------------------------------------------------------------

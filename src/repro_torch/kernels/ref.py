@@ -2,7 +2,7 @@
 (``repro/kernels/ref.py``), unbatched like those: ``[N, F]`` rows with one
 index vector.  The batched plain versions the kernels are checked against
 live beside each kernel (``varco_pack_plain``, ``varco_pack_quant_plain``,
-``ell_spmm_plain``)."""
+``ell_spmm_plain``, ``flash_attention_plain``, ``ssd_chunk_plain``)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,52 @@ def unpack_quant_reference(payload: torch.Tensor, scales: torch.Tensor,
     k = scales.shape[-1]
     levels = unpack_bits_reference(payload, width, k * LANE)
     return quant_dequant_reference(levels, scales)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B,H,S,D]; k/v: [B,KV,S,D]. Dense masked softmax attention in
+    f32 (k/v repeated to the query heads); fully masked rows give 0."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    k = k.repeat_interleave(h // kvh, dim=1)
+    v = v.repeat_interleave(h // kvh, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / \
+        (d ** 0.5)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", probs,
+                        v.float()).to(q.dtype)
+
+
+def ssd_reference(x, dt, a_log, b, c, d_skip):
+    """Sequential (non-chunked) SSD recurrence — oracle for ssd_chunked.
+
+    x: [B,T,H,P]  dt: [B,T,H]  a_log: [H]  b,c: [B,T,G,N]  d_skip: [H]
+    """
+    bsz, t, h, p = x.shape
+    n = b.shape[3]
+    rep = h // b.shape[2]
+    a = -torch.exp(a_log.float())
+    bg = b.repeat_interleave(rep, dim=2).float()
+    cg = c.repeat_interleave(rep, dim=2).float()
+    xf = x.float()
+    dtf = dt.float()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        da = torch.exp(dtf[:, i] * a)                         # [B,H]
+        state = state * da[..., None, None] + torch.einsum(
+            "bhp,bhk->bhpk", dtf[:, i, :, None] * xf[:, i], bg[:, i])
+        ys.append(torch.einsum("bhpk,bhk->bhp", state, cg[:, i]))
+    y = torch.stack(ys, dim=1)                                # [B,T,H,P]
+    y = y + d_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype)

@@ -1,0 +1,315 @@
+"""Unified decoder — counterpart of ``repro/models/transformer.py``, the
+serving entry points.
+
+A model is ``n_blocks`` repetitions of a *pattern* (a tuple of layer
+kinds: ``("attn",)`` for dense LMs, ``("mamba",)`` for mamba2).  The
+parameters keep the JAX layout — every block leaf stacked ``[n_blocks,
+...]`` — and the blocks run in a Python loop over that leading dim, so
+weights carry over from JAX unchanged (:func:`repro_torch.models.
+lm_params_from_jax`).  The model runs on one card: the JAX package's
+sharding hints have no counterpart.
+
+Entry points:
+
+* :func:`prefill`     — forward over a prompt, returning last-position
+  logits and a populated :class:`Cache`; attention runs the
+  ``flash_attention`` kernel, mamba layers the ``ssd_chunk`` kernel.
+* :func:`decode_step` — one-token serve step against a Cache (O(1) for
+  SSM layers; ring-buffer sliding-window or full causal for attention),
+  plain torch.  It writes the new KV entries and states into the cache's
+  tensors **in place** (a full-size KV cache is gigabytes; the JAX
+  package returns a new one) and returns a Cache over the same tensors.
+
+Architectures with MoE layers raise ``NotImplementedError`` (ROADMAP
+queue 1 item 12); the training forward waits for the LM training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.mamba2 import (MambaCache, init_mamba,
+                                       init_mamba_cache, mamba_layer)
+from repro_torch.nn.modules import rms_norm
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+class AttnCache(NamedTuple):
+    """Ring-buffer KV cache: ``pos`` holds absolute positions (-1 empty)."""
+    k: torch.Tensor       # [B, W, KV, D]
+    v: torch.Tensor       # [B, W, KV, D]
+    pos: torch.Tensor     # [B, W] int32
+
+
+class Cache(NamedTuple):
+    """Per-pattern-position caches, each stacked over n_blocks."""
+    layers: tuple   # tuple over pattern idx of AttnCache | MambaCache
+    index: int      # number of tokens already in the cache
+
+
+def _need_dense(cfg: ArchConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1 "
+            f"item 12, models/moe.py)")
+
+
+def checked_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "asked for a CUDA device but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return device
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> Cache:
+    device = checked_device(device)
+    dtype = dtype or cfg.adtype
+    nb = cfg.n_blocks
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    per = []
+    for kind in cfg.pattern:
+        if kind == "attn":
+            per.append(AttnCache(
+                k=torch.zeros((nb, batch, w, kv, hd), dtype=dtype,
+                              device=device),
+                v=torch.zeros((nb, batch, w, kv, hd), dtype=dtype,
+                              device=device),
+                pos=torch.full((nb, batch, w), -1, dtype=torch.int32,
+                               device=device)))
+        else:
+            per.append(init_mamba_cache(cfg, batch, dtype, device,
+                                        lead=(nb,)))
+    return Cache(layers=tuple(per), index=0)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
+                ) -> dict:
+    """One pattern-period of layers (every leaf with leading dims
+    ``lead``)."""
+    block = {}
+    dev = gen.device
+    for pi, kind in enumerate(cfg.pattern):
+        lp: dict = {"norm1": torch.zeros((*lead, cfg.d_model),
+                                         dtype=cfg.pdtype, device=dev),
+                    "norm2": torch.zeros((*lead, cfg.d_model),
+                                         dtype=cfg.pdtype, device=dev)}
+        if kind == "attn":
+            lp["attn"] = L.init_attn(gen, cfg, lead)
+        else:
+            lp["mamba"] = init_mamba(gen, cfg, lead)
+        if cfg.d_ff > 0:
+            lp["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
+                                   lead)
+        else:
+            del lp["norm2"]     # mamba2-style blocks: mixer only, no FFN
+        block[f"p{pi}_{kind}"] = lp
+    return block
+
+
+def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+            device="cuda") -> dict:
+    """Random weights in the JAX package's layout, drawn on ``device`` from
+    ``generator`` (a ``torch.Generator`` on that device; seed 0 if
+    omitted): block leaves are stacked ``[n_blocks, ...]``.  The numbers
+    are not JAX's — parity runs carry JAX's weights across instead."""
+    _need_dense(cfg)
+    device = checked_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(device=device).manual_seed(0)
+    if gen.device.type != device.type:
+        raise ValueError(f"generator lives on {gen.device}, weights on "
+                         f"{device}")
+    params = {
+        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                             device=device, dtype=cfg.pdtype) * 0.02,
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                  device=device),
+        "blocks": _init_block(gen, cfg, lead=(cfg.n_blocks,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = torch.randn(
+            (cfg.d_model, cfg.vocab_size), generator=gen, device=device,
+            dtype=cfg.pdtype) * 0.02
+    return params
+
+
+def _index(tree, i: int):
+    """Block ``i`` of a tree of stacked leaves (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [_index(v, i) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else \
+            tuple(parts)
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def _attn_decode(params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, cache: AttnCache, cache_index: int,
+                 positions3):
+    """One-token decode against a (possibly ring-buffer) KV cache; writes
+    the new entry into ``cache`` in place."""
+    if x.shape[1] != 1:
+        raise ValueError(f"decode takes one token per row, got "
+                         f"{x.shape[1]}")
+    q, k, v = L.attn_qkv(params, cfg, x, positions, positions3)
+
+    slot = cache_index % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.pos[:, slot] = positions[:, 0].to(torch.int32)
+
+    q_pos = positions[:, :1]                                   # [B, 1]
+    valid = (cache.pos >= 0) & (cache.pos <= q_pos)
+    if cfg.sliding_window:
+        valid &= cache.pos > (q_pos - cfg.sliding_window)
+    out = L.sdpa(q, cache.k, cache.v, valid[:, None, :])
+    return L.out_project(out, params["wo"]).to(x.dtype), cache
+
+
+def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
+           positions: torch.Tensor, cache_layer, cache_index,
+           positions3) -> tuple[torch.Tensor, object]:
+    """Apply the token mixer (attention or mamba) for one layer."""
+    if kind == "attn":
+        if cache_layer is None:
+            y, kvc = L.attention(lp["attn"], cfg, h, positions,
+                                 positions3=positions3)
+            return y, AttnCache(kvc.k.to(cfg.adtype), kvc.v.to(cfg.adtype),
+                                positions.expand(h.shape[0], h.shape[1]))
+        return _attn_decode(lp["attn"], cfg, h, positions, cache_layer,
+                            cache_index, positions3)
+    return mamba_layer(lp["mamba"], cfg, h, cache=cache_layer)
+
+
+def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
+                 positions: torch.Tensor, block_cache: Optional[tuple],
+                 cache_index, positions3) -> tuple[torch.Tensor, tuple]:
+    """One pattern period: pre-norm mixer + pre-norm FFN per layer."""
+    new_caches = []
+    for pi, kind in enumerate(cfg.pattern):
+        lp = block[f"p{pi}_{kind}"]
+        cl = block_cache[pi] if block_cache is not None else None
+        mixed, new_c = _mixer(lp, cfg, pi, kind, rms_norm(h, lp["norm1"]),
+                              positions, cl, cache_index, positions3)
+        h = h + mixed
+        if cfg.d_ff > 0:
+            h = h + L.mlp(lp["mlp"], rms_norm(h, lp["norm2"]), cfg.mlp)
+        new_caches.append(new_c)
+    return h, tuple(new_caches)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _embed_in(params, cfg: ArchConfig, batch: dict
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    if "embeds" in batch:                       # vlm / stubbed frontend
+        x = batch["embeds"].to(cfg.adtype)
+    else:
+        x = params["embed"][batch["tokens"].long()].to(cfg.adtype)
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+    return x, positions
+
+
+def _lm_head(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T.to(h.dtype)
+    return h @ params["lm_head"].to(h.dtype)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict,
+            max_len: Optional[int] = None) -> tuple[torch.Tensor, Cache]:
+    """Process a full prompt (``batch["tokens"]`` [B, S]); returns the
+    last-position logits [B, V] and a Cache with ``max_len`` slots
+    (ring-truncated to the sliding window if set).
+
+    With a sliding window ``w`` the prompt length must satisfy
+    ``s % w == 0 or s <= w`` so the ring slots stay aligned for decode.
+    Explicit ``batch["positions"]`` must be ``arange(S)`` (the prefill
+    kernel masks by index).
+    """
+    _need_dense(cfg)
+    x, positions = _embed_in(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
+    max_len = max_len or s
+    positions3 = batch.get("positions3")
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    if cfg.sliding_window and not (s <= w or s % w == 0):
+        raise ValueError(f"prefill length {s} incompatible with window {w}")
+
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    h = x
+    for i in range(cfg.n_blocks):
+        h, new_c = _apply_block(_index(params["blocks"], i), cfg, h,
+                                positions, None, None, positions3)
+        for pi, kind in enumerate(cfg.pattern):
+            dst, src = cache.layers[pi], new_c[pi]
+            if kind == "attn":
+                keep = min(s, w)   # W > S: pad at the end; else last W
+                dst.k[i, :, :keep] = src.k[:, s - keep:]
+                dst.v[i, :, :keep] = src.v[:, s - keep:]
+                dst.pos[i, :, :keep] = src.pos[:, s - keep:]
+            else:
+                dst.conv[i] = src.conv
+                dst.ssm[i] = src.ssm
+    logits = _lm_head(params, cfg, h[:, -1:])
+    return logits[:, 0], Cache(layers=cache.layers, index=s)
+
+
+def decode_step(params, cfg: ArchConfig, batch: dict, cache: Cache
+                ) -> tuple[torch.Tensor, Cache]:
+    """One-token serve step: ``batch["tokens"]`` [B, 1] (or embeds [B, 1,
+    d]).  Updates ``cache``'s tensors in place; returns the logits [B, V]
+    and the Cache with ``index + 1``."""
+    _need_dense(cfg)
+    b = batch["tokens"].shape[0] if "tokens" in batch else \
+        batch["embeds"].shape[0]
+    if batch.get("positions") is None:
+        dev = (batch.get("tokens") if "tokens" in batch
+               else batch["embeds"]).device
+        batch = dict(batch, positions=torch.full(
+            (b, 1), cache.index, dtype=torch.int32, device=dev))
+    x, positions = _embed_in(params, cfg, batch)
+    positions3 = batch.get("positions3")
+
+    h = x
+    for i in range(cfg.n_blocks):
+        bc = _index(cache.layers, i)
+        h, new_c = _apply_block(_index(params["blocks"], i), cfg, h,
+                                positions, bc, cache.index, positions3)
+        for pi, kind in enumerate(cfg.pattern):
+            if kind != "attn":    # attention wrote its slot in place
+                cache.layers[pi].conv[i] = new_c[pi].conv
+                cache.layers[pi].ssm[i] = new_c[pi].ssm
+    logits = _lm_head(params, cfg, h)
+    return logits[:, 0], Cache(layers=cache.layers, index=cache.index + 1)

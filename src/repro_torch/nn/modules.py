@@ -31,3 +31,29 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMSNorm with the ``(1 + gamma)`` scale, computed in f32 whatever
+    the activation dtype and cast back to it."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-example CE against integer labels (stable log-softmax)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def param_count(params) -> int:
+    """Number of scalars in a (nested dict/list/tuple) parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return 0 if params is None else params.numel()

@@ -10,7 +10,11 @@ division, round-half-even, one multiply per decoded lane); the ELL SpMM
 within 1e-5 (the kernel contracts ``acc + w·x`` into an FMA, the plain
 version rounds the product first).  Each autograd ``Function``'s backward
 on the card is held to the plain version's autograd on the CPU within
-1e-5 (atomic scatters and FMA contraction reorder f32 sums).
+1e-5 (atomic scatters and FMA contraction reorder f32 sums).  The LM
+kernels: flash attention within 2e-5 in f32 and 2e-2 in bf16 (one bf16
+ulp of the rounded output, relative 2^-8, where the two f32 sums straddle
+a rounding edge); the SSD chunk form within 1e-5 relative + 1e-4 absolute
+(f32 sums of up to Q·N products in another order).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ell_spmm as tell
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd_chunk as tssd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import varco_pack as tvp
 
@@ -210,3 +216,126 @@ def test_cuda_quant_hop_forward_and_backward(cuda_device):
         lambda a, k, i, qm: tops.quant_hop(a, k, i, qm, 8),
         [torch.from_numpy(a) for a in (x, kept, inv, qmax)], cuda_device, 4)
     assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: flash attention and the SSD chunk form
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (2, 4, 2, 256, 64, True, 0),       # GQA 2:1
+    (1, 2, 2, 384, 256, True, 0),      # gemma-sized heads
+    (1, 8, 1, 200, 128, True, 0),      # MQA, ragged S
+    (2, 4, 4, 130, 64, True, 64),      # window, ragged S
+    (1, 4, 2, 300, 32, True, 200),     # window wider than a tile
+    (1, 4, 2, 100, 64, False, 0),      # non-causal, ragged S
+    (1, 2, 1, 77, 16, True, 20),
+])
+def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d, causal,
+                                  window):
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    # the model's layout [B, S, H, D], handed over as strided views
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda_device,
+                    dtype=dtype).transpose(1, 2)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda_device,
+                    dtype=dtype).transpose(1, 2)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda_device,
+                    dtype=dtype).transpose(1, 2)
+    before = tfa.flash_attention.launches
+    out = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.stride() == q.stride()
+    ref = tfa.flash_attention_plain(q, k, v, causal, window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _ssd_inputs(gen, dev, b, nc, q, h, p, g, n):
+    """x, dt, cum, B, C as the model hands them over: x, B and C strided
+    views of one conv-output-like buffer."""
+    wide = torch.randn((b, nc, q, h * p + 2 * g * n + 8), generator=gen,
+                       device=dev)
+    x = wide[..., :h * p].reshape(b, nc, q, h, p)
+    bm = wide[..., h * p:h * p + g * n].reshape(b, nc, q, g, n)
+    cm = wide[..., h * p + g * n:h * p + 2 * g * n].reshape(b, nc, q, g, n)
+    dt = torch.rand((b, nc, q, h), generator=gen, device=dev) * 0.099 + 1e-3
+    a = -torch.exp(torch.rand((h,), generator=gen, device=dev) * 2 - 1)
+    cum = torch.cumsum(dt * a, dim=2)
+    return x, dt, cum, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,q,h,p,g,n", [
+    (8, 8, 256, 24, 64, 1, 128),       # mamba2-130m's prefill
+    (2, 3, 100, 4, 32, 2, 16),         # two groups, ragged Q
+    (1, 2, 64, 8, 16, 8, 32),          # one group per head
+    (1, 1, 70, 2, 128, 1, 256),        # wide head and state
+])
+def test_cuda_ssd_chunk_matches_plain(cuda_device, b, nc, q, h, p, g, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(q + n)
+    args = _ssd_inputs(gen, cuda_device, b, nc, q, h, p, g, n)
+    before = tssd.ssd_chunk.launches
+    y, st = tops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    y_ref, st_ref = tssd.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_wrappers_refuse_bad_inputs(cuda_device):
+    q = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = q.transpose(2, 3)
+        tfa.flash_attention(qt, qt, qt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, q.cpu(), q)
+    x = torch.zeros((1, 1, 16, 4, 8), device=cuda_device)
+    dt = torch.zeros((1, 1, 16, 4), device=cuda_device)
+    bm = torch.zeros((1, 1, 16, 3, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="G \\| H"):
+        tssd.ssd_chunk(x, dt, dt, bm, bm)
+    with pytest.raises(TypeError):
+        tssd.ssd_chunk(x.double(), dt, dt, bm[:, :, :, :1], bm[:, :, :, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-130m"])
+def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
+    """The smoke config's prefill (kernels) and three decode steps on the
+    card against the same weights on the CPU (plain versions), within
+    1e-4 (f32 sums in another order through two layers)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_config(arch, smoke=True)
+    params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (2, 128))
+    counters = (tfa.flash_attention.launches, tssd.ssd_chunk.launches)
+    got = serve(cfg, on_card, prompts, 4, device=cuda_device)
+    launched = (tfa.flash_attention.launches - counters[0],
+                tssd.ssd_chunk.launches - counters[1])
+    assert launched == ((cfg.n_layers, 0) if arch == "granite-3-2b"
+                        else (0, cfg.n_layers))
+    want = serve(cfg, params, prompts, 4, device="cpu")
+    torch.testing.assert_close(got.prefill_logits.cpu(), want.prefill_logits,
+                               rtol=0, atol=1e-4)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

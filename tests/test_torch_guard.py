@@ -1,6 +1,6 @@
 """Guards of the port's boundaries: it imports neither ``jax`` nor the JAX
-package, and its entry points default to the card instead of quietly
-running on the CPU."""
+package (nor ``ml_dtypes``, which the GPU machine lacks), and its entry
+points default to the card instead of quietly running on the CPU."""
 
 from __future__ import annotations
 
@@ -33,14 +33,17 @@ def _port_files():
     return files
 
 
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     bad = {}
     for path in _port_files():
         hits = sorted(m for m in _imported_modules(path)
-                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                      if m.split(".")[0] in FORBIDDEN)
         if hits:
             bad[str(path.relative_to(ROOT))] = hits
-    assert not bad, f"the port must not import jax or repro: {bad}"
+    assert not bad, f"the port must not import {FORBIDDEN}: {bad}"
 
 
 def test_import_scan_sees_relative_and_nested_imports(tmp_path):
@@ -48,6 +51,8 @@ def test_import_scan_sees_relative_and_nested_imports(tmp_path):
     src.write_text("def f():\n    import jax.numpy as jnp\n"
                    "from repro.graph import data\nfrom . import x\n")
     assert _imported_modules(src) == {"jax.numpy", "repro.graph"}
+    src.write_text("import ml_dtypes\n")
+    assert _imported_modules(src) & set(FORBIDDEN) == {"ml_dtypes"}
 
 
 def test_entry_points_default_to_cuda():
@@ -58,10 +63,16 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serve import ServingEngine
     from repro_torch.train.trainer import train_gnn
 
+    from repro_torch.launch.serve import build_parser, serve
+    from repro_torch.models import lm_params_from_jax
+    from repro_torch.models.transformer import init_cache, init_lm
+
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
                centralized_forward, init_halo_cache, init_wire_residuals,
-               PartitionedGraph.device_arrays, train_gnn):
+               PartitionedGraph.device_arrays, train_gnn, serve, init_lm,
+               init_cache, lm_params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert build_parser().get_default("device") == "cuda"
 
 
 def test_default_device_raises_without_a_card():
@@ -88,6 +99,17 @@ def test_default_device_raises_without_a_card():
         attach_p2p(pg.device_arrays("cpu"), pg)
     with pytest.raises((RuntimeError, AssertionError)):
         pg.device_arrays()
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_lm
+    lm_cfg = get_config("mamba2-130m", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lm(lm_cfg)
+    lm_params = init_lm(lm_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(lm_cfg, lm_params, np.zeros((1, 4), np.int32), 2)
+    assert serve(lm_cfg, lm_params, np.zeros((1, 4), np.int32), 2,
+                 device="cpu").tokens.shape == (1, 2)
     # and the CPU, when asked for, runs
     eng = ServingEngine(g, params, cfg, q=2, device="cpu")
     eng.refresh(force=True)

@@ -1,0 +1,389 @@
+"""The port's LM kernel modules, references and building blocks against the
+JAX package, on the CPU.
+
+The ops run their plain PyTorch versions here (the tensors lie on the
+CPU).  Plain flash attention is held to the Pallas kernel in interpret
+mode and to ``ref.mha_reference`` within 2e-5 in f32 (the softmax and
+the two products sum in another order), and at ragged S — which the
+Pallas kernel refuses — to ``mha_reference`` only; a bf16 case takes
+2e-2 (one bf16 ulp of outputs of magnitude up to ~2).  The plain SSD
+chunk form is held to the Pallas kernel in interpret mode within 2e-5;
+the port's chunked scan to JAX's ``ssd_chunked`` within 1e-5 and to the
+sequential oracle ``ref.ssd_reference`` within 1e-4 (the JAX package's
+own tolerance for that pair).  The CUDA kernels are held to these plain
+versions on the card by tests/test_torch_cuda.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jcfg_base
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd
+from repro.models import mamba2 as jm
+from repro.nn import modules as jmod
+from repro_torch.configs import base as tcfg_base
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
+from repro_torch.models import mamba2 as tm
+from repro_torch.nn import modules as tmod
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _qkv(rng, b, h, kv, s, d):
+    return tuple(rng.normal(0, 1, shape).astype(np.float32)
+                 for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (plain version through ops.mha)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (1, 2, 2, 128, 64),      # MHA
+    (2, 4, 2, 256, 64),      # GQA 2:1
+    (1, 8, 1, 128, 128),     # MQA
+    (1, 2, 2, 384, 256),     # gemma-sized heads
+])
+def test_mha_plain_matches_pallas_and_reference(b, h, kv, s, d):
+    q, k, v = _qkv(np.random.default_rng(s + d + h), b, h, kv, s, d)
+    got = tops.mha(_t(q), _t(k), _t(v), causal=True).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(
+        got, np.asarray(pallas_flash(jq, jk, jv, causal=True,
+                                     interpret=True)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.mha_reference(jq, jk, jv, causal=True)),
+        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [64, 128, 200])
+def test_mha_plain_sliding_window(window):
+    q, k, v = _qkv(np.random.default_rng(window), 1, 2, 2, 256, 64)
+    got = tops.mha(_t(q), _t(k), _t(v), causal=True, window=window).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(
+        got, np.asarray(pallas_flash(jq, jk, jv, causal=True, window=window,
+                                     interpret=True)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.mha_reference(jq, jk, jv, causal=True,
+                                           window=window)),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_mha_plain_noncausal():
+    q, k, v = _qkv(np.random.default_rng(7), 1, 2, 2, 128, 64)
+    got = tops.mha(_t(q), _t(k), _t(v), causal=False).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(
+        got, np.asarray(pallas_flash(jq, jk, jv, causal=False,
+                                     interpret=True)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.mha_reference(jq, jk, jv, causal=False)),
+        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (False, 50)])
+def test_mha_plain_ragged_length_matches_reference(causal, window):
+    """S = 200 is no multiple of the Pallas kernel's 128-row blocks; the
+    port serves any length, held to ``mha_reference``."""
+    q, k, v = _qkv(np.random.default_rng(200), 2, 4, 2, 200, 64)
+    got = tops.mha(_t(q), _t(k), _t(v), causal=causal,
+                   window=window).numpy()
+    want = jref.mha_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_mha_plain_bf16_matches_reference():
+    q, k, v = _qkv(np.random.default_rng(3), 2, 4, 2, 128, 64)
+    tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
+    got = tops.mha(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    want = jref.mha_reference(*(jnp.asarray(a, jnp.bfloat16)
+                                for a in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_mha_takes_strided_model_layout():
+    """The model hands ``[B, S, H, D]`` tensors over as transposed views:
+    the result equals the contiguous call."""
+    q, k, v = _qkv(np.random.default_rng(5), 2, 4, 2, 96, 32)
+    views = [_t(a).transpose(1, 2).contiguous().transpose(1, 2)
+             for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(tops.mha(*views, causal=True, window=40),
+                               tops.mha(_t(q), _t(k), _t(v), causal=True,
+                                        window=40), rtol=0, atol=0)
+
+
+def test_mha_references_agree():
+    """The port's ``mha_reference`` against JAX's, and the plain kernel
+    version against both, down to a diagonal-only window (window 1)."""
+    q, k, v = _qkv(np.random.default_rng(11), 1, 4, 1, 64, 16)
+    for causal, window in ((True, 0), (True, 1), (False, 8)):
+        want = np.asarray(jref.mha_reference(
+            *(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+            window=window))
+        ours = tref.mha_reference(_t(q), _t(k), _t(v), causal=causal,
+                                  window=window).numpy()
+        np.testing.assert_allclose(ours, want, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(
+            flash_attention_plain(_t(q), _t(k), _t(v), causal,
+                                  window).numpy(), want,
+            rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk form (plain version through ops.ssd_chunk)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_chunk_inputs(rng, b, nc, q, h, p, g, n):
+    x = rng.normal(0, 1, (b, nc, q, h, p)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (b, nc, q, h)).astype(np.float32)
+    a = -np.exp(rng.uniform(-1, 1, (h,)).astype(np.float32))
+    cum = np.asarray(jnp.cumsum(jnp.asarray(dt * a), axis=2))
+    bb = rng.normal(0, 1, (b, nc, q, g, n)).astype(np.float32)
+    cc = rng.normal(0, 1, (b, nc, q, g, n)).astype(np.float32)
+    return x, dt, cum, bb, cc
+
+
+@pytest.mark.parametrize("q,h,p,n,g", [(64, 4, 32, 16, 4), (128, 2, 64, 128, 2),
+                                       (32, 8, 16, 32, 8), (64, 4, 32, 16, 1),
+                                       (32, 8, 16, 32, 2)])
+def test_ssd_chunk_plain_matches_pallas(q, h, p, n, g):
+    """B and C go to the port un-expanded ``[.., G, N]`` and to the Pallas
+    kernel repeated to the heads (``g == h`` are the JAX package's own
+    test shapes)."""
+    x, dt, cum, bb, cc = _ssd_chunk_inputs(np.random.default_rng(q + n + g),
+                                           2, 3, q, h, p, g, n)
+    y, s = tops.ssd_chunk(*(_t(a) for a in (x, dt, cum, bb, cc)))
+    rep = h // g
+    jy, js = pallas_ssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(cum),
+                        jnp.repeat(jnp.asarray(bb), rep, axis=3),
+                        jnp.repeat(jnp.asarray(cc), rep, axis=3),
+                        interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=2e-5,
+                               atol=2e-5)
+
+
+def _ssd_scan_inputs(rng, b, t, h, p, g, n):
+    return (rng.normal(0, 1, (b, t, h, p)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (b, t, h)).astype(np.float32),
+            rng.uniform(-1, 1, (h,)).astype(np.float32),
+            rng.normal(0, 1, (b, t, g, n)).astype(np.float32),
+            rng.normal(0, 1, (b, t, g, n)).astype(np.float32),
+            rng.normal(0, 1, (h,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("t,chunk", [(64, 16), (128, 32), (96, 96)])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_chunked_matches_sequential(t, chunk, g):
+    args = _ssd_scan_inputs(np.random.default_rng(t + chunk + g), 2, t, 4,
+                            16, g, 8)
+    y, _ = tm.ssd_chunked(*(_t(a) for a in args), chunk=chunk)
+    want = jref.ssd_reference(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(tref.ssd_reference(*(_t(a) for a in args))
+                               .numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("t,chunk,g", [(64, 16, 1), (128, 64, 2)])
+def test_ssd_chunked_matches_jax_chunked(t, chunk, g):
+    args = _ssd_scan_inputs(np.random.default_rng(t * g), 2, t, 4, 16, g, 8)
+    init = np.random.default_rng(1).normal(0, 1, (2, 4, 16, 8)) \
+        .astype(np.float32)
+    y, st = tm.ssd_chunked(*(_t(a) for a in args), chunk=chunk,
+                           initial_state=_t(init))
+    jy, jst = jm.ssd_chunked(*(jnp.asarray(a) for a in args), chunk=chunk,
+                             initial_state=jnp.asarray(init))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ssd_chunked_refuses_ragged_chunks():
+    args = _ssd_scan_inputs(np.random.default_rng(0), 1, 40, 2, 8, 1, 4)
+    with pytest.raises(ValueError, match="chunk"):
+        tm.ssd_chunked(*(_t(a) for a in args), chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# building blocks and configs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_jax(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.normal(0, 2, (3, 5, 64)).astype(np.float32)
+    gamma = rng.normal(0, 0.1, (64,)).astype(np.float32)
+    want = np.asarray(jmod.rms_norm(jnp.asarray(x, dtype),
+                                    jnp.asarray(gamma, dtype), 1e-5),
+                      np.float32)
+    got = tmod.rms_norm(_t(x).to(tcfg_base.torch_dtype(dtype)),
+                        _t(gamma).to(tcfg_base.torch_dtype(dtype)), 1e-5)
+    assert got.dtype == tcfg_base.torch_dtype(dtype)
+    # f32: a different rsqrt/sum order; bf16: one ulp of the rounded output
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_cross_entropy_and_param_count_match_jax():
+    rng = np.random.default_rng(4)
+    logits = rng.normal(0, 3, (4, 7, 50)).astype(np.float32)
+    labels = rng.integers(0, 50, (4, 7)).astype(np.int32)
+    np.testing.assert_allclose(
+        tmod.softmax_cross_entropy(_t(logits), _t(labels)).numpy(),
+        np.asarray(jmod.softmax_cross_entropy(jnp.asarray(logits),
+                                              jnp.asarray(labels))),
+        rtol=1e-6, atol=1e-6)
+    tree = {"a": jnp.zeros((3, 4)), "b": [jnp.zeros(5), jnp.zeros((2, 2))]}
+    ttree = {"a": torch.zeros(3, 4), "b": [torch.zeros(5),
+                                           torch.zeros(2, 2)]}
+    assert tmod.param_count(ttree) == jmod.param_count(tree) == 21
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-130m"])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_configs_match_jax(arch, smoke):
+    jc = jcfg_base.get_config(arch, smoke=smoke)
+    tc = tcfg_base.get_config(arch, smoke=smoke)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.param_counts() == jc.param_counts()
+    assert tc.n_blocks == jc.n_blocks
+    assert tc.resolved_head_dim == jc.resolved_head_dim
+    assert tc.pdtype == tcfg_base.torch_dtype(jc.param_dtype)
+    assert str(jnp.dtype(jc.param_dtype)) == jc.param_dtype
+
+
+def test_unported_configs_raise():
+    assert set(tcfg_base.ARCH_IDS) == set(jcfg_base.ARCH_IDS)
+    for arch in tcfg_base.ARCH_IDS:
+        if arch in tcfg_base.PORTED:
+            continue
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            tcfg_base.get_config(arch)
+    with pytest.raises(KeyError):
+        tcfg_base.get_config("no-such-arch")
+    with pytest.raises(ValueError):
+        tcfg_base.torch_dtype("int4")
+
+
+def test_mamba_init_matches_jax_layout():
+    cfg_j = jcfg_base.get_config("mamba2-130m", smoke=True)
+    cfg_t = tcfg_base.get_config("mamba2-130m", smoke=True)
+    jp = jm.init_mamba(jax.random.key(0), cfg_j)
+    tp = tm.init_mamba(torch.Generator().manual_seed(0), cfg_t)
+    assert set(jp) == set(tp)
+    for k in jp:
+        assert tuple(tp[k].shape) == jp[k].shape, k
+    # log(1..H): torch's and XLA's f32 log may differ in the last ulp
+    np.testing.assert_allclose(tp["A_log"].numpy(), np.asarray(jp["A_log"]),
+                               rtol=1e-6, atol=0)
+    dt = torch.nn.functional.softplus(tp["dt_bias"].double())
+    assert float(dt.min()) >= 0.001 - 1e-6 and float(dt.max()) <= 0.1 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# layer primitives the ported configs do not reach: the linear-cache decode
+# branch of ``attention``, M-RoPE and GeGLU
+# ---------------------------------------------------------------------------
+
+
+def _layer_setup(**over):
+    from repro.models import layers as jl
+    from repro_torch.models import lm_params_from_jax
+
+    jc = jcfg_base.get_config("granite-3-2b", smoke=True).with_(**over)
+    tc = tcfg_base.get_config("granite-3-2b", smoke=True).with_(**over)
+    jp = jl.init_attn(jax.random.key(3), jc)
+    tp = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jc, tc, jp, tp
+
+
+@pytest.mark.parametrize("over", [{}, {"sliding_window": 6, "qk_norm": True}])
+def test_attention_layer_matches_jax_prefill_and_linear_cache_decode(over):
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    jc, tc, jp, tp = _layer_setup(**over)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 12, jc.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12)).copy()
+    jy, jkv = jl.attention(jp, jc, jnp.asarray(x), jnp.asarray(pos))
+    ty, tkv = tl.attention(tp, tc, _t(x), _t(pos))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(jkv, tkv):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-5)
+    # decode one token into a 16-slot linear cache holding the prompt
+    pad = ((0, 0), (0, 4), (0, 0), (0, 0))
+    jcache = jl.KVCache(*(jnp.pad(a, pad) for a in jkv))
+    tcache = tl.KVCache(*(torch.from_numpy(np.pad(np.asarray(a), pad))
+                          for a in jkv))
+    x1 = rng.normal(size=(2, 1, jc.d_model)).astype(np.float32)
+    p1 = np.full((2, 1), 12, np.int32)
+    jy, jkv = jl.attention(jp, jc, jnp.asarray(x1), jnp.asarray(p1),
+                           cache=jcache, cache_index=jnp.int32(12))
+    ty, tkv = tl.attention(tp, tc, _t(x1), _t(p1), cache=tcache,
+                           cache_index=12)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(jkv, tkv):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-5)
+    assert tcache.k[:, 12].abs().max() == 0   # the input cache is kept
+
+
+def test_mrope_matches_jax():
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 10, 3, 16)).astype(np.float32)
+    p3 = rng.integers(0, 50, (3, 2, 10)).astype(np.int32)
+    want = jl.apply_mrope(jnp.asarray(x), jnp.asarray(p3), 10000.0,
+                          (2, 3, 3))
+    got = tl.apply_mrope(_t(x), _t(p3), 10000.0, (2, 3, 3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="sections"):
+        tl.apply_mrope(_t(x), _t(p3), 10000.0, (2, 3, 2))
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu"])
+def test_mlp_matches_jax(kind):
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    p = jl.init_mlp(jax.random.key(4), 32, 64, jnp.float32)
+    x = np.random.default_rng(5).normal(size=(3, 7, 32)).astype(np.float32)
+    want = jl.mlp(p, jnp.asarray(x), kind)
+    got = tl.mlp({k: _t(v) for k, v in p.items()}, _t(x), kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
