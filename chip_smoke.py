@@ -12,7 +12,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    cuDNN.
 2. build   — compiles every CUDA kernel of the port from ``src/repro_torch/
    csrc`` with ``nvcc`` (one process per source, in parallel) and prints
-   the build seconds and the compiler's register/spill report.
+   the build seconds, each library's register/spill report and, where the
+   toolkit has ``cuobjdump``, the count of ``HGMMA`` instructions in the
+   tensor-core flash library's SASS (it must not be 0).
 3. setup   — the OGBN-Arxiv analogue ``citation_graph(n=169_343,
    feat_dim=128)``, cut ``metis-like`` into Q = 4 partitions stacked on the
    card, and a ``ServingEngine`` over GraphSAGE at the paper's width (in
@@ -49,31 +51,40 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
    ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
-   over as the model's ``[B, S, H, D]`` views), at D = 256 (gemma's
-   heads), with a window, at a ragged S and in f32; ``ssd_chunk`` at
-   mamba2-130m's (x ``[8, 8, 256, 24, 64]``, B/C ``[8, 8, 256, 1, 128]``,
-   f32, strided like the conv output) and at a two-group ragged shape.
+   over as the model's ``[B, S, H, D]`` views), at D = 128 and D = 256,
+   with a window, at a ragged S — all on the tensor-core kernel — and in
+   f32 and bf16 at D = 32 on the CUDA-core kernel (each case checks that
+   the counter of its kernel, and only that one, moved; the record's
+   ``path`` names it); ``ssd_chunk`` at mamba2-130m's (x ``[8, 8, 256,
+   24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
+   output), at a two-group ragged shape and at G = 2, H/G = 3, Q = 100.
    Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
    bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
    absolute), with kernel, plain and library times (flash: ``scaled_dot_
    product_attention(is_causal=True, enable_gqa=True)``, timed here only;
    SSD: none) and the bound (bf16 products against the 989 TFLOP/s
-   tensor-core peak, f32 against 67 TFLOP/s).
+   tensor-core peak, f32 against 67 TFLOP/s; the SSD count takes C·Bᵀ
+   once per group, as the inputs need).
 8. lm — launch counts set to 0, then ``serve`` on granite-3-2b and on
    mamba2-130m at full size (40 bf16 / 24 f32 layers, random weights from
    a seeded generator on the card): batch 8, prompt 2048, 32 new tokens;
    counts read right after each.  Each prefill must launch its kernel
-   once per layer (40 flash, 24 SSD) and decode neither.  The kernel-path
+   once per layer (40 tensor-core flash, 24 SSD) and decode neither;
+   the CUDA-core flash kernel runs in neither.  The kernel-path
    prefill logits must match the plain-path ones (the same call with the
    plain versions swapped in) within 5e-2 (granite, bf16) and 1e-4
    (mamba2, f32) of the largest logit; decode consistency — prefill over
    S − 1 tokens plus one decode step against the prefill over S — within
    1e-3 of the largest logit (granite's bf16 weights run in f32 for this
    check; mamba2 at S = 256, since 2047 is no multiple of its chunk).
+   Granite's f32 check is the CUDA-core flash kernel's path: counts are
+   set to 0 before it and read after (two prefills: 80 launches of it,
+   none of the tensor-core kernel).
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels, from the LM prefills for the
-LM kernels); the last line is ``{"ok": true, "device": {...}}``.
+LM kernels, from granite's f32 check for the CUDA-core flash kernel); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,6 +130,9 @@ KERNELS = {
         "source": "src/repro_torch/csrc/varco_pack_quant.cu",
         "replaces": "src/repro/kernels/varco_pack.py:213"},
     "flash_attention": {
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:108"},
+    "flash_attention_simt": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108"},
     "ssd_chunk": {"source": "src/repro_torch/csrc/ssd_chunk.cu",
@@ -128,13 +142,17 @@ KERNELS = {
 
 GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
                "varco_unpack_quant")
-#: kernel -> the arch whose prefill runs it (once per layer)
-LM_KERNELS = {"flash_attention": "granite-3-2b", "ssd_chunk": "mamba2-130m"}
+#: kernel -> the arch whose prefill runs it (once per layer); the CUDA-core
+#: flash kernel runs in neither bf16 granite nor f32 mamba2 serving, but in
+#: granite served in f32 (the decode-consistency check's path)
+LM_KERNELS = {"flash_attention": "granite-3-2b", "ssd_chunk": "mamba2-130m",
+              "flash_attention_simt": None}
 
 
 def launch_counters() -> dict:
     from repro_torch.kernels.ell_spmm import ell_spmm
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention_simt,
+                                                     flash_attention_wgmma)
     from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels import varco_pack as vp
 
@@ -142,7 +160,9 @@ def launch_counters() -> dict:
             "varco_unpack": vp.varco_unpack,
             "varco_pack_quant": vp.varco_pack_quant,
             "varco_unpack_quant": vp.varco_unpack_quant,
-            "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}
+            "flash_attention": flash_attention_wgmma,
+            "flash_attention_simt": flash_attention_simt,
+            "ssd_chunk": ssd_chunk}
 
 
 def emit(obj) -> None:
@@ -209,15 +229,34 @@ def device_phase():
     return card
 
 
+def _hgmma_count(lib: Path):
+    """Number of ``HGMMA`` (wgmma) instructions in a built library's SASS,
+    or None where the toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    return sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+
+
 def build_phase():
     from repro_torch.kernels import _build
 
     res = _build.build()
-    ptxas = [ln.strip() for log in res["log"].values()
-             for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # per library: each kernel's registers and spills (ptxas -v)
+    ptxas = {name: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in res["log"].items()}
+    hgmma = _hgmma_count(_build.library_path("flash_attention_wgmma"))
     emit({"phase": "build", "seconds": res["seconds"],
-          "built": sorted(res["log"]), "ptxas": ptxas})
+          "built": sorted(res["log"]), "ptxas": ptxas,
+          "flash_attention_wgmma_hgmma": hgmma})
+    check(hgmma is None or hgmma > 0, "no HGMMA instruction in the "
+          "tensor-core flash library's SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -752,21 +791,41 @@ def _attn_pairs(s: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _ssd_flops(b: int, nc: int, q: int, h: int, p: int, g: int,
+               n: int) -> float:
+    """Flops the SSD chunk form needs: ``C·Bᵀ`` once per (batch, chunk,
+    group) over the causal pairs, then per head ``M·X`` over those pairs
+    and the ``[P, N]`` state contribution over the chunk's rows."""
+    pairs = q * (q + 1) // 2
+    return 2.0 * b * nc * (g * pairs * n + h * (pairs * p + q * p * n))
+
+
 def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
                 library=False):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_for)
 
     dev = gen.device
     # the model's [B, S, H, D] layout, handed over as transposed views
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev,
                            dtype=dtype).transpose(1, 2)
                for n in (h, kv, kv))
+    path = kernel_for(dtype, d)
+    kernel = "flash_attention" if path == "wgmma" else "flash_attention_simt"
+    counters = launch_counters()
+    before = {name_: counters[name_].launches
+              for name_ in ("flash_attention", "flash_attention_simt")}
     out = flash_attention(q, k, v, True, window)
     ref = flash_attention_plain(q, k, v, True, window).float()
     torch.cuda.synchronize()
+    moved = {name_: counters[name_].launches - before[name_]
+             for name_ in before}
+    check(moved == {name_: int(name_ == kernel) for name_ in before},
+          f"flash_attention {name}: expected one launch of {kernel}, "
+          f"counters moved {moved}")
     err = float((out.float() - ref).abs().max())
     tol = FLASH_TOL[dtype]
     check(_within(out, ref, tol, tol),
@@ -776,15 +835,17 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
     flops = 4.0 * d * _attn_pairs(s, True, window) * b * h
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
                           if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-    lib_ms = None
+    lib_ms = lib_err = None
     if library:
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              enable_gqa=True)
-        check(_within(lib, ref, tol, tol), "scaled_dot_product_attention "
-              "disagrees with the plain version")
+        lib_err = float((lib.float() - ref).abs().max())
+        check(dtype != torch.bfloat16 or _within(lib, ref, tol, tol),
+              "scaled_dot_product_attention disagrees with the plain "
+              "version")
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps)
-    rec = {"kernel": "flash_attention", "case": name,
+    rec = {"kernel": kernel, "path": path, "case": name,
            "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
                      "dtype": str(dtype), "window": window},
            "max_abs_err": err,
@@ -793,8 +854,9 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True,
                                                              window),
                                max(reps // 5, 1)),
-           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "flops": flops, "bytes": n_bytes}
+           "library_ms": lib_ms, "library_max_abs_err": lib_err,
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": n_bytes}
     emit(rec)
     return rec
 
@@ -822,8 +884,7 @@ def _ssd_case(name, b, nc, q, h, p, g, n, reps, gen):
         check(_within(got, want, SSD_RTOL, SSD_ATOL),
               f"ssd_chunk {name}: {what} differs from the plain version "
               f"(max abs err {err})")
-    pairs = q * (q + 1) // 2
-    flops = 2.0 * b * nc * h * (pairs * n + pairs * p + q * p * n)
+    flops = _ssd_flops(b, nc, q, h, p, g, n)
     n_bytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * bm.numel() +
                    st.numel())                  # x, y; dt, cum; B, C; s
     b_ms, b_by = bound_ms(n_bytes, flops)
@@ -846,18 +907,31 @@ def lm_kernels_phase(reps: int = 10) -> dict:
     largest error over its cases."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
+    # first record of each kernel: its main row (flash_attention_simt: the
+    # f32 granite shape that the f32 serving path runs)
     flash = [
         _flash_case("granite_prefill", 8, 32, 8, 2048, 64, bf16, 0, reps,
                     gen, library=True),
-        _flash_case("d256", 2, 16, 16, 2048, 256, bf16, 0, reps, gen),
+        _flash_case("d128", 2, 32, 8, 2048, 128, bf16, 0, reps, gen,
+                    library=True),
+        _flash_case("d256", 2, 16, 16, 2048, 256, bf16, 0, reps, gen,
+                    library=True),
         _flash_case("window1024", 8, 32, 8, 2048, 64, bf16, 1024, reps, gen),
         _flash_case("ragged_s1000", 2, 32, 8, 1000, 64, bf16, 0, reps, gen),
-        _flash_case("f32", 2, 32, 8, 2048, 64, f32, 0, reps, gen),
+        _flash_case("f32", 2, 32, 8, 2048, 64, f32, 0, reps, gen,
+                    library=True),
+        _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, reps, gen),
     ]
     ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
-           _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen)]
-    return {recs[0]["kernel"]: {**recs[0], "max_abs_err": max(
-        r["max_abs_err"] for r in recs)} for recs in (flash, ssd)}
+           _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen),
+           _ssd_case("g2_rep3_q100", 2, 3, 100, 6, 64, 2, 128, reps, gen)]
+    main = {}
+    for rec in flash + ssd:
+        name = rec["kernel"]
+        main.setdefault(name, dict(rec))
+        main[name]["max_abs_err"] = max(main[name]["max_abs_err"],
+                                        rec["max_abs_err"])
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -945,10 +1019,20 @@ def lm_phase(seed: int = 0) -> dict:
             cons = _consistency(cfg, params, prompts, cfg.mamba.chunk)
         else:
             # the identity in f32: a bf16 decode rounds its scores before
-            # the softmax; batch 2 of the prompts
+            # the softmax; batch 2 of the prompts.  Granite served in f32
+            # is the CUDA-core flash kernel's path: two prefills
+            for fn in counters.values():
+                fn.launches = 0
             cons = _consistency(
                 cfg.with_(param_dtype="float32", activ_dtype="float32"),
                 _tree_float(params), prompts[:2], LM_PROMPT)
+            f32_got = {name: counters[name].launches for name in LM_KERNELS}
+            check(f32_got == {"flash_attention": 0, "ssd_chunk": 0,
+                              "flash_attention_simt": 2 * cfg.n_layers},
+                  f"{arch} in f32: flash launches {f32_got}, expected "
+                  f"{2 * cfg.n_layers} of flash_attention_simt only")
+            launches["flash_attention_simt"] = f32_got[
+                "flash_attention_simt"]
         rec = {"phase": "lm", "arch": arch, "params": param_count(params),
                "dtype": cfg.param_dtype, "layers": cfg.n_layers,
                "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
@@ -958,6 +1042,8 @@ def lm_phase(seed: int = 0) -> dict:
                "decode_tokens_per_s": out.decode_tokens_per_s,
                "decode_ms_per_step": out.decode_s / (LM_NEW - 1) * 1e3,
                "peak_mem_gb": peak, "launches": got,
+               **({"f32_consistency_launches": f32_got}
+                  if cfg.mamba is None else {}),
                "plain_path_rel_err": plain_err,
                "decode_consistency_rel_err": cons,
                "first_tokens": out.tokens[0, :8].tolist()}

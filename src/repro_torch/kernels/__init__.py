@@ -9,7 +9,9 @@ PyTorch version and a launch counter:
 * ``varco_pack_quant`` — the fused quantised-wire codecs
   (``csrc/varco_pack_quant.cu``)
 * ``flash_attention``  — causal / sliding-window GQA attention of the LM
-  prefill (``csrc/flash_attention.cu``)
+  prefill: a tensor-core kernel for bf16 at head dims 64/128/256
+  (``csrc/flash_attention_wgmma.cu``) and a CUDA-core one for f32 and
+  narrow heads (``csrc/flash_attention.cu``), picked by ``kernel_for``
 * ``ssd_chunk``        — the Mamba2 SSD intra-chunk quadratic form and
   chunk-state contribution (``csrc/ssd_chunk.cu``)
 

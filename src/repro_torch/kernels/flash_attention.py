@@ -5,29 +5,42 @@ that the mask keeps (``j ≤ i`` when causal, ``j > i − window`` when a
 window is set), with query head ``h`` reading KV head ``h // group``.
 Rows whose every key is masked give 0, as ``ref.mha_reference`` does.
 
-Kernel (CUDA C++, ``csrc/flash_attention.cu``, built for ``sm_90a``):
-:func:`flash_attention` replaces ``repro/kernels/flash_attention.py::
+Two CUDA kernels replace ``repro/kernels/flash_attention.py::
 flash_attention`` (``_flash_kernel``, the ``pl.pallas_call`` at
-``flash_attention.py:108``).
+``flash_attention.py:108``); :func:`flash_attention` picks one by the
+explicit rule :func:`kernel_for` on ``(dtype, D)``:
 
-What bounds it on the card: operations — at granite's prefill shape the
-products are 1.4e11 flops against 84 MB moved.  Design, a first simple
-one: one block per (query tile of 64 rows, head, batch); 64-key K/V tiles
-pass through shared memory as f32; scores, the online-softmax ``m``/``l``
-and the output accumulators stay f32 in registers (FMA on the CUDA cores,
-no tensor cores yet); key tiles wholly outside the causal or window mask
-are never visited; keys past ``S`` are masked, so any length runs (the
-Pallas kernel asserts ``S % 128 == 0``).  Masks come from indices, as in
-the Pallas kernel and ``chunked_sdpa``.
+* :func:`flash_attention_wgmma` (``csrc/flash_attention_wgmma.cu``) for
+  bf16 at ``D ∈ {64, 128, 256}`` — every head dim of the repo's full-size
+  configs.  Bound by operations (granite's prefill: 1.4e11 bf16 flops
+  against 84 MB), so it runs both products on the tensor cores: TMA loads
+  Q once and K/V tiles through a ring of mbarrier-paced stages, ``S =
+  Q·Kᵀ`` by ``wgmma`` from shared memory, the online softmax on the f32
+  accumulator fragment in registers, P rounded to bf16 straight into
+  wgmma's register A operand for ``O += P·V``.  Rounding P to bf16 is its
+  one rounding beyond the plain version's (about one bf16 ulp of the
+  output, which is bf16 anyway).
+* :func:`flash_attention_simt` (``csrc/flash_attention.cu``) for f32 and
+  for bf16 at ``D ∈ {16, 32}`` (the smoke configs' widths): the first,
+  CUDA-core design — 64×64 tiles as f32 in shared memory, FMA products,
+  the online softmax in registers.
+
+Both compute the same function: f32 ``m``/``l``/accumulators, key tiles
+wholly outside the causal or window band skipped, keys past ``S`` masked
+(any length runs; the Pallas kernel asserts ``S % 128 == 0``), masks from
+indices as in the Pallas kernel and ``chunked_sdpa``.  This is a
+dispatch, not a fallback: a failed build or launch of either raises.
 
 Layout: the public function keeps the JAX layout ``[B, H, S, D]``, but
 takes strided views — the model passes ``[B, S, H, D]`` tensors through
-``transpose(1, 2)`` and the kernel reads them in place through their
-strides (no transpose copy); the output has ``q``'s strides.
+``transpose(1, 2)`` and both kernels read them in place through their
+strides (no transpose copy); the output has ``q``'s strides.  The
+tensor-core kernel's TMA needs 16-byte aligned pointers and strides.
 
-Beside the kernel: its plain PyTorch version :func:`flash_attention_plain`
-(dense masked softmax in f32; CPU tensors run it) and a launch counter
-(``flash_attention.launches``).
+Beside the kernels: the plain PyTorch version :func:`flash_attention_plain`
+(dense masked softmax in f32; CPU tensors run it) and one launch counter
+per kernel (``flash_attention_wgmma.launches``,
+``flash_attention_simt.launches``).
 """
 
 from __future__ import annotations
@@ -39,13 +52,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the kernel is instantiated for
+#: head dims the CUDA-core kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the tensor-core kernel takes (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FUNCS = {
     "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+_WGMMA_FUNCS = {
+    "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 4 +
+    [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 +
+    [ctypes.c_void_p],
 }
 
 
@@ -104,26 +124,82 @@ def _check(q, k, v):
                              f"contiguous (stride 1)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """CUDA flash attention: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
-    all f32 or all bf16, each with a contiguous last dim (other strides
-    free) -> ``[B, H, S, D]`` in q's dtype, laid out like q."""
-    _check(q, k, v)
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """Which kernel :func:`flash_attention` launches: ``"wgmma"`` (tensor
+    cores) for bf16 at ``d`` in :data:`WGMMA_HEAD_DIMS`, else ``"simt"``
+    (CUDA cores)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
+def _launch_args(q, k, v, out, causal, window):
     b, h, s, d = q.shape
-    kvh = k.shape[1]
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], s, d, *strides, int(causal), int(window),
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """The CUDA-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``, all
+    f32 or all bf16, each with a contiguous last dim (other strides free)
+    -> ``[B, H, S, D]`` in q's dtype, laid out like q."""
+    _check(q, k, v)
     out = torch.empty_like(q)                  # q's strides
     if out.numel() == 0:
         return out
-    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     lib = _build.library("flash_attention", _FUNCS)
-    _build.check(lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, h, kvh, s, d, *strides, int(causal),
-        int(window), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
-    flash_attention.launches += 1
+    args = _launch_args(q, k, v, out, causal, window)
+    _build.check(lib.flash_attention_fwd(*args[:4], _DTYPE_CODE[q.dtype],
+                                         *args[4:]), "flash_attention_simt")
+    flash_attention_simt.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention_simt.launches = 0
+
+
+def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """The tensor-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
+    all bf16 with ``D`` in :data:`WGMMA_HEAD_DIMS`, a contiguous last dim
+    and 16-byte aligned pointers and strides -> ``[B, H, S, D]`` bf16,
+    laid out like q."""
+    _check(q, k, v)
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_wgmma takes bf16 at head dims "
+                         f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st % 8 for n, st in
+                                    zip(t.shape[:3], t.stride()[:3])
+                                    if n > 1):
+            raise ValueError(f"flash_attention_wgmma: {arg} needs a "
+                             f"16-byte aligned pointer and strides (TMA), "
+                             f"got strides {t.stride()}")
+    out = torch.empty_like(q)                  # q's strides
+    if out.numel() == 0:
+        return out
+    lib = _build.library("flash_attention_wgmma", _WGMMA_FUNCS)
+    _build.check(lib.flash_attention_wgmma_fwd(
+        *_launch_args(q, k, v, out, causal, window)), "flash_attention_wgmma")
+    flash_attention_wgmma.launches += 1
+    return out
+
+
+flash_attention_wgmma.launches = 0
+
+_KERNELS = {"wgmma": flash_attention_wgmma, "simt": flash_attention_simt}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """CUDA flash attention: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
+    all f32 or all bf16, each with a contiguous last dim -> ``[B, H, S,
+    D]`` in q's dtype, laid out like q; launches the kernel that
+    :func:`kernel_for` names."""
+    _check(q, k, v)
+    return _KERNELS[kernel_for(q.dtype, q.shape[-1])](q, k, v, causal, window)

@@ -13,21 +13,26 @@ It computes the Pallas kernel's function over group-expanded inputs, but
 reads B and C un-expanded ``[B, NC, Q, G, N]``: at mamba2's shape (24
 heads, one group) the expansion would read 24× their bytes.
 
-What bounds it on the card: operations (f32 products; ≈2.6e10 flops
-against ≈272 MB at mamba2's prefill shape).  Design: a chunk's B and C
-(256 KB in f32 at Q = 256, N = 128) do not fit one block's shared memory,
-so the ``Y`` pass gives each block 64 rows ``t`` of one (batch·chunk,
-head) and streams 64-row tiles of B and X for ``s ≤ t`` only (the causal
-half); ``exp(cum_t − cum_s)`` is evaluated only where ``s ≤ t`` (above
-the diagonal it could overflow).  The state contribution is its own pass,
-one block per (batch·chunk, head) streaming the chunk's rows.  Any ``Q``
-runs (tiles past it are masked).  Inputs are strided views with the last
-dim contiguous, so the model's conv output is read in place.
+What bounds it on the card: f32 operations on the CUDA cores (13.45
+GFLOP of needed work against 0.27 GB at mamba2's prefill shape).  ``C ·
+Bᵀ`` depends on the group only, so the ``Y`` pass forms it once per (64-
+row t tile, group, batch·chunk) into shared memory — over the causal
+``s`` range only — and shares it across the group's heads, where a
+per-head design repeats it 24 times at mamba2's shape (half the old
+kernel's arithmetic).  Per head it builds ``M = G ∘ exp(cum_t − cum_s) ∘
+dt_s`` (``exp`` only where ``s ≤ t``: above the diagonal it could
+overflow) and accumulates ``M · X_h`` with 4 × 8 register tiles, while
+``cp.async`` brings the next X tile; t tiles run longest first.  The
+state contribution is a second launch in the same call: each block loads
+a q tile of B once for two heads.  Any ``Q`` up to :data:`MAX_Q` runs
+(tiles past it are masked; the shared ``G`` tile grows with ``Q``).
+Inputs are strided views with the last dim contiguous, so the model's
+conv output is read in place.
 
 Beside the kernel: its plain PyTorch version :func:`ssd_chunk_plain` (the
 chunk math of ``repro/models/mamba2.py::ssd_chunked``; CPU tensors run
 it) and a launch counter (``ssd_chunk.launches``; one per call, which
-runs both passes).
+launches both passes).
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ _FUNCS = {
 #: largest d_state / head_dim the kernel's shared-memory tiles take
 MAX_N = 256
 MAX_P = 256
+#: longest chunk the kernel's shared C·Bᵀ tile holds
+MAX_Q = 448
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -106,6 +113,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     if n % 4 or p % 4 or n > MAX_N or p > MAX_P:
         raise ValueError(f"ssd_chunk: d_state {n} and head_dim {p} must be "
                          f"multiples of 4 up to {MAX_N} / {MAX_P}")
+    if q > MAX_Q:
+        raise ValueError(f"ssd_chunk: chunk length {q} exceeds {MAX_Q}")
     y = torch.empty((bsz, nc, q, h, p), dtype=torch.float32, device=x.device)
     s = torch.empty((bsz, nc, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:

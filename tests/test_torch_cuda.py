@@ -13,8 +13,10 @@ on the card is held to the plain version's autograd on the CPU within
 1e-5 (atomic scatters and FMA contraction reorder f32 sums).  The LM
 kernels: flash attention within 2e-5 in f32 and 2e-2 in bf16 (one bf16
 ulp of the rounded output, relative 2^-8, where the two f32 sums straddle
-a rounding edge); the SSD chunk form within 1e-5 relative + 1e-4 absolute
-(f32 sums of up to Q·N products in another order).
+a rounding edge; the tensor-core kernel also rounds P to bf16, about one
+more ulp of the output), with a check of which of its two kernels ran;
+the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
+to Q·N products in another order).
 """
 
 from __future__ import annotations
@@ -244,14 +246,98 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d, causal,
                     dtype=dtype).transpose(1, 2)
     v = torch.randn((b, s, kv, d), generator=gen, device=cuda_device,
                     dtype=dtype).transpose(1, 2)
-    before = tfa.flash_attention.launches
+    before = _flash_counts()
     out = tops.mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert _flash_moved(before) == tfa.kernel_for(dtype, d)
     assert out.dtype == dtype and out.stride() == q.stride()
     ref = tfa.flash_attention_plain(q, k, v, causal, window)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _flash_counts():
+    return (tfa.flash_attention_wgmma.launches,
+            tfa.flash_attention_simt.launches)
+
+
+def _flash_moved(before) -> str:
+    """Which flash kernel launched once since ``before`` (the other must
+    not have moved)."""
+    after = _flash_counts()
+    moved = (after[0] - before[0], after[1] - before[1])
+    assert moved in ((1, 0), (0, 1)), moved
+    return "wgmma" if moved == (1, 0) else "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (2, 8, 8, 1024, 64, True, 0),      # MHA (group 1)
+    (2, 16, 4, 1024, 64, True, 0),     # GQA group 4
+    (1, 32, 4, 1024, 128, True, 0),    # GQA group 8
+    (1, 8, 2, 1024, 256, True, 0),     # gemma-sized heads, group 4
+    (1, 8, 8, 768, 64, False, 0),      # non-causal
+    (1, 8, 2, 640, 128, False, 0),
+    (1, 4, 4, 512, 256, False, 0),
+    (2, 8, 2, 2048, 64, True, 1024),   # window 1024
+    (1, 8, 4, 2048, 128, True, 1024),
+    (1, 4, 2, 1300, 256, True, 1024),
+    (1, 8, 1, 1000, 64, True, 0),      # ragged S, MQA
+    (2, 8, 2, 1000, 128, False, 0),
+    (1, 4, 4, 127, 256, True, 0),      # ragged, under one query tile
+    (1, 8, 2, 127, 64, False, 0),
+    (1, 4, 1, 40, 128, True, 0),       # S < one key tile
+    (1, 2, 2, 1, 64, True, 0),
+    (1, 8, 2, 300, 64, False, 200),    # window without causality
+])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_wgmma_matches_plain(cuda_device, b, h, kv, s, d, causal,
+                                        window, layout):
+    """The tensor-core kernel (bf16, D in {64, 128, 256}) against the plain
+    version: the model's [B, S, H, D] tensors as strided views and
+    contiguous [B, H, S, D] ones, the output in q's strides."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + h)
+
+    def make(n):
+        shape = (b, s, n, d) if layout == "bshd" else (b, n, s, d)
+        t = torch.randn(shape, generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16)
+        return t.transpose(1, 2) if layout == "bshd" else t
+
+    q, k, v = make(h), make(kv), make(kv)
+    before = _flash_counts()
+    out = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _flash_moved(before) == "wgmma"
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    ref = tfa.flash_attention_plain(q, k, v, causal, window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wgmma_reads_wide_views(cuda_device):
+    """q, k and v as column slices of wider [B, S, ·] buffers (as a fused
+    projection would hand them over): TMA reads them in place through
+    their strides, and the output is dense in q's dim order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b, s, h, kv, d = 2, 300, 8, 2, 128
+    wide = torch.randn((b, s, (h + 2 * kv) * d), generator=gen,
+                       device=cuda_device, dtype=torch.bfloat16)
+    q = wide[..., :h * d].unflatten(-1, (h, d)).transpose(1, 2)
+    k = wide[..., h * d:(h + kv) * d].unflatten(-1, (kv, d)).transpose(1, 2)
+    v = wide[..., (h + kv) * d:].unflatten(-1, (kv, d)).transpose(1, 2)
+    before = _flash_counts()
+    out = tops.mha(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert _flash_moved(before) == "wgmma"
+    assert out.transpose(1, 2).is_contiguous()
+    ref = tfa.flash_attention_plain(q, k, v, True, 0)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    # refuses a view TMA cannot address rather than read it wrongly
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_wgmma(q[..., 1:65], k[..., 1:65], v[..., 1:65])
 
 
 def _ssd_inputs(gen, dev, b, nc, q, h, p, g, n):
@@ -274,6 +360,9 @@ def _ssd_inputs(gen, dev, b, nc, q, h, p, g, n):
     (2, 3, 100, 4, 32, 2, 16),         # two groups, ragged Q
     (1, 2, 64, 8, 16, 8, 32),          # one group per head
     (1, 1, 70, 2, 128, 1, 256),        # wide head and state
+    (2, 3, 100, 6, 64, 2, 128),        # G = 2, H/G = 3, ragged Q
+    (2, 2, 130, 6, 72, 3, 36),         # N, P not multiples of 64
+    (1, 2, 448, 4, 64, 2, 128),        # the longest chunk
 ])
 def test_cuda_ssd_chunk_matches_plain(cuda_device, b, nc, q, h, p, g, n):
     gen = torch.Generator(device=cuda_device).manual_seed(q + n)
@@ -283,6 +372,27 @@ def test_cuda_ssd_chunk_matches_plain(cuda_device, b, nc, q, h, p, g, n):
     torch.cuda.synchronize()
     assert tssd.ssd_chunk.launches == before + 1
     y_ref, st_ref = tssd.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_reads_unaligned_views(cuda_device):
+    """x, B and C at a 4-byte offset in their buffer (no 16-byte copies
+    possible) take the kernel's 4-byte copy path and still match."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, nc, q, h, p, g, n = 2, 3, 100, 6, 64, 2, 128
+    wide = torch.randn((b, nc, q, h * p + 2 * g * n + 1), generator=gen,
+                       device=cuda_device)[..., 1:]
+    x = wide[..., :h * p].reshape(b, nc, q, h, p)
+    bm = wide[..., h * p:h * p + g * n].reshape(b, nc, q, g, n)
+    cm = wide[..., h * p + g * n:].reshape(b, nc, q, g, n)
+    dt = torch.rand((b, nc, q, h), generator=gen, device=cuda_device) * 0.099 \
+        + 1e-3
+    cum = torch.cumsum(-dt, dim=2)
+    assert x.data_ptr() % 16
+    y, st = tssd.ssd_chunk(x, dt, cum, bm, cm)
+    y_ref, st_ref = tssd.ssd_chunk_plain(x, dt, cum, bm, cm)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=1e-4)
 
@@ -323,9 +433,13 @@ def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
     on_card = _to(params, cuda_device)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (2, 128))
-    counters = (tfa.flash_attention.launches, tssd.ssd_chunk.launches)
+    flash = tfa.kernel_for(cfg.pdtype,
+                           cfg.resolved_head_dim)
+    counter = (tfa.flash_attention_wgmma if flash == "wgmma"
+               else tfa.flash_attention_simt)
+    counters = (counter.launches, tssd.ssd_chunk.launches)
     got = serve(cfg, on_card, prompts, 4, device=cuda_device)
-    launched = (tfa.flash_attention.launches - counters[0],
+    launched = (counter.launches - counters[0],
                 tssd.ssd_chunk.launches - counters[1])
     assert launched == ((cfg.n_layers, 0) if arch == "granite-3-2b"
                         else (0, cfg.n_layers))

@@ -387,3 +387,86 @@ def test_mlp_matches_jax(kind):
     got = tl.mlp({k: _t(v) for k, v in p.items()}, _t(x), kind)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash kernel choice and the smoke run's work counts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_flash_kernel_choice_by_dtype_and_head_dim(dtype, d, kernel):
+    """bf16 at every full-size config's head dim takes the tensor cores;
+    f32 and the smoke configs' narrow heads take the CUDA-core kernel."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    assert tfa.kernel_for(dtype, d) == kernel
+    # either kernel refuses a CPU tensor rather than run something else
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    fn = tfa.flash_attention_wgmma if kernel == "wgmma" else \
+        tfa.flash_attention_simt
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(q, q, q)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _attn_mask(s, causal, window):
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    keep = np.ones((s, s), bool)
+    if causal:
+        keep &= j <= i
+    if window > 0:
+        keep &= j > i - window
+    return keep
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (1, True, 0), (7, True, 0), (130, True, 0), (130, False, 0),
+    (130, True, 16), (130, False, 16), (64, True, 64), (50, True, 100)])
+def test_smoke_attention_pair_count_is_the_masks_count(s, causal, window):
+    """``chip_smoke._attn_pairs`` (the flash bound's work) equals the
+    number of (query, key) pairs the plain version's mask keeps."""
+    assert _chip_smoke()._attn_pairs(s, causal, window) == \
+        int(_attn_mask(s, causal, window).sum())
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,g,n", [
+    (1, 1, 5, 1, 3, 1, 2), (2, 3, 8, 4, 4, 1, 6), (1, 2, 9, 6, 2, 2, 3),
+    (2, 1, 4, 2, 5, 2, 7)])
+def test_smoke_ssd_flop_count_is_the_nonzero_products(b, nc, q, h, p, g, n):
+    """``chip_smoke._ssd_flops`` counts 2 flops per product the inputs
+    need: C·Bᵀ once per (batch, chunk, group) on the causal pairs, M·X
+    per head on those pairs, the state per head on every row — counted
+    here one product at a time by walking the masks."""
+    causal = _attn_mask(q, True, 0)
+    products = 0
+    for _ in range(b * nc):
+        for _ in range(g):                            # C·Bᵀ per group
+            products += sum(n for t in range(q) for s in range(q)
+                            if causal[t, s])
+        for _ in range(h):                            # per head
+            products += sum(p for t in range(q) for s in range(q)
+                            if causal[t, s])          # M·X
+            products += q * p * n                     # Xᵀ (w B)
+    got = _chip_smoke()._ssd_flops(b, nc, q, h, p, g, n)
+    assert got == 2 * products
+    # the per-head count of the previous bound is larger whenever H > G
+    pairs = q * (q + 1) // 2
+    per_head = 2.0 * b * nc * h * (pairs * n + pairs * p + q * p * n)
+    assert (got < per_head) == (h > g)
