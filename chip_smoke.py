@@ -27,9 +27,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    version and one PyTorch library call where one computes the same
    function, beside the least time the card could take (bytes over 3.35
    TB/s, flops over 67 TFLOP/s f32).  The ELL SpMM also runs over the
-   reversed lists (the training backward), and each autograd function's
-   backward on the card is held to the plain version's autograd within
-   1e-4 (atomic scatters reorder f32 sums).
+   reversed lists (the training backward); its records carry the bytes
+   its gathers move (one row slice per valid slot) and their rate.  Each
+   autograd function's backward on the card is held to the plain
+   version's autograd within 1e-4 (atomic scatters reorder f32 sums).
 5. slice   — launch counts set to 0, then the serving path: ``refresh(
    force=True)``, a few hundred node and edge queries through ``submit``/
    ``flush``, and three non-forced ``refresh()`` calls under the default
@@ -61,8 +62,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
    bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
    absolute), with kernel, plain and library times (flash: ``scaled_dot_
-   product_attention(is_causal=True, enable_gqa=True)``, timed here only;
-   SSD: none) and the bound (bf16 products against the 989 TFLOP/s
+   product_attention(is_causal=True, enable_gqa=True)``, or with a
+   boolean ``attn_mask`` built outside the timing for the window, held to
+   the plain version in bf16 and timed here only; SSD: none) and the bound (bf16 products against the 989 TFLOP/s
    tensor-core peak, f32 against 67 TFLOP/s; the SSD count takes C·Bᵀ
    once per group, as the inputs need).
 8. lm — launch counts set to 0, then ``serve`` on granite-3-2b and on
@@ -294,10 +296,15 @@ def _ell_case(name, x, nbr, w, reps):
                      ref).abs().max())
     b_ms, b_by = bound_ms(rows * f * 4 + 2 * nbr.numel() * 4 +
                           q * n_dst * f * 4, 2.0 * nnz * f)
+    kernel_ms = cuda_ms(lambda: ell_spmm(x, nbr, w), reps)
+    # every valid slot gathers one row slice of F floats: the bytes the
+    # kernel moves through L2, against the bound's each-row-once count
+    gathered = nnz * f * 4
     rec = {"kernel": "ell_spmm", "case": name,
            "shape": {"x": list(x.shape), "nbr": list(nbr.shape)},
            "nnz": nnz, "max_abs_err": err, "library_max_abs_err": lib_err,
-           "kernel_ms": cuda_ms(lambda: ell_spmm(x, nbr, w), reps),
+           "kernel_ms": kernel_ms, "gathered_bytes": gathered,
+           "gathered_tb_s": gathered / (kernel_ms * 1e-3) / 1e12,
            "plain_ms": cuda_ms(lambda: ell_spmm_plain(x, nbr, w),
                                max(reps // 5, 1)),
            "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x2), reps),
@@ -837,14 +844,21 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
                           if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
     lib_ms = lib_err = None
     if library:
-        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                             enable_gqa=True)
+        # causal: is_causal; a window: a boolean mask (True = attend),
+        # built here, outside the timing
+        mask = None
+        if window > 0:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[None, :] > i[:, None] - window)
+        kw = {"attn_mask": mask} if mask is not None else {"is_causal": True}
+        lib = F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
         lib_err = float((lib.float() - ref).abs().max())
         check(dtype != torch.bfloat16 or _within(lib, ref, tol, tol),
-              "scaled_dot_product_attention disagrees with the plain "
-              "version")
+              f"scaled_dot_product_attention disagrees with the plain "
+              f"version at {name} (max abs err {lib_err})")
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps)
+            q, k, v, enable_gqa=True, **kw), reps)
     rec = {"kernel": kernel, "path": path, "case": name,
            "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
                      "dtype": str(dtype), "window": window},
@@ -916,11 +930,14 @@ def lm_kernels_phase(reps: int = 10) -> dict:
                     library=True),
         _flash_case("d256", 2, 16, 16, 2048, 256, bf16, 0, reps, gen,
                     library=True),
-        _flash_case("window1024", 8, 32, 8, 2048, 64, bf16, 1024, reps, gen),
-        _flash_case("ragged_s1000", 2, 32, 8, 1000, 64, bf16, 0, reps, gen),
+        _flash_case("window1024", 8, 32, 8, 2048, 64, bf16, 1024, reps, gen,
+                    library=True),
+        _flash_case("ragged_s1000", 2, 32, 8, 1000, 64, bf16, 0, reps, gen,
+                    library=True),
         _flash_case("f32", 2, 32, 8, 2048, 64, f32, 0, reps, gen,
                     library=True),
-        _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, reps, gen),
+        _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, reps, gen,
+                    library=True),
     ]
     ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
            _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen),

@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Where the GNN path's device time goes, by ``torch.profiler``.
+
+    python3 scripts/profile_gnn_step.py                  # on an H100
+    python3 scripts/profile_gnn_step.py --nodes 20000    # a smaller graph
+    python3 scripts/profile_gnn_step.py --nodes 2000 --device cpu
+                                          # rehearsal: CPU times only
+
+Builds ``chip_smoke.py``'s workload: ``citation_graph(n=169_343,
+feat_dim=128)`` cut ``metis-like`` into Q = 4 partitions on one card, and
+GraphSAGE at the paper's width (128 -> 256 -> 40, 3 layers) with seeded
+weights, served by a ``ServingEngine``.  For each training policy
+(``full``, ``varco:linear:5`` and ``auto:budget:<half the full-rate
+transport>:w8``) it sets up the step as ``train_gnn`` does (p2p wire,
+AdamW), runs two untraced steps (kernel build, allocator warm-up), then
+traces the third; then it traces one warm cold-start refresh of the
+serving engine (``refresh(force=True)`` after an untraced one).  For each
+traced item it prints one JSON line: the host-clock wall time (ending in
+a device sync), the device time summed over every kernel (self time),
+the device's idle share of the wall time (an upper bound: the profiler's
+host cost inflates the wall time), the number of kernels launched, the
+port's kernel launch counters, the share of ``ell_spmm``'s kernel, and
+the kernels with the most device time.  The card's name and power limit
+go on the first line.  If the trace holds no device time it falls back
+to CUDA events around the step (device time then is not split by
+kernel).  On the CPU the list holds operators' CPU self times, never
+device numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch import prng  # noqa: E402
+from repro_torch.core.varco import CommPolicy  # noqa: E402
+from repro_torch.dist.gnn_parallel import DistMeta, make_train_step  # noqa
+from repro_torch.dist.halo import attach_p2p  # noqa: E402
+from repro_torch.dist.ratectl import (exchange_widths,  # noqa: E402
+                                      init_wire_residuals,
+                                      make_auto_train_step, make_controller)
+from repro_torch.graph.synthetic import citation_graph  # noqa: E402
+from repro_torch.kernels import ell_spmm as _ell  # noqa: E402
+from repro_torch.kernels import varco_pack as _vp  # noqa: E402
+from repro_torch.nn.gnn import GNNConfig, init_gnn  # noqa: E402
+from repro_torch.serve import ServingEngine  # noqa: E402
+from repro_torch.train.optim import adamw  # noqa: E402
+
+TOP = 15    # kernels listed per traced item
+EPOCHS = 5  # the policies' schedule length, as in chip_smoke.py
+COUNTERS = {"ell_spmm": _ell.ell_spmm, "varco_pack": _vp.varco_pack,
+            "varco_unpack": _vp.varco_unpack,
+            "varco_pack_quant": _vp.varco_pack_quant,
+            "varco_unpack_quant": _vp.varco_unpack_quant}
+
+
+def _self_time_us(evt, on_card: bool) -> float:
+    if on_card:
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+    return float(evt.self_cpu_time_total)
+
+
+def _trace(fn, device: torch.device) -> dict:
+    """Trace one call of ``fn``: wall time, device time by kernel, idle
+    share, launches (profiler count and the port's counters)."""
+    on_card = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    for c in COUNTERS.values():
+        c.launches = 0
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if on_card:
+            torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    counters = {name: c.launches for name, c in COUNTERS.items()}
+    # on the card: the kernels (device-side events) only, so no time is
+    # counted both under a kernel and under the operator that launched it
+    rows = [(e.key[:160], _self_time_us(e, on_card), e.count)
+            for e in prof.key_averages()
+            if not on_card or str(e.device_type).endswith("CUDA")]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    rec = {"wall_ms": wall_us / 1e3, "port_kernel_launches": counters}
+    if on_card and not rows:
+        # no device events in the trace: time the call by CUDA events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return {**rec, "time_kind": "CUDA events around the call (the "
+                "trace held no device time)",
+                "device_ms": start.elapsed_time(end)}
+    busy_us = sum(r[1] for r in rows)
+    ell_us = sum(r[1] for r in rows if "ell_spmm" in r[0])
+    rec.update({
+        "time_kind": "device self time" if on_card
+        else "CPU self time (not a device number)",
+        "device_ms": busy_us / 1e3 if on_card else None,
+        "device_idle_share": 1.0 - busy_us / wall_us if on_card else None,
+        "kernels_launched": sum(r[2] for r in rows) if on_card else None,
+        "ell_spmm_ms": ell_us / 1e3 if on_card else None,
+        "ell_spmm_share": ell_us / busy_us if on_card and busy_us else None,
+        "top": [{"op": k, "ms": us / 1e3, "calls": n}
+                for k, us, n in rows[:TOP]]})
+    return rec
+
+
+def _step_fn(pg, cfg, params, spec: str, device):
+    """One training step under ``spec`` as ``train_gnn`` runs it (p2p
+    wire, AdamW): returns ``step(epoch)``, which runs the step and waits
+    for its loss."""
+    policy = CommPolicy.parse(spec, EPOCHS, compressor="blockmask")
+    graph = attach_p2p(pg.device_arrays(device), pg, device)
+    meta = DistMeta.build(pg, params, wire="p2p")
+    opt = adamw(5e-3)
+    state = {"params": params, "opt": opt.init(params), "cache": ()}
+    if policy.mode == "auto":
+        ctl = make_controller(policy, meta, cfg, total_steps=EPOCHS)
+        state["ctl"] = ctl.init()
+        step = make_auto_train_step(cfg, policy, opt, meta)
+        if policy.max_width < 32:
+            state["cache"] = init_wire_residuals(meta, cfg, device)
+
+        def run(epoch):
+            plan, state["ctl"] = ctl.plan(state["ctl"], epoch)
+            state["params"], state["opt"], m, state["cache"] = step(
+                state["params"], state["opt"], graph, prng.key(epoch), plan,
+                state["cache"])
+            state["ctl"] = ctl.observe(state["ctl"], m)
+            return float(m["loss"])
+    else:
+        step = make_train_step(cfg, policy, opt, meta)
+
+        def run(epoch):
+            state["params"], state["opt"], m = step(
+                state["params"], state["opt"], graph, epoch,
+                prng.key(epoch))
+            return float(m["loss"])
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nodes", type=int, default=169_343)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print("no CUDA device", file=sys.stderr)
+            return 1
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+            else "nvidia-smi failed"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        card = "cpu"
+    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+
+    g = citation_graph(n=args.nodes, feat_dim=128, seed=0)
+    cfg = GNNConfig(conv="sage", in_dim=128, hidden=256,
+                    out_dim=g.num_classes, layers=3)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), device=device)
+    eng = ServingEngine(g, params, cfg, q=4, device=device, seed=0)
+    pg = eng.pg
+    full_bits = 2.0 * 32.0 * pg.halo_demand * sum(exchange_widths(cfg)) * \
+        EPOCHS
+    specs = {"full": "full", "varco": "varco:linear:5",
+             "auto_w8": f"auto:budget:{0.5 * full_bits:g}:w8"}
+    for name, spec in specs.items():
+        run = _step_fn(pg, cfg, params, spec, device)
+        run(0)
+        run(1)                          # warm: kernels built, allocator
+        rec = _trace(lambda: run(2), device)
+        print(json.dumps({"item": "train_step", "run": name,
+                          "policy": spec, "epoch": 2, **rec}), flush=True)
+    eng.refresh(force=True)             # warm
+    rec = _trace(lambda: eng.refresh(force=True), device)
+    print(json.dumps({"item": "refresh", "force": True,
+                      "forward_ms": eng.timing["forward_s"] * 1e3,
+                      "host_copy_ms": eng.timing["host_copy_s"] * 1e3,
+                      **rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

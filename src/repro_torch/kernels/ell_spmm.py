@@ -9,14 +9,25 @@ Kernel (CUDA C++, ``csrc/ell_spmm.cu``, built for ``sm_90a``):
 (``_ell_kernel``, the ``pl.pallas_call`` at ``ell_spmm.py:78``).
 
 What bounds it on the card: device-memory bytes — two flops per gathered
-f32 against 4 bytes read.  Design: the TPU kernel streams source chunks of
-``x`` through VMEM (and ``ops.py`` pads rows to its grid); on Hopper the
-gathers go straight to device memory through L2, so there is no source
-chunking and no row padding.  One warp per destination row: the row's
-neighbour ids and weights are loaded once (one per lane) and broadcast by
-warp shuffles, lanes span the feature dimension with 16-byte loads, pad
-slots skip their gather, and a leading partition dimension ``Q`` lets one
-launch cover every partition (the JAX package vmaps over them).
+f32 against 4 bytes read, counting each referenced ``x`` row once.  But
+each row of ``x`` is gathered once per edge that reads it (about 8 times
+on the GNN path), so the bound is within reach only while the rows being
+gathered stay on chip; one partition's ``x`` slab (45.5 MB at F = 256)
+is about the whole 50 MB L2.  The TPU kernel kept its gathers in fast
+memory by streaming source chunks through VMEM; here the output is cut
+into tiles of (partition, column slice of 128, row tile), walked
+slice-major by a persistent grid whose blocks take the next tile from a
+counter (zeroed here, per call), so the blocks in flight gather from one
+partition's column slice of ``x``.  The gathers carry an L2
+``evict_last`` policy and ``out`` is written with streaming stores, per
+instruction (nothing device-wide is set).  A half-warp owns a row with
+two 16-byte loads per neighbour; the row's ids and weights are loaded
+once per slice and broadcast by warp shuffles, the neighbour loop stops
+at the warp's last valid slot, and four gathers issue before their FMAs.
+A leading partition dimension ``Q`` lets one launch cover every partition
+(the JAX package vmaps over them).  Widths off the float4 grid, or a
+misaligned ``x``, take the same raster with a full warp of 4-byte loads.
+``scripts/ell_spmm_variants.py`` measures the design's choices.
 
 Beside the kernel: its plain PyTorch version :func:`ell_spmm_plain` (the
 k-ascending loop of ``repro/kernels/ops.py::_ell_cpu``; CPU tensors run
@@ -32,7 +43,7 @@ import torch
 from repro_torch.kernels import _build
 
 _FUNCS = {
-    "ell_spmm_f32": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 5 +
+    "ell_spmm_f32": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5 +
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -80,9 +91,10 @@ def ell_spmm(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor
     out = torch.empty((q, n_dst, f), dtype=torch.float32, device=x.device)
     vec4 = int(f % 4 == 0 and x.data_ptr() % 16 == 0)
     lib = _build.library("ell_spmm", _FUNCS)
+    counter = torch.zeros(1, dtype=torch.int32, device=x.device)  # tiles
     _build.check(lib.ell_spmm_f32(
         x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),
-        q, n_dst, n_src, k, f, vec4, x.device.index,
+        counter.data_ptr(), q, n_dst, n_src, k, f, vec4, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream), "ell_spmm")
     ell_spmm.launches += 1
     return out

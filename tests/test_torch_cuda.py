@@ -209,6 +209,99 @@ def test_cuda_ell_aggregate_backward(cuda_device):
     torch.testing.assert_close(gx, gx_ref, rtol=0, atol=1e-5)
 
 
+def _ell_hard_lists(rng, q, n_dst, n_src, k):
+    """Lists that do not lean on ``ell_arrays``'s layout: ``w == 0`` slots
+    anywhere in a row, ids below 0 and at or past ``n_src`` with nonzero
+    weights, a row of degree 0 and a row of degree ``k`` in every
+    partition.  Returns the lists and their sanitised twin (bad slots
+    zeroed, ids 0), which the plain version can take."""
+    nbr = rng.integers(0, n_src, (q, n_dst, k)).astype(np.int32)
+    w = rng.uniform(0.1, 1.0, (q, n_dst, k)).astype(np.float32) / k
+    w[rng.uniform(size=w.shape) < 0.3] = 0.0           # interspersed pads
+    bad = rng.uniform(size=w.shape) < 0.1
+    nbr[bad] = np.where(rng.uniform(size=int(bad.sum())) < 0.5, -1 -
+                        rng.integers(0, 5, int(bad.sum())),
+                        n_src + rng.integers(0, 5, int(bad.sum())))
+    w[:, 0] = 0.0                                      # degree 0
+    nbr[:, -1] = rng.integers(0, n_src, (q, k))        # degree k
+    w[:, -1] = rng.uniform(0.1, 1.0, (q, k)) / k
+    ok = (w != 0) & (nbr >= 0) & (nbr < n_src)
+    return (nbr, w), (np.where(ok, nbr, 0).astype(np.int32),
+                      np.where(ok, w, 0).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 4])
+@pytest.mark.parametrize("f", [1, 60, 64, 100, 128, 192, 256, 384])
+def test_cuda_ell_widths_and_hard_lists(cuda_device, q, f):
+    """Widths on and off the 64-column slice (ragged last slices at 60
+    and 100, whole slices at 64, 128, 192, 256 and 384), F % 4 != 0 (the
+    4-byte path at 1), interspersed pads, out-of-range ids, degree-0 and
+    degree-K rows, K past one 32-slot chunk."""
+    rng = np.random.default_rng(100 * q + f)
+    n_dst, n_src, k = 301, 257, 37
+    x = rng.normal(size=(q, n_src, f)).astype(np.float32)
+    (nbr, w), (nbr_ok, w_ok) = _ell_hard_lists(rng, q, n_dst, n_src, k)
+    xt, nt, wt = (torch.from_numpy(a).to(cuda_device) for a in (x, nbr, w))
+    before = tell.ell_spmm.launches
+    out = tell.ell_spmm(xt, nt, wt)
+    torch.cuda.synchronize()
+    assert tell.ell_spmm.launches == before + 1
+    want = tell.ell_spmm_plain(*(torch.from_numpy(a).to(cuda_device)
+                                 for a in (x, nbr_ok, w_ok)))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    assert not out[:, 0].any()                         # the degree-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64, 256])
+def test_cuda_ell_misaligned_view(cuda_device, f):
+    """``x`` contiguous but 4 bytes off a 16-byte boundary: the kernel's
+    4-byte path, held to the plain version on the same view."""
+    rng = np.random.default_rng(f)
+    q, n, k = 4, 200, 9
+    buf = torch.from_numpy(rng.normal(size=q * n * f + 1)
+                           .astype(np.float32)).to(cuda_device)
+    x = buf[1:].view(q, n, f)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    (nbr, w), (nbr_ok, w_ok) = _ell_hard_lists(rng, q, n, n, k)
+    out = tell.ell_spmm(x, torch.from_numpy(nbr).to(cuda_device),
+                        torch.from_numpy(w).to(cuda_device))
+    want = tell.ell_spmm_plain(x, torch.from_numpy(nbr_ok).to(cuda_device),
+                               torch.from_numpy(w_ok).to(cuda_device))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,p,k,f", [(1, 700, 29, 256), (4, 300, 40, 100),
+                                     (4, 500, 7, 64)])
+def test_cuda_ell_reverse_vjp(cuda_device, q, p, k, f):
+    """The x-cotangent over the reversed lists (``rslot``-gathered
+    weights; reversed degrees past one 32-slot chunk at K = 40) against
+    the plain version's autograd within 1e-4."""
+    from repro_torch.dist.halo import build_reverse_ell
+
+    rng = np.random.default_rng(p + k)
+    parts = [_ell_inputs(rng, p, p, k, f, pad_frac=0.5) for _ in range(q)]
+    x, nbr, w = (torch.from_numpy(np.stack([pp[i] for pp in parts]))
+                 for i in range(3))
+    rev = [build_reverse_ell(nbr[i].numpy(), w[i].numpy() != 0, p)
+           for i in range(q)]
+    rk = max(r[0].shape[1] for r in rev)
+    rnbr = np.zeros((q, p, rk), np.int32)
+    rslot = np.full((q, p, rk), -1, np.int32)
+    for i, (rn, rs) in enumerate(rev):
+        rnbr[i, :, :rn.shape[1]], rslot[i, :, :rs.shape[1]] = rn, rs
+    before = tell.ell_spmm.launches
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, n_, w_, rn, rs: tops.ell_aggregate(a, n_, w_, rn, rs),
+        [x, nbr, w, torch.from_numpy(rnbr), torch.from_numpy(rslot)],
+        cuda_device, 5)
+    assert tell.ell_spmm.launches == before + 2           # forward + VJP
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gx, gx_ref, rtol=0, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_quant_hop_forward_and_backward(cuda_device):
     rng = np.random.default_rng(13)

@@ -164,6 +164,59 @@ def test_ell_plain_matches_pallas_interpret():
                                atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def citation_ell():
+    """The port's own ELL lists of a small ``citation_graph`` cut
+    ``metis-like`` into Q = 4 partitions, as the serving engine cuts it."""
+    from repro_torch.dist.halo import ell_arrays
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import citation_graph
+
+    pg = partition_graph(citation_graph(n=3000, feat_dim=16, seed=0), 4,
+                         scheme="metis-like", seed=0)
+    return pg, ell_arrays(pg)
+
+
+def test_ell_lists_lead_with_valid_slots(citation_ell):
+    """Valid slots of every row, forward and reversed, form a prefix with
+    nonzero weights and in-range ids: the layout the CUDA kernel's early
+    stop at the last valid slot pays off on."""
+    pg, ell = citation_ell
+    nbr, w = ell["ell_nbr"], ell["ell_w"]
+    assert nbr.shape[0] == 4 and nbr.shape[1] == pg.part_size
+    valid = w != 0
+    assert valid.any()
+    # a prefix: once a slot is empty, every later slot of the row is too
+    assert not (np.diff(valid.astype(np.int8), axis=-1) > 0).any()
+    assert ((nbr[valid] >= 0) & (nbr[valid] < pg.part_size)).all()
+    rvalid = ell["ell_rslot"] >= 0
+    assert not (np.diff(rvalid.astype(np.int8), axis=-1) > 0).any()
+    assert int(rvalid.sum()) == int(valid.sum())
+    # the reversed weights the backward gathers through rslot are nonzero
+    rw = np.take_along_axis(w.reshape(4, -1),
+                            np.maximum(ell["ell_rslot"], 0).reshape(4, -1),
+                            axis=1).reshape(rvalid.shape)
+    assert (rw[rvalid] != 0).all()
+
+
+@pytest.mark.parametrize("f", [64, 100, 256])
+def test_ell_plain_matches_jax_on_citation_lists(citation_ell, f):
+    """``ell_spmm_plain`` over the port's lists of a citation graph equals
+    the JAX ``ell_spmm_reference`` per partition within 1e-6."""
+    pg, ell = citation_ell
+    rng = np.random.default_rng(f)
+    x = rng.normal(size=(4, pg.part_size, f)).astype(np.float32)
+    got = tell.ell_spmm_plain(torch.from_numpy(x),
+                              torch.from_numpy(ell["ell_nbr"]),
+                              torch.from_numpy(ell["ell_w"])).numpy()
+    for p in range(4):
+        want = jref.ell_spmm_reference(jnp.asarray(x[p]),
+                                       jnp.asarray(ell["ell_nbr"][p]),
+                                       jnp.asarray(ell["ell_w"][p]))
+        np.testing.assert_allclose(got[p], np.asarray(want), rtol=0,
+                                   atol=1e-6)
+
+
 def test_ell_batched_partitions_are_independent():
     rng = np.random.default_rng(9)
     parts = [_ell_inputs(rng, 21, 30, 5, 128) for _ in range(3)]
