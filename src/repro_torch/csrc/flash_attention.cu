@@ -20,7 +20,13 @@
 //     and the float4 column groups tx + 16*m of the head dim.
 //   * Key tiles wholly above the diagonal or left of the window are never
 //     visited; keys at or past S (a ragged last tile) are masked, so any
-//     S runs.  A masked score is -inf and a row with no live key so far
+//     S runs.
+//   * Explicit positions (qpos/kpos, int32 [B, S], the JAX package's
+//     prefill mask): a key is live when kpos <= qpos (causal) and kpos >
+//     qpos - window.  Such a mask need not be lower-triangular in index,
+//     so the tile walk takes the query tile's key range [lo, hi) from the
+//     wrapper (ranges, int2 [B, S/kBQ]; outside it the positions' extremes
+//     prove every key masked) and masks every key of it by position.  A masked score is -inf and a row with no live key so far
 //     keeps m = -inf, p = 0, so a fully masked row ends with l = 0 and
 //     writes 0 (acc / max(l, 1e-30)), as ref.mha_reference does.
 //   * GQA: query head h reads KV head h / group, never a repeated copy.
@@ -88,9 +94,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
-                 int S, Strides sq, Strides sk, Strides sv, Strides so,
-                 int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 const int* __restrict__ qpos, const int* __restrict__ kpos,
+                 const int2* __restrict__ ranges, int group, int S,
+                 Strides sq, Strides sk, Strides sv, Strides so, int causal,
+                 int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int DG = D / 4;            // float4 groups of a head row
   constexpr int CG = (DG + 15) / 16;   // groups per thread in P·V
@@ -111,9 +119,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(Qs, qb, sq.s, q0, kBQ, S);
 
   // the key range this query tile can see, in whole tiles
+  const bool by_pos = qpos != nullptr;
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  int k_end = causal ? q_last + 1 : S;
+  int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  long long rpos[4] = {0, 0, 0, 0};  // this thread's rows' positions
+  if (by_pos) {
+    const int2 r = ranges[(long long)b * gridDim.x + blockIdx.x];
+    k_begin = r.x;
+    k_end = r.y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      if (qi < S) rpos[i] = qpos[(long long)b * S + qi];
+    }
+  }
 
   float m[4], l[4], acc[4][CG][4];
 #pragma unroll
@@ -155,6 +175,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
+    long long kp[4] = {0, 0, 0, 0};  // this thread's keys' positions
+    if (by_pos) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = kt + tx + 16 * j;
+        if (kj < S) kp[j] = kpos[(long long)b * S + kj];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
@@ -162,8 +190,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = kt + tx + 16 * j;
-        const bool live = kj < S && (!causal || kj <= qi) &&
-                          (window <= 0 || kj > qi - window);
+        const bool live =
+            kj < S &&
+            (by_pos ? (!causal || kp[j] <= rpos[i]) &&
+                          (window <= 0 || kp[j] > rpos[i] - window)
+                    : (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window));
         s[i][j] = live ? s[i][j] * scale : -INFINITY;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -254,10 +286,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+struct Pos {
+  const int* q;
+  const int* k;
+  const int2* ranges;
+};
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int S, const Strides* st, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, Pos pos,
+           int B, int H, int KV, int S, const Strides* st, int causal,
+           int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -266,26 +304,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / KV, S, st[0], st[1],
-      st[2], st[3], causal, window, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(v), static_cast<T*>(o), pos.q, pos.k, pos.ranges,
+      H / KV, S, st[0], st[1], st[2], st[3], causal, window,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int KV, int S, const Strides* st, int causal,
-               int window, cudaStream_t s) {
+               Pos pos, int B, int H, int KV, int S, const Strides* st,
+               int causal, int window, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<T, 16>(q, k, v, o, pos, B, H, KV, S, st, causal, window,
+                           s);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<T, 32>(q, k, v, o, pos, B, H, KV, S, st, causal, window,
+                           s);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<T, 64>(q, k, v, o, pos, B, H, KV, S, st, causal, window,
+                           s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<T, 128>(q, k, v, o, pos, B, H, KV, S, st, causal, window,
+                            s);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<T, 256>(q, k, v, o, pos, B, H, KV, S, st, causal, window,
+                            s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -293,24 +337,32 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides (in elements) are (b, h, s)
-// for q, k, v and o in that order; the head dim is contiguous.
+// dtype: 0 = float32, 1 = bfloat16.  qpos/kpos: int32 [B, S] positions and
+// ranges: int32 [B, ceil(S / 64), 2] key ranges, all three null for the
+// index mask.  Strides (in elements) are (b, h, s) for q, k, v and o in
+// that order; the head dim is contiguous.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KV, int S, int D, long long qb, long long qh, long long qs,
-    long long kb, long long kh, long long ks, long long vb, long long vh,
-    long long vs, long long ob, long long oh, long long os, int causal,
-    int window, int device, void* stream) {
+    const void* q, const void* k, const void* v, void* o, const void* qpos,
+    const void* kpos, const void* ranges, int dtype, int B, int H, int KV,
+    int S, int D, long long qb, long long qh, long long qs, long long kb,
+    long long kh, long long ks, long long vb, long long vh, long long vs,
+    long long ob, long long oh, long long os, int causal, int window,
+    int device, void* stream) {
   cudaSetDevice(device);
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
+  if ((qpos == nullptr) != (kpos == nullptr) ||
+      (qpos == nullptr) != (ranges == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Strides st[4] = {{qb, qh, qs}, {kb, kh, ks}, {vb, vh, vs},
                          {ob, oh, os}};
+  const Pos pos{static_cast<const int*>(qpos), static_cast<const int*>(kpos),
+                static_cast<const int2*>(ranges)};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, H, KV, S, st, causal, window,
-                             s);
+    return dispatch_d<float>(D, q, k, v, o, pos, B, H, KV, S, st, causal,
+                             window, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, S, st, causal,
-                                     window, s);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, pos, B, H, KV, S, st,
+                                     causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

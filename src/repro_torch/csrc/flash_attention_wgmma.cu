@@ -39,6 +39,15 @@
 //     1e-30)).  The row sum stays a per-thread partial until the end.
 //     Only tiles that cross the causal diagonal, the window's edge or S
 //     evaluate the index mask.
+//   * Explicit positions (qpos/kpos, int32 [B, S], the JAX package's
+//     prefill mask): a key is live when kpos <= qpos (causal) and kpos >
+//     qpos - window.  Such a mask need not be lower-triangular in index,
+//     so both the producer's and the consumers' tile walk take the query
+//     tile's key range [lo, hi) from the wrapper (ranges, int2 [B,
+//     S/kBQ]; outside it the positions' extremes prove every key masked),
+//     and every tile of it is masked by position (the row positions sit
+//     in registers, the key positions are read through the read-only
+//     cache).
 //   * O += P V: P is rounded to bf16 in registers straight into wgmma's
 //     A fragment (the accumulator layout of two 8-column chunks is the A
 //     layout of one 16-deep slice), with no trip through shared memory; V
@@ -303,13 +312,17 @@ struct OutView {
   long long b, h, s;
 };
 
-template <int D>
+// BY_POS: positions given (a separate instantiation, so the index-masked
+// kernel's code is the same as without the positions path)
+template <int D, bool BY_POS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, OutView o, int S,
-                   int H, int B, int group, int causal, int window,
-                   float scale_log2, int perm_q, int perm_kv) {
+                   const __grid_constant__ CUtensorMap tv, OutView o,
+                   const int* __restrict__ qpos, const int* __restrict__ kpos,
+                   const int2* __restrict__ ranges, int S, int H, int B,
+                   int group, int causal, int window, float scale_log2,
+                   int perm_q, int perm_kv) {
   constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES, NDB = D / 64;
   constexpr int QBYTES = kBQ * D * 2, KVBYTES = BK * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -328,9 +341,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int qt = causal ? n_qt - 1 - order : order;  // longest first
   const int h = bh % H, b = bh / H, hk = h / group;
   const int q0 = qt * kBQ;
+  constexpr bool by_pos = BY_POS;
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  int k_end = causal ? q_last + 1 : S;
+  int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  if constexpr (by_pos) {  // >= 1 tile: the wrapper gives no empty range
+    const int2 r = ranges[(long long)b * n_qt + qt];
+    k_begin = r.x;
+    k_end = r.y;
+  }
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -378,6 +397,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int rloc = 16 * (tid >> 5) + (lane >> 2);  // and rloc + 8
   const int ra = q0 + 64 * w + rloc, rb = ra + 8;
   const int cq = 2 * (lane & 3);                    // fragment column
+  long long pos_a = 0, pos_b = 0;                   // rows' positions
+  if constexpr (by_pos) {
+    if (ra < S) pos_a = qpos[(long long)b * S + ra];
+    if (rb < S) pos_b = qpos[(long long)b * S + rb];
+  }
   const uint32_t qbase = smem_u32(qs) + w * 64 * kRow;
 
   float sacc[BK / 2], oacc[D / 2];
@@ -406,19 +430,35 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // advance, al_* take the factor the accumulator must be scaled by
   auto softmax = [&](int it) {
     const int kt = k_begin + it * BK;
-    const bool need_mask = kt + BK > S || (causal && kt + BK - 1 > q0) ||
+    const bool need_mask = by_pos || kt + BK > S ||
+                           (causal && kt + BK - 1 > q0) ||
                            (window > 0 && kt <= q0 + kBQ - 1 - window);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j) {
+      long long kp[2] = {0, 0};  // positions of this slice's two keys
+      if constexpr (by_pos) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = kt + 8 * j + cq + c;
+          if (key < S) kp[c] = __ldg(kpos + (long long)b * S + key);
+        }
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sacc[4 * j + e];
         if (need_mask) {
           const int key = kt + 8 * j + cq + (e & 1);
-          const int row = e < 2 ? ra : rb;
-          const bool live = key < S && (!causal || key <= row) &&
-                            (window <= 0 || key > row - window);
+          bool live;
+          if constexpr (by_pos) {
+            const long long kq = kp[e & 1], rq = e < 2 ? pos_a : pos_b;
+            live = key < S && (!causal || kq <= rq) &&
+                   (window <= 0 || kq > rq - window);
+          } else {
+            const int row = e < 2 ? ra : rb;
+            live = key < S && (!causal || key <= row) &&
+                   (window <= 0 || key > row - window);
+          }
           x = live ? x : -INFINITY;
           sacc[4 * j + e] = x;
         }
@@ -427,6 +467,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         else
           mx_b = fmaxf(mx_b, x);
       }
+    }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
@@ -629,7 +670,8 @@ int make_map(CUtensorMap* map, const void* p, int D, int S, int NH, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* qpos, const int* kpos, const int2* ranges, int B,
            int H, int KV, int S, const long long* st, int causal, int window,
            cudaStream_t stream) {
   constexpr int BK = Cfg<D>::BK;
@@ -644,41 +686,54 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return err;
   if (perm_v != perm_kv) return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<D>();
+  auto kernel = qpos != nullptr ? flash_wgmma_kernel<D, true>
+                                : flash_wgmma_kernel<D, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)((S + kBQ - 1) / kBQ) * H * B;
   const OutView ov{static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11]};
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_wgmma_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, ov, S, H, B, H / KV, causal, window, scale_log2, perm_q,
-      perm_kv);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, ov, qpos, kpos, ranges, S, H, B, H / KV, causal, window,
+      scale_log2, perm_q, perm_kv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only.  Strides (in elements) are (b, h, s) for q, k, v and o in
-// that order; the head dim is contiguous; pointers and strides of more
-// than one element must be 16-byte aligned (TMA).
+// bf16 only.  qpos/kpos: int32 [B, S] positions and ranges: int32 [B,
+// ceil(S / 128), 2] key ranges, all three null for the index mask.
+// Strides (in elements) are (b, h, s) for q, k, v and o in that order; the
+// head dim is contiguous; pointers and strides of more than one element
+// must be 16-byte aligned (TMA).
 extern "C" int flash_attention_wgmma_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int KV, int S, int D, long long qb, long long qh, long long qs,
-    long long kb, long long kh, long long ks, long long vb, long long vh,
-    long long vs, long long ob, long long oh, long long os, int causal,
-    int window, int device, void* stream) {
+    const void* q, const void* k, const void* v, void* o, const void* qpos,
+    const void* kpos, const void* ranges, int B, int H, int KV, int S, int D,
+    long long qb, long long qh, long long qs, long long kb, long long kh,
+    long long ks, long long vb, long long vh, long long vs, long long ob,
+    long long oh, long long os, int causal, int window, int device,
+    void* stream) {
   cudaSetDevice(device);
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
+  if ((qpos == nullptr) != (kpos == nullptr) ||
+      (qpos == nullptr) != (ranges == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long st[12] = {qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kpos);
+  const int2* rg = static_cast<const int2*>(ranges);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<64>(q, k, v, o, qp, kp, rg, B, H, KV, S, st, causal,
+                        window, s);
     case 128:
-      return launch<128>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<128>(q, k, v, o, qp, kp, rg, B, H, KV, S, st, causal,
+                         window, s);
     case 256:
-      return launch<256>(q, k, v, o, B, H, KV, S, st, causal, window, s);
+      return launch<256>(q, k, v, o, qp, kp, rg, B, H, KV, S, st, causal,
+                         window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,6 +4,13 @@
 that the mask keeps (``j ≤ i`` when causal, ``j > i − window`` when a
 window is set), with query head ``h`` reading KV head ``h // group``.
 Rows whose every key is masked give 0, as ``ref.mha_reference`` does.
+With explicit positions ``q_pos``/``k_pos`` (int32 ``[B, S]``) the mask
+compares positions instead of indices (``k_pos[j] ≤ q_pos[i]``,
+``k_pos[j] > q_pos[i] − window``), as the JAX package's prefill masks by
+position (``repro/models/layers.py:152``).  Prefill passes the same
+positions for both, so key ``i`` always has query ``i``'s position and
+no row is ever fully masked: the port's 0 for such a row and the JAX
+package's ``finfo.min`` fill cannot disagree there.
 
 Two CUDA kernels replace ``repro/kernels/flash_attention.py::
 flash_attention`` (``_flash_kernel``, the ``pl.pallas_call`` at
@@ -28,7 +35,12 @@ explicit rule :func:`kernel_for` on ``(dtype, D)``:
 Both compute the same function: f32 ``m``/``l``/accumulators, key tiles
 wholly outside the causal or window band skipped, keys past ``S`` masked
 (any length runs; the Pallas kernel asserts ``S % 128 == 0``), masks from
-indices as in the Pallas kernel and ``chunked_sdpa``.  This is a
+indices as in the Pallas kernel and ``chunked_sdpa``.  Under positions
+the mask need not be lower-triangular in index (left padding repeats a
+position), so index-based tile skipping would be wrong: the wrapper
+computes, per query tile, the key range outside which the tiles' position
+extremes prove every key masked (:func:`position_key_ranges`), and the
+kernel walks that range with the mask on every tile.  This is a
 dispatch, not a fallback: a failed build or launch of either raises.
 
 Layout: the public function keeps the JAX layout ``[B, H, S, D]``, but
@@ -56,43 +68,108 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: head dims the tensor-core kernel takes (bf16 only)
 WGMMA_HEAD_DIMS = (64, 128, 256)
+
+#: query rows per block of the CUDA-core / tensor-core kernel, and the
+#: CUDA-core kernel's key tile (the tensor-core one's is per head dim)
+SIMT_TILE = 64
+WGMMA_Q_TILE = 128
+WGMMA_KEY_TILE = {64: 128, 128: 128, 256: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FUNCS = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
+    "flash_attention_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
     [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 _WGMMA_FUNCS = {
-    "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 4 +
+    "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 7 +
     [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 +
     [ctypes.c_void_p],
 }
 
 
+def attention_mask(s: int, causal: bool, window: int, device,
+                   q_pos: torch.Tensor | None = None,
+                   k_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """The boolean keep-mask: ``[S, S]`` by index, or ``[B, S, S]`` by the
+    int32 ``[B, S]`` positions."""
+    if q_pos is None:
+        qp = kp = torch.arange(s, device=device)
+    else:
+        qp, kp = q_pos.long(), k_pos.long()
+    qp, kp = qp[..., :, None], kp[..., None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: int = 0
+                          causal: bool = True, window: int = 0,
+                          q_pos: torch.Tensor | None = None,
+                          k_pos: torch.Tensor | None = None
                           ) -> torch.Tensor:
     """q ``[B, H, S, D]``, k/v ``[B, KV, S, D]`` -> ``[B, H, S, D]`` in
-    q's dtype: scores ``q · k · (1/√D)`` in f32, the index mask, softmax,
-    fully masked rows set to 0, then ``· v`` in f32.  GQA by reshaping the
-    query heads into ``[KV, group]`` (no repeat of k/v)."""
+    q's dtype: scores ``q · k · (1/√D)`` in f32, the index mask (or the
+    position mask of ``q_pos``/``k_pos`` ``[B, S]``), softmax, fully
+    masked rows set to 0, then ``· v`` in f32.  GQA by reshaping the query
+    heads into ``[KV, group]`` (no repeat of k/v)."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     qf = q.float().reshape(b, kvh, h // kvh, s, d)
     scores = qf @ k.float()[:, :, None].transpose(-1, -2)
     scores.mul_(1.0 / math.sqrt(d))
-    idx = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= idx[None, :] <= idx[:, None]
-    if window > 0:
-        mask &= idx[None, :] > idx[:, None] - window
+    mask = attention_mask(s, causal, window, q.device, q_pos, k_pos)
+    if mask.dim() == 3:
+        mask = mask[:, None, None]
     scores.masked_fill_(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     del scores
     probs.nan_to_num_(0.0)                     # fully masked rows
     out = probs @ v.float()[:, :, None]
     return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def position_key_ranges(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        causal: bool, window: int, q_tile: int,
+                        key_tile: int) -> torch.Tensor:
+    """int32 ``[B, ceil(S / q_tile), 2]``: for each query tile, the key
+    range ``[lo, hi)`` (``lo`` a multiple of ``key_tile``) outside which
+    every key is masked for every query of the tile.  A key tile is left
+    out only when its position extremes prove it: ``min k_pos > max
+    q_pos`` (causal) or ``max k_pos <= min q_pos − window``.  Tiles inside
+    the range may still be masked; the kernel masks every key by
+    position.  A tile with no live key gets one key tile, all masked."""
+    b, s = q_pos.shape
+    big = 1 << 40
+
+    def extremes(pos, tile):
+        n = -(-s // tile)
+        pad = n * tile - s
+        p = pos.long()
+        hi = torch.nn.functional.pad(p, (0, pad), value=-big)
+        lo = torch.nn.functional.pad(p, (0, pad), value=big)
+        return lo.reshape(b, n, tile).amin(-1), hi.reshape(b, n, tile) \
+            .amax(-1), n
+
+    q_min, q_max, _ = extremes(q_pos, q_tile)
+    k_min, k_max, nk = extremes(k_pos, key_tile)
+    live = torch.ones((b, q_min.shape[1], nk), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        live &= k_min[:, None, :] <= q_max[:, :, None]
+    if window > 0:
+        live &= k_max[:, None, :] > q_min[:, :, None] - window
+    t = torch.arange(nk, device=q_pos.device)
+    lo = torch.where(live, t, nk).amin(-1)
+    hi = torch.where(live, t + 1, 0).amax(-1)
+    empty = hi <= lo
+    lo = torch.where(empty, 0, lo)
+    hi = torch.where(empty, 1, hi)
+    return torch.stack([lo * key_tile, (hi * key_tile).clamp(max=s)],
+                       -1).to(torch.int32).contiguous()
 
 
 def _check(q, k, v):
@@ -124,6 +201,22 @@ def _check(q, k, v):
                              f"contiguous (stride 1)")
 
 
+def _check_positions(q, q_pos, k_pos):
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("flash_attention: pass both q_pos and k_pos, or "
+                         "neither")
+    if q_pos is None:
+        return
+    want = (q.shape[0], q.shape[2])
+    for arg, t in (("q_pos", q_pos), ("k_pos", k_pos)):
+        if t.dtype != torch.int32 or tuple(t.shape) != want or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention: {arg} must be a contiguous "
+                             f"int32 [B, S] = {list(want)} tensor on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+
+
 def kernel_for(dtype: torch.dtype, d: int) -> str:
     """Which kernel :func:`flash_attention` launches: ``"wgmma"`` (tensor
     cores) for bf16 at ``d`` in :data:`WGMMA_HEAD_DIMS`, else ``"simt"``
@@ -132,28 +225,39 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
         else "simt"
 
 
-def _launch_args(q, k, v, out, causal, window):
+def _launch_args(q, k, v, out, causal, window, q_pos=None, k_pos=None,
+                 ranges=None):
+    """The C entry's arguments after the dtype: pointers (positions and
+    key ranges 0 for the index mask), sizes, strides, mask, device and
+    stream."""
     b, h, s, d = q.shape
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], s, d, *strides, int(causal), int(window),
+    pos = (0, 0, 0) if q_pos is None else \
+        (q_pos.data_ptr(), k_pos.data_ptr(), ranges.data_ptr())
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *pos,
+            b, h, k.shape[1], s, d, *strides, int(causal), int(window),
             q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: int = 0
-                         ) -> torch.Tensor:
+                         causal: bool = True, window: int = 0,
+                         q_pos: torch.Tensor | None = None,
+                         k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """The CUDA-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``, all
-    f32 or all bf16, each with a contiguous last dim (other strides free)
-    -> ``[B, H, S, D]`` in q's dtype, laid out like q."""
+    f32 or all bf16, each with a contiguous last dim (other strides free),
+    optional int32 ``[B, S]`` positions -> ``[B, H, S, D]`` in q's dtype,
+    laid out like q."""
     _check(q, k, v)
+    _check_positions(q, q_pos, k_pos)
     out = torch.empty_like(q)                  # q's strides
     if out.numel() == 0:
         return out
+    ranges = None if q_pos is None else position_key_ranges(
+        q_pos, k_pos, causal, window, SIMT_TILE, SIMT_TILE)
     lib = _build.library("flash_attention", _FUNCS)
-    args = _launch_args(q, k, v, out, causal, window)
-    _build.check(lib.flash_attention_fwd(*args[:4], _DTYPE_CODE[q.dtype],
-                                         *args[4:]), "flash_attention_simt")
+    args = _launch_args(q, k, v, out, causal, window, q_pos, k_pos, ranges)
+    _build.check(lib.flash_attention_fwd(*args[:7], _DTYPE_CODE[q.dtype],
+                                         *args[7:]), "flash_attention_simt")
     flash_attention_simt.launches += 1
     return out
 
@@ -162,13 +266,15 @@ flash_attention_simt.launches = 0
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
+                          causal: bool = True, window: int = 0,
+                          q_pos: torch.Tensor | None = None,
+                          k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """The tensor-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
     all bf16 with ``D`` in :data:`WGMMA_HEAD_DIMS`, a contiguous last dim
-    and 16-byte aligned pointers and strides -> ``[B, H, S, D]`` bf16,
-    laid out like q."""
+    and 16-byte aligned pointers and strides, optional int32 ``[B, S]``
+    positions -> ``[B, H, S, D]`` bf16, laid out like q."""
     _check(q, k, v)
+    _check_positions(q, q_pos, k_pos)
     d = q.shape[-1]
     if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
         raise ValueError(f"flash_attention_wgmma takes bf16 at head dims "
@@ -183,9 +289,12 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)                  # q's strides
     if out.numel() == 0:
         return out
+    ranges = None if q_pos is None else position_key_ranges(
+        q_pos, k_pos, causal, window, WGMMA_Q_TILE, WGMMA_KEY_TILE[d])
     lib = _build.library("flash_attention_wgmma", _WGMMA_FUNCS)
     _build.check(lib.flash_attention_wgmma_fwd(
-        *_launch_args(q, k, v, out, causal, window)), "flash_attention_wgmma")
+        *_launch_args(q, k, v, out, causal, window, q_pos, k_pos, ranges)),
+        "flash_attention_wgmma")
     flash_attention_wgmma.launches += 1
     return out
 
@@ -196,10 +305,13 @@ _KERNELS = {"wgmma": flash_attention_wgmma, "simt": flash_attention_simt}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_pos: torch.Tensor | None = None,
+                    k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """CUDA flash attention: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
-    all f32 or all bf16, each with a contiguous last dim -> ``[B, H, S,
-    D]`` in q's dtype, laid out like q; launches the kernel that
-    :func:`kernel_for` names."""
+    all f32 or all bf16, each with a contiguous last dim, optional int32
+    ``[B, S]`` positions -> ``[B, H, S, D]`` in q's dtype, laid out like
+    q; launches the kernel that :func:`kernel_for` names."""
     _check(q, k, v)
-    return _KERNELS[kernel_for(q.dtype, q.shape[-1])](q, k, v, causal, window)
+    return _KERNELS[kernel_for(q.dtype, q.shape[-1])](q, k, v, causal, window,
+                                                      q_pos, k_pos)

@@ -14,7 +14,7 @@ version and no global backend switch — the tensor decides.
   codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels), and
   :func:`quant_hop`, the straight-through sub-byte hop built from them;
 * :func:`mha` — flash attention of the LM prefill (``flash_attention``
-  kernel), and :func:`ssd_chunk` — the Mamba2 intra-chunk form
+  kernel; index or position masks), and :func:`ssd_chunk` — the Mamba2 intra-chunk form
   (``ssd_chunk`` kernel); forward only, as in the JAX package;
 * the elementwise quantised-wire codecs (:func:`quant_levels`,
   :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
@@ -188,13 +188,16 @@ def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int = 0) -> torch.Tensor:
+        causal: bool = True, window: int = 0,
+        q_pos: torch.Tensor | None = None,
+        k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Flash attention: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]`` (views
     with a contiguous last dim) -> ``[B, H, S, D]`` in q's dtype; masks
-    from indices (causal, optional sliding window), GQA by ``h // group``,
-    fully masked rows 0."""
+    from indices (causal, optional sliding window), or from the int32
+    ``[B, S]`` positions ``q_pos``/``k_pos`` when given; GQA by ``h //
+    group``, fully masked rows 0."""
     return _route(flash_attention, flash_attention_plain, q, k, v, causal,
-                  window)
+                  window, q_pos, k_pos)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,

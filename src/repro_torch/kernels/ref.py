@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from .ell_spmm import ell_spmm_plain
+from .flash_attention import attention_mask
 from .varco_pack import (LANE, pack_bits_plain, unpack_bits_plain,
                          varco_pack_plain, varco_unpack_plain)
 
@@ -80,22 +81,21 @@ def unpack_quant_reference(payload: torch.Tensor, scales: torch.Tensor,
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  q_pos: torch.Tensor | None = None,
+                  k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """q: [B,H,S,D]; k/v: [B,KV,S,D]. Dense masked softmax attention in
-    f32 (k/v repeated to the query heads); fully masked rows give 0."""
+    f32 (k/v repeated to the query heads), masked by index or by the
+    ``[B, S]`` positions; fully masked rows give 0."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     k = k.repeat_interleave(h // kvh, dim=1)
     v = v.repeat_interleave(h // kvh, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / \
         (d ** 0.5)
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    k_pos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
+    mask = attention_mask(s, causal, window, q.device, q_pos, k_pos)
+    if mask.dim() == 3:
+        mask = mask[:, None]
     scores = torch.where(mask, scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully-masked rows

@@ -8,12 +8,13 @@ carry over unchanged.
 
 The prefill branch of :func:`attention` (``cache=None``) runs
 :func:`repro_torch.kernels.ops.mha` — the ``flash_attention`` kernel on
-the card — where the JAX package runs XLA (``sdpa`` with a position mask,
-or ``chunked_sdpa``); the Pallas kernel that this replaces states the same
-semantics.  The kernel masks by index, which equals the position mask for
-the default ``arange`` positions, the only ones prefill accepts.  The
-decode branch and :func:`sdpa` stay plain torch (S = 1 against a cache),
-as the JAX package computes them outside any kernel.
+the card — where the JAX package runs XLA, and masks as the JAX package
+does (:func:`prefill_mask_positions`): by index where it takes
+``chunked_sdpa`` (S ≥ 2048, S % 1024 == 0, no M-RoPE), by position
+otherwise.  Positions that are ``arange(S) + c`` on every row give the
+index mask either way, so the kernel then runs its index-masked path.
+The decode branch and :func:`sdpa` stay plain torch (S = 1 against a
+cache), as the JAX package computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -144,15 +145,31 @@ def out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
 
 
-def check_default_positions(positions: torch.Tensor) -> None:
-    """Raise unless ``positions`` [B, S] is ``arange(S)`` on every row: the
-    prefill kernel masks by index, which is the position mask only
-    then."""
+def prefill_mask_positions(cfg: ArchConfig, positions: torch.Tensor,
+                           positions3: Optional[torch.Tensor] = None
+                           ) -> Optional[torch.Tensor]:
+    """The positions prefill attention masks by, as int32 ``[B, S]``, or
+    None where the index mask is the JAX package's mask.
+
+    The JAX package masks by index where it takes ``chunked_sdpa`` (S ≥
+    2048, S % 1024 == 0, no M-RoPE: ``repro/models/transformer.py:212``)
+    and by position otherwise (``repro/models/layers.py:152``).  Rows that
+    are all ``arange(S) + c_b`` give the index mask too; that is found
+    with one device comparison and one sync, so the caller decides once
+    per prefill, not once per layer."""
     s = positions.shape[-1]
-    want = torch.arange(s, device=positions.device, dtype=positions.dtype)
-    if not torch.equal(positions, want.expand_as(positions)):
-        raise ValueError("prefill attention masks by index: explicit "
-                         "positions other than arange(S) are not supported")
+    if s >= 2048 and s % 1024 == 0 and positions3 is None and \
+            not cfg.mrope_sections:
+        return None
+    pos = positions.to(torch.int32)
+    steps = torch.arange(s, dtype=torch.int32, device=pos.device)
+    if bool(((pos - pos[..., :1]) == steps).all()):
+        return None
+    return pos.contiguous()
+
+
+#: :func:`attention`'s default: decide the prefill mask in the call
+_DECIDE = object()
 
 
 def attn_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -182,22 +199,27 @@ def attn_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
 def attention(params: dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: Optional[KVCache] = None,
               cache_index: Optional[int] = None,
-              positions3: Optional[torch.Tensor] = None
-              ) -> tuple[torch.Tensor, KVCache]:
+              positions3: Optional[torch.Tensor] = None,
+              mask_positions=_DECIDE) -> tuple[torch.Tensor, KVCache]:
     """Full attention sublayer (projections + rope + attention + output).
 
     Prefill: ``cache=None`` -> causal over the sequence through
-    :func:`ops.mha` (``positions`` must be ``arange(S)``), returns the
-    fresh KVCache.  Decode: ``cache`` holds S_cache slots, ``cache_index``
-    is the write position; x has S=1; the returned cache is a new one.
+    :func:`ops.mha`, masked by ``mask_positions`` (int32 ``[B, S]``, or
+    None for the index mask; by default :func:`prefill_mask_positions`
+    decides here), returns the fresh KVCache.  Decode: ``cache`` holds
+    S_cache slots, ``cache_index`` is the write position; x has S=1; the
+    returned cache is a new one.
     """
     b, s, _ = x.shape
     q, k, v = attn_qkv(params, cfg, x, positions, positions3)
     if cache is None:
-        check_default_positions(positions)
+        if mask_positions is _DECIDE:
+            mask_positions = prefill_mask_positions(
+                cfg, positions.expand(b, s), positions3)
         out = ops.mha(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=True,
-                      window=cfg.sliding_window).transpose(1, 2)
+                      window=cfg.sliding_window, q_pos=mask_positions,
+                      k_pos=mask_positions).transpose(1, 2)
         new_cache = KVCache(k, v)
     else:
         k_cache = cache.k.clone()

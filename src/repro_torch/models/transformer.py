@@ -191,12 +191,14 @@ def _attn_decode(params, cfg: ArchConfig, x: torch.Tensor,
 
 def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
            positions: torch.Tensor, cache_layer, cache_index,
-           positions3) -> tuple[torch.Tensor, object]:
-    """Apply the token mixer (attention or mamba) for one layer."""
+           positions3, mask_positions=None) -> tuple[torch.Tensor, object]:
+    """Apply the token mixer (attention or mamba) for one layer; a prefill
+    attention masks by ``mask_positions`` (None: by index)."""
     if kind == "attn":
         if cache_layer is None:
             y, kvc = L.attention(lp["attn"], cfg, h, positions,
-                                 positions3=positions3)
+                                 positions3=positions3,
+                                 mask_positions=mask_positions)
             return y, AttnCache(kvc.k.to(cfg.adtype), kvc.v.to(cfg.adtype),
                                 positions.expand(h.shape[0], h.shape[1]))
         return _attn_decode(lp["attn"], cfg, h, positions, cache_layer,
@@ -206,14 +208,16 @@ def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
 
 def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
                  positions: torch.Tensor, block_cache: Optional[tuple],
-                 cache_index, positions3) -> tuple[torch.Tensor, tuple]:
+                 cache_index, positions3, mask_positions=None
+                 ) -> tuple[torch.Tensor, tuple]:
     """One pattern period: pre-norm mixer + pre-norm FFN per layer."""
     new_caches = []
     for pi, kind in enumerate(cfg.pattern):
         lp = block[f"p{pi}_{kind}"]
         cl = block_cache[pi] if block_cache is not None else None
         mixed, new_c = _mixer(lp, cfg, pi, kind, rms_norm(h, lp["norm1"]),
-                              positions, cl, cache_index, positions3)
+                              positions, cl, cache_index, positions3,
+                              mask_positions)
         h = h + mixed
         if cfg.d_ff > 0:
             h = h + L.mlp(lp["mlp"], rms_norm(h, lp["norm2"]), cfg.mlp)
@@ -255,8 +259,10 @@ def prefill(params, cfg: ArchConfig, batch: dict,
 
     With a sliding window ``w`` the prompt length must satisfy
     ``s % w == 0 or s <= w`` so the ring slots stay aligned for decode.
-    Explicit ``batch["positions"]`` must be ``arange(S)`` (the prefill
-    kernel masks by index).
+    Explicit ``batch["positions"]`` [B, S] feed RoPE and the cache, and
+    the attention mask as the JAX package's prefill uses them
+    (:func:`repro_torch.models.layers.prefill_mask_positions`, decided
+    once here for every layer).
     """
     _need_dense(cfg)
     x, positions = _embed_in(params, cfg, batch)
@@ -267,11 +273,15 @@ def prefill(params, cfg: ArchConfig, batch: dict,
     if cfg.sliding_window and not (s <= w or s % w == 0):
         raise ValueError(f"prefill length {s} incompatible with window {w}")
 
+    mask_pos = None                    # default positions: the index mask
+    if "attn" in cfg.pattern and batch.get("positions") is not None:
+        mask_pos = L.prefill_mask_positions(cfg, positions.expand(b, s),
+                                            positions3)
     cache = init_cache(cfg, b, max_len, device=x.device)
     h = x
     for i in range(cfg.n_blocks):
         h, new_c = _apply_block(_index(params["blocks"], i), cfg, h,
-                                positions, None, None, positions3)
+                                positions, None, None, positions3, mask_pos)
         for pi, kind in enumerate(cfg.pattern):
             dst, src = cache.layers[pi], new_c[pi]
             if kind == "attn":

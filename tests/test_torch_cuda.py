@@ -16,7 +16,9 @@ ulp of the rounded output, relative 2^-8, where the two f32 sums straddle
 a rounding edge; the tensor-core kernel also rounds P to bf16, about one
 more ulp of the output), with a check of which of its two kernels ran;
 the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
-to Q·N products in another order).
+to Q·N products in another order).  Flash attention with explicit
+positions (shifted and left-padded prompts) on both kernels, under the
+same tolerances.
 """
 
 from __future__ import annotations
@@ -433,6 +435,51 @@ def test_cuda_flash_wgmma_reads_wide_views(cuda_device):
         tfa.flash_attention_wgmma(q[..., 1:65], k[..., 1:65], v[..., 1:65])
 
 
+def _position_rows(b, s, seed):
+    """int32 [B, S] prompt positions: shifted, left-padded (a run of
+    repeated 0s) and a repeated run inside a row, in turn."""
+    rng = np.random.default_rng(seed)
+    rows = [np.arange(s) + rng.integers(1, 50),
+            np.maximum(np.arange(s) - rng.integers(1, max(s // 2, 2)), 0),
+            np.minimum(np.arange(s), s // 3 + rng.integers(0, s // 3 + 1))]
+    return torch.from_numpy(np.stack([rows[i % 3] for i in range(b)])
+                            .astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("b,s,window", [(3, 300, 0), (3, 1000, 0),
+                                        (2, 520, 100), (3, 40, 0)])
+def test_cuda_flash_with_positions_matches_plain(cuda_device, dtype, d, b, s,
+                                                 window):
+    """Position masks (the JAX package's prefill mask) on both kernels:
+    shifted, left-padded and repeated-run rows against the plain version,
+    and the kernel that ``kernel_for`` names launched once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=cuda_device,
+                           dtype=dtype).transpose(1, 2) for n in (8, 2, 2))
+    pos = _position_rows(b, s, s + window).to(cuda_device)
+    before = _flash_counts()
+    out = tops.mha(q, k, v, causal=True, window=window, q_pos=pos,
+                   k_pos=pos)
+    torch.cuda.synchronize()
+    assert _flash_moved(before) == tfa.kernel_for(dtype, d)
+    ref = tfa.flash_attention_plain(q, k, v, True, window, pos, pos)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    # arange + c rows: the position mask is the index mask
+    shifted = (torch.arange(s, device=cuda_device, dtype=torch.int32) +
+               7).expand(b, s).contiguous()
+    got = tops.mha(q, k, v, causal=True, window=window, q_pos=shifted,
+                   k_pos=shifted)
+    torch.testing.assert_close(got.float(), tops.mha(
+        q, k, v, causal=True, window=window).float(), rtol=tol, atol=tol)
+
+
 def _ssd_inputs(gen, dev, b, nc, q, h, p, g, n):
     """x, dt, cum, B, C as the model hands them over: x, B and C strided
     views of one conv-output-like buffer."""
@@ -502,6 +549,11 @@ def test_cuda_lm_wrappers_refuse_bad_inputs(cuda_device):
         tfa.flash_attention(qt, qt, qt)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, q.cpu(), q)
+    pos = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="both"):
+        tfa.flash_attention(q, q, q, q_pos=pos)
+    with pytest.raises(ValueError, match="int32"):
+        tfa.flash_attention(q, q, q, q_pos=pos.long(), k_pos=pos.long())
     x = torch.zeros((1, 1, 16, 4, 8), device=cuda_device)
     dt = torch.zeros((1, 1, 16, 4), device=cuda_device)
     bm = torch.zeros((1, 1, 16, 3, 8), device=cuda_device)

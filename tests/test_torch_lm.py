@@ -5,8 +5,10 @@ mamba2-130m are carried across with ``lm_params_from_jax``.  The port's
 ``prefill`` logits and every cache leaf, and three ``decode_step``s, must
 match JAX's within 1e-5 (f32 sums in another order through two layers;
 measured ≤ 4e-6), including a sliding-window variant whose decode wraps
-the ring, ``qk_norm`` and a 2048-token prompt that takes JAX's
-``chunked_sdpa`` branch; ``serve``'s greedy tokens must equal a JAX loop
+the ring, ``qk_norm``, a 2048-token prompt that takes JAX's
+``chunked_sdpa`` branch and prompts with explicit (shifted, left-padded)
+positions, masked by position at S = 8 and by index at S = 2048 as the
+JAX package masks them; ``serve``'s greedy tokens must equal a JAX loop
 of ``make_prefill_step`` / ``make_decode_step``.  Here the ops run their
 plain versions; tests/test_torch_cuda.py holds the kernels to them.
 """
@@ -213,11 +215,107 @@ def test_prefill_refuses_non_default_positions(models):
     want, _ = TT.prefill(tp, tc, {"tokens": toks})
     got, _ = TT.prefill(tp, tc, {"tokens": toks, "positions": pos})
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="positions"):
-        TT.prefill(tp, tc, {"tokens": toks, "positions": pos + 3})
+    # shifted positions are served now (their parity with the JAX
+    # package: test_prefill_with_explicit_positions_matches_jax)
+    shifted, _ = TT.prefill(tp, tc, {"tokens": toks, "positions": pos + 3})
+    assert bool(torch.isfinite(shifted).all())
     with pytest.raises(ValueError, match="window"):
         TT.prefill(tp, tc.with_(sliding_window=5), {"tokens": toks},
                    max_len=12)
+
+
+def _positions(kind: str, b: int, s: int) -> np.ndarray:
+    """int32 [B, S] prompt positions: ``shifted`` rows start at 5 and 11;
+    ``left_padded`` rows repeat position 0 over their first 3 and 0
+    slots, then count up (a left-padded batch); ``ragged`` mixes a
+    shifted row with a repeated run inside the row."""
+    if kind == "shifted":
+        return (np.arange(s)[None] + np.array([[5], [11]])[:b]) \
+            .astype(np.int32)
+    if kind == "left_padded":
+        pad = np.array([3, 0])[:b, None]
+        return np.maximum(np.arange(s)[None] - pad, 0).astype(np.int32)
+    out = np.stack([np.arange(s) + 2, np.minimum(np.arange(s), s // 2)])
+    return out[:b].astype(np.int32)
+
+
+def _prefill_pos_then_decode(jc, tc, jp, tp, toks, pos, max_len, steps,
+                             k_tol=TOL):
+    """Prefill with explicit ``pos`` then ``steps`` decode steps at the
+    positions that follow each row's last, JAX against the port."""
+    s = pos.shape[1]
+    jl, jcache = JT.prefill(jp, jc, {"tokens": jnp.asarray(toks[:, :s]),
+                                     "positions": jnp.asarray(pos)},
+                            max_len=max_len)
+    tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(
+        toks[:, :s]), "positions": torch.from_numpy(pos)}, max_len=max_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+    _assert_caches_close(jcache, tcache, k_tol)
+    greedy_j, greedy_t = [], []
+    for i in range(steps):
+        tok = toks[:, s + i:s + i + 1]
+        dpos = pos[:, -1:] + 1 + i
+        jl, jcache = JT.decode_step(jp, jc, {"tokens": jnp.asarray(tok),
+                                             "positions": jnp.asarray(dpos)},
+                                    jcache)
+        tl, tcache = TT.decode_step(tp, tc, {"tokens": torch.from_numpy(
+            tok), "positions": torch.from_numpy(dpos)}, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL)
+        _assert_caches_close(jcache, tcache, k_tol)
+        greedy_j.append(np.asarray(jnp.argmax(jl, -1)))
+        greedy_t.append(tl.argmax(-1).numpy())
+    np.testing.assert_array_equal(np.stack(greedy_t), np.stack(greedy_j))
+
+
+@pytest.mark.parametrize("kind", ["shifted", "left_padded", "ragged"])
+def test_prefill_with_explicit_positions_matches_jax(models, kind):
+    """S = 8: the JAX package masks by position here (``_attn_mask(pos,
+    pos)``), and so must the port; prefill logits and caches within 1e-5,
+    then three decode steps at the following positions with equal greedy
+    tokens."""
+    jc, tc, jp, tp = models["granite-3-2b"]
+    toks = _tokens(jc.vocab_size, 2, 11, seed=7)
+    _prefill_pos_then_decode(jc, tc, jp, tp, toks,
+                             _positions(kind, 2, 8), 16, steps=3)
+
+
+def test_prefill_with_positions_matches_jax_sliding_window():
+    jc, tc, jp, tp = _setup("granite-3-2b", sliding_window=4)
+    toks = _tokens(jc.vocab_size, 2, 11, seed=8)
+    _prefill_pos_then_decode(jc, tc, jp, tp, toks,
+                             _positions("left_padded", 2, 8), 16, steps=3)
+
+
+def test_long_prompt_with_shifted_positions_matches_jax_chunked_branch(
+        models):
+    """S = 2048 with shifted positions: JAX's ``chunked_sdpa`` masks by
+    index and the positions reach only RoPE and the cache, so the port
+    must mask by index too (``prefill_mask_positions`` returns None);
+    the rotated keys within the 5e-5 of
+    ``test_long_prompt_matches_jax_chunked_branch``."""
+    from repro_torch.models.layers import prefill_mask_positions
+
+    jc, tc, jp, tp = models["granite-3-2b"]
+    toks = _tokens(jc.vocab_size, 1, 2049, seed=6)
+    pos = (np.arange(2048)[None] + 37).astype(np.int32)
+    assert prefill_mask_positions(tc, torch.from_numpy(
+        _positions("left_padded", 1, 2048) + 0)) is None
+    _prefill_pos_then_decode(jc, tc, jp, tp, toks, pos, 2056, steps=1,
+                             k_tol=5e-5)
+
+
+def test_prefill_mask_positions_decides_once():
+    from repro_torch.models.layers import prefill_mask_positions
+
+    _, tc, _, _ = _setup("granite-3-2b")
+    shifted = torch.from_numpy(_positions("shifted", 2, 8))
+    padded = torch.from_numpy(_positions("left_padded", 2, 8))
+    assert prefill_mask_positions(tc, shifted) is None     # arange + c
+    got = prefill_mask_positions(tc, padded)
+    assert got.dtype == torch.int32 and torch.equal(got, padded)
+    assert prefill_mask_positions(tc, padded[:, :2048]) is not None
 
 
 def test_moe_configs_raise():

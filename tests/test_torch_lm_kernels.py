@@ -470,3 +470,71 @@ def test_smoke_ssd_flop_count_is_the_nonzero_products(b, nc, q, h, p, g, n):
     pairs = q * (q + 1) // 2
     per_head = 2.0 * b * nc * h * (pairs * n + pairs * p + q * p * n)
     assert (got < per_head) == (h > g)
+
+
+def _position_batch(rng, b, s):
+    """Rows of prompt positions: shifted, left-padded (a run of 0s), and
+    one with a repeated run inside."""
+    rows = [np.arange(s) + rng.integers(1, 50),
+            np.maximum(np.arange(s) - rng.integers(1, s // 2), 0),
+            np.minimum(np.arange(s), s // 3 + rng.integers(0, s // 3))]
+    return np.stack([rows[i % 3] for i in range(b)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("s,window", [(40, 0), (40, 7), (130, 0)])
+def test_flash_plain_with_positions_matches_jax_sdpa(s, window):
+    """The position mask of the JAX package's prefill: plain flash with
+    ``q_pos = k_pos = positions`` against ``layers.sdpa`` under
+    ``_attn_mask(positions, positions, window)`` within 2e-5 (f32)."""
+    from repro.models import layers as jl
+
+    rng = np.random.default_rng(s + window)
+    b, h, kv, d = 3, 4, 2, 16
+    q, k, v = _qkv(rng, b, h, kv, s, d)
+    pos = _position_batch(rng, b, s)
+    mask = jl._attn_mask(jnp.asarray(pos), jnp.asarray(pos), window)
+    want = jl.sdpa(*(jnp.asarray(a).transpose(0, 2, 1, 3)
+                     for a in (q, k, v)), mask)
+    tp = torch.from_numpy(pos)
+    got = tops.mha(_t(q), _t(k), _t(v), causal=True, window=window,
+                   q_pos=tp, k_pos=tp)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).transpose(0, 2, 1, 3),
+                               rtol=2e-5, atol=2e-5)
+    ref = tref.mha_reference(_t(q), _t(k), _t(v), causal=True,
+                             window=window, q_pos=tp, k_pos=tp)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,q_tile,key_tile,window",
+                         [(300, 64, 64, 0), (300, 128, 128, 0),
+                          (300, 128, 64, 50), (77, 128, 128, 9)])
+def test_position_key_ranges_cover_every_live_key(s, q_tile, key_tile,
+                                                  window):
+    """The key range the kernels walk per query tile holds every key the
+    position mask keeps for any query of the tile, starts on a key-tile
+    boundary and leaves out whole tiles only."""
+    from repro_torch.kernels.flash_attention import (attention_mask,
+                                                     position_key_ranges)
+
+    rng = np.random.default_rng(s + q_tile + window)
+    pos = torch.from_numpy(_position_batch(rng, 3, s))
+    ranges = position_key_ranges(pos, pos, True, window, q_tile, key_tile)
+    n_qt = -(-s // q_tile)
+    assert ranges.dtype == torch.int32 and \
+        tuple(ranges.shape) == (3, n_qt, 2)
+    mask = attention_mask(s, True, window, "cpu", pos, pos)   # [B, S, S]
+    keys = torch.arange(s)
+    for bi in range(3):
+        for t in range(n_qt):
+            lo, hi = (int(x) for x in ranges[bi, t])
+            assert lo % key_tile == 0 and 0 <= lo < hi <= s
+            live = mask[bi, t * q_tile:(t + 1) * q_tile].any(0)
+            assert bool(((keys >= lo) & (keys < hi))[live].all())
+    # arange positions give the index walk's causal ranges
+    ar = torch.arange(s, dtype=torch.int32).expand(2, s).contiguous()
+    r = position_key_ranges(ar, ar, True, 0, q_tile, key_tile)
+    q_last = torch.clamp((torch.arange(n_qt) + 1) * q_tile, max=s) - 1
+    assert bool((r[..., 0] == 0).all())
+    assert torch.equal(r[0, :, 1].long(), torch.clamp(
+        (q_last // key_tile + 1) * key_tile, max=s))
