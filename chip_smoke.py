@@ -26,7 +26,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    reorders f32 sums), with CUDA-event times of the kernel, the plain
    version and one PyTorch library call where one computes the same
    function, beside the least time the card could take (bytes over 3.35
-   TB/s, flops over 67 TFLOP/s f32).  The ELL SpMM also runs over the
+   TB/s, flops over 67 TFLOP/s f32).  The dense wire's ``random_mask``
+   runs over the boundary block ``[Q, B, F]`` at F = 256 and 128, rates
+   2, 4 and 5.3, biased and unbiased, bitwise against its plain version
+   (output and kept counts), its bound the larger of the bytes and 76
+   integer operations an element at the card's integer issue ceiling
+   (128 results per SM per clock × SMs × the maximum SM clock); PyTorch
+   has no call that draws the same bits.  The ELL SpMM also runs over the
    reversed lists (the training backward); its records carry the bytes
    its gathers move (one row slice per valid slot) and their rate.  Each
    autograd function's backward on the card is held to the plain
@@ -41,14 +47,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    sums).
 6. train   — launch counts set to 0, then the training path, ``train_gnn``
    on the engine's partitioned graph: one ``sgd(0.1)`` step under
-   ``full`` (its step-0 loss and updated parameters must match the
-   centralized loss and one autograd step of ``centralized_forward``
-   within 1e-4: the grad-sync identity), then ``full``, ``varco:linear:5``
-   and ``auto:budget:<half the full-rate transport>:w8``, 5 epochs each
-   with AdamW; launch counts read right after (every kernel must have
-   run, the quantised codecs during the w8 run).  Every loss must be
-   finite and ``full``'s must fall; per-epoch loss, rate, width, bits,
-   step time and the peak device memory are printed.
+   ``full`` on the p2p and on the dense wire (each step-0 loss and
+   updated parameters must match the centralized loss and one autograd
+   step of ``centralized_forward`` within 1e-4: the grad-sync identity),
+   then on the p2p wire ``full``, ``varco:linear:5`` and
+   ``auto:budget:<half the full-rate transport>:w8``, on the dense wire
+   the JAX package's quickstart trio ``full``, ``fixed:4`` and
+   ``varco:linear:5`` (the paper's ``randmask``), on the packed wire
+   ``varco:linear:5`` (``blockmask``), 5 epochs each with AdamW, and one
+   epoch each of ``fixed:4`` with ``topk`` and ``fixed:8`` with ``int8``
+   on the dense wire; launch counts read right after (every kernel must
+   have run, the quantised codecs during the w8 run, ``random_mask`` in
+   exactly the dense runs that draw the random mask).  Then, at rate 2
+   on the card: the packed halo must equal the dense ``blockmask`` halo
+   bitwise, the p2p wire's remote values the same, and one packed
+   exchange's transport ``halo_demand × K·128 × 32`` exactly.  Every
+   loss must be finite and both ``full`` runs' must fall; per-epoch loss,
+   rate, width, bits, step time, test accuracy and the peak device
+   memory are printed.
 
 7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
    ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
@@ -59,6 +75,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``path`` names it); ``ssd_chunk`` at mamba2-130m's (x ``[8, 8, 256,
    24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
    output), at a two-group ragged shape and at G = 2, H/G = 3, Q = 100.
+   Flash attention also runs with explicit positions (a shifted and a
+   left-padded batch, the JAX package's prefill mask) on both kernels.
    Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
    bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
    absolute), with kernel, plain and library times (flash: ``scaled_dot_
@@ -81,10 +99,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    check; mamba2 at S = 256, since 2047 is no multiple of its chunk).
    Granite's f32 check is the CUDA-core flash kernel's path: counts are
    set to 0 before it and read after (two prefills: 80 launches of it,
-   none of the tensor-core kernel).
+   none of the tensor-core kernel).  Granite's prefill with explicit
+   positions, kernel path against plain path within 5e-2: a shifted
+   batch at S = 2048 (masked by index, as the JAX package's chunked
+   branch) and a left-padded one at S = 2000 (masked by position).
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
-from the training path for the GNN kernels, from the LM prefills for the
+from the training path for the GNN kernels and ``random_mask``, which has
+no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
+from the LM prefills for the
 LM kernels, from granite's f32 check for the CUDA-core flash kernel); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -118,6 +141,18 @@ SSD_RTOL, SSD_ATOL = 1e-5, 1e-4
 PLAIN_PATH_TOL = {"granite-3-2b": 5e-2, "mamba2-130m": 1e-4}
 CONSISTENCY_TOL = 1e-3
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
+#: 32-bit integer operations of one ``random_mask`` element: the counter
+#: injection (2), 20 Threefry rounds of add, rotate and xor (60), 5 key
+#: injections of two adds (10), the output xor, the shift, the or with
+#: the exponent and the compare (4)
+MASK_INT_OPS = 76
+#: 32-bit integer results an SM can retire per clock: four schedulers,
+#: each issuing one 32-lane warp instruction a clock.  No mix of integer
+#: instructions runs faster; the ALU pipe (add, logic, funnel shift: 64
+#: lanes) and the FMA pipe (IMAD: 64 lanes) together reach it.  The ALU
+#: pipe's 64 alone is no ceiling: the kernel runs 21 T of these ops a
+#: second, above 64 lanes × 132 SMs × 1.98 GHz = 16.7 T
+INT_OPS_PER_SM_CLOCK = 128
 
 KERNELS = {
     "ell_spmm": {"source": "src/repro_torch/csrc/ell_spmm.cu",
@@ -139,11 +174,15 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:108"},
     "ssd_chunk": {"source": "src/repro_torch/csrc/ssd_chunk.cu",
                   "replaces": "src/repro/kernels/ssd_chunk.py:77"},
+    # no TPU kernel: the JAX package draws this mask through XLA at the
+    # line named here
+    "random_mask": {"source": "src/repro_torch/csrc/randmask.cu",
+                    "replaces": "src/repro/core/compression.py:142"},
 }
 
 
 GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
-               "varco_unpack_quant")
+               "varco_unpack_quant", "random_mask")
 #: kernel -> the arch whose prefill runs it (once per layer); the CUDA-core
 #: flash kernel runs in neither bf16 granite nor f32 mamba2 serving, but in
 #: granite served in f32 (the decode-consistency check's path)
@@ -155,6 +194,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ell_spmm import ell_spmm
     from repro_torch.kernels.flash_attention import (flash_attention_simt,
                                                      flash_attention_wgmma)
+    from repro_torch.kernels.randmask import random_mask
     from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels import varco_pack as vp
 
@@ -164,7 +204,7 @@ def launch_counters() -> dict:
             "varco_unpack_quant": vp.varco_unpack_quant,
             "flash_attention": flash_attention_wgmma,
             "flash_attention_simt": flash_attention_simt,
-            "ssd_chunk": ssd_chunk}
+            "ssd_chunk": ssd_chunk, "random_mask": random_mask}
 
 
 def emit(obj) -> None:
@@ -408,6 +448,60 @@ def _quant_case(name, x, kept, inv, width, reps):
     return recs
 
 
+def int32_ops_per_s() -> float:
+    """The card's peak 32-bit integer rate: integer results per SM per
+    clock × SMs (``torch.cuda.get_device_properties``) × the SM's maximum
+    clock (``nvidia-smi``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6
+
+
+def _mask_keys(q: int, seed: int, dev):
+    from repro_torch import prng
+    from repro_torch.kernels.randmask import keys_tensor
+
+    k = prng.fold_in(prng.key(seed), 1)
+    return keys_tensor(np.stack([prng.fold_in(k, j) for j in range(q)]), dev)
+
+
+def _mask_case(name, x, rate, unbiased, reps, int_rate):
+    """``random_mask`` at one shape and rate: output and kept counts
+    bitwise against the plain version; kernel and plain times beside the
+    bound (76 integer ops an element at the integer issue ceiling,
+    against the bytes of x and out)."""
+    from repro_torch.kernels.randmask import random_mask, random_mask_plain
+
+    keys = _mask_keys(x.shape[0], int(rate * 10) + int(unbiased), x.device)
+    p = float(np.float32(1.0) / np.float32(rate))
+    scale = float(np.float32(rate)) if unbiased else 1.0
+    out, counts = random_mask(x, keys, p, scale, count=True)
+    ref, ref_counts = random_mask_plain(x, keys, p, scale, count=True)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref) and torch.equal(counts, ref_counts),
+          f"random_mask {name}: not bitwise equal to the plain version")
+    n = x.numel()
+    b_ms, b_by = bound_ms(2 * n * 4 + keys.numel() * 4, MASK_INT_OPS * n,
+                          int_rate)
+    rec = {"kernel": "random_mask", "case": name,
+           "shape": {"x": list(x.shape), "rate": rate,
+                     "unbiased": unbiased},
+           "kept_fraction": float(counts.sum()) / n, "max_abs_err": 0.0,
+           "kernel_ms": cuda_ms(lambda: random_mask(x, keys, p, scale),
+                                reps),
+           "plain_ms": cuda_ms(lambda: random_mask_plain(x, keys, p, scale),
+                               max(reps // 5, 1)),
+           "library_ms": None,   # PyTorch has no Threefry call
+           "bound_ms": b_ms, "bound_by": b_by,
+           "int_ops": MASK_INT_OPS * n, "int32_ops_per_s": int_rate}
+    emit(rec)
+    return rec
+
+
 def _grad_err(fn, ref_fn, x, gen):
     """Max abs difference between ``fn``'s input cotangent (the autograd
     function, kernels on the card) and ``ref_fn``'s (the plain version's
@@ -428,6 +522,7 @@ def vjp_phase(eng, gen):
     from repro_torch import prng
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_spmm import ell_spmm_plain
+    from repro_torch.kernels.randmask import random_mask_plain
     from repro_torch.kernels.varco_pack import (LANE, varco_pack_plain,
                                                 varco_unpack_plain,
                                                 worker_block_maps_pos)
@@ -443,7 +538,11 @@ def vjp_phase(eng, gen):
     bk = (torch.arange(q * d_hops, device=dev) // d_hops)
     kept_b, inv_b = kept[bk].contiguous(), inv[bk].contiguous()
     qmax = torch.full((q * d_hops,), 127.0, device=dev)
+    mkeys = _mask_keys(q, 7, dev)
     cases = {
+        "random_mask": (lambda a: ops.random_mask(a, mkeys, 0.25, 4.0)[0],
+                        lambda a: random_mask_plain(a, mkeys, 0.25, 4.0)[0],
+                        (q, b_sz, 256)),
         "ell_aggregate": (
             lambda a: ops.ell_aggregate(a, nbr, w, rnbr, rslot),
             lambda a: ell_spmm_plain(a, nbr, w), (q, p_sz, 256)),
@@ -530,6 +629,20 @@ def kernels_phase(eng, reps: int = 20):
                     torch.from_numpy(kept[bk]).to(dev),
                     torch.from_numpy(inv[bk]).to(dev), width, reps):
                 keep(rec, (f, k, width) == (256, 2, 8))
+    # the dense wire's random mask over the boundary block [Q, B, F] at
+    # the exchanged widths, over the rates it takes
+    int_rate = int32_ops_per_s()
+    for f in (256, 128):
+        x = torch.randn((q, b_sz, f), generator=gen, device=dev)
+        for rate in (2.0, 4.0, 5.3):
+            for unbiased in (False, True):
+                keep(_mask_case(f"halo_f{f}_r{rate:g}" +
+                                ("_unbiased" if unbiased else ""), x, rate,
+                                unbiased, reps, int_rate),
+                     (f, rate, unbiased) == (256, 4.0, False))
+    keep(_mask_case("ragged", torch.randn((3, 77, 42), generator=gen,
+                                          device=dev), 5.3, False, 5,
+                    int_rate), False)
     kept, inv, _ = worker_block_maps_pos(prng.key(4), 3, 3, 2)
     for width in (8, 4, 2):
         for rec in _quant_case(
@@ -710,6 +823,66 @@ def _grad_sync_identity(res, g, cfg, params) -> dict:
             "param_err": p_err, "centralized_loss": loss}
 
 
+#: the dense and packed all-gather runs of the train phase: name ->
+#: (policy spec, compressor, wire, epochs); the quickstart's three, the
+#: packed wire's VARCO, and one epoch each of the other compressors
+ALLGATHER_RUNS = {
+    "dense_full": ("full", None, "dense", TRAIN_EPOCHS),
+    "dense_fixed4": ("fixed:4", "randmask", "dense", TRAIN_EPOCHS),
+    "dense_varco": ("varco:linear:5", "randmask", "dense", TRAIN_EPOCHS),
+    "packed_varco": ("varco:linear:5", "blockmask", "packed", TRAIN_EPOCHS),
+    "dense_topk4": ("fixed:4", "topk", "dense", 1),
+    "dense_int8_8": ("fixed:8", "int8", "dense", 1),
+}
+
+
+def _wire_identity(eng, params, seed: int = 0) -> dict:
+    """At rate 2 over a 256-wide exchange on the card: the packed halo
+    against the dense ``blockmask`` halo (bitwise), the p2p wire's remote
+    values against the same (bitwise), and the packed transport of one
+    exchange at each exchanged width against ``halo_demand × K·128 ×
+    32``."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.kernels.varco_pack import LANE
+
+    pg, graph, q = eng.pg, eng.graph, eng.pg.q
+    gen = torch.Generator(device=eng.device).manual_seed(seed + 5)
+    pol = CommPolicy.parse("fixed:2", 1, compressor="blockmask")
+    metas = {"dense": gp.DistMeta.build(pg, params, wire="dense"),
+             "packed": gp.DistMeta.build(pg, params, wire="packed"),
+             "p2p": eng.meta}
+    tok, transport = {}, {}
+    for f in (128, 256):
+        x = torch.randn((q, pg.part_size, f), generator=gen,
+                        device=eng.device)
+        key = prng.fold_in(prng.key(seed + 3), f)
+        for wire, meta in metas.items():
+            agg = gp._make_aggregate_emulated(
+                graph, meta, pol, pol.rate(0), key,
+                packed_k=dict(gp._packed_k_for(meta, 2.0)))
+            tok[wire, f], bits = agg.start(0, x)
+            if wire == "packed":
+                transport[f] = float(bits[1])
+    valid = graph["remote_w"] != 0
+    via_dense = tok["dense", 256].index_select(
+        0, graph["remote_src"].long().reshape(-1)).reshape(q, -1, 256)
+    p2p = tok["p2p", 256]
+    via_p2p = gp._rows_of(p2p, graph["remote_src_p2p"], p2p.shape[1])
+    torch.cuda.synchronize()
+    want = {f: float(np.float32(pg.halo_demand * max(f // LANE // 2, 1) *
+                                LANE * 32.0)) for f in (128, 256)}
+    return {"packed_equals_dense_blockmask": all(
+                torch.equal(tok["packed", f], tok["dense", f])
+                for f in (128, 256)),
+            "p2p_equals_dense_blockmask": torch.equal(via_p2p[valid],
+                                                      via_dense[valid]),
+            "packed_transport_bits": transport,
+            "halo_demand_x_kept_x_32": want,
+            "packed_transport_exact": transport == want}
+
+
 def train_phase(g, cfg, params, eng, seed: int = 0):
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist.ratectl import exchange_widths
@@ -730,19 +903,27 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     t0 = time.perf_counter()
     one = train_gnn(pg, policy=CommPolicy.parse("full", 1), epochs=1,
                     optimizer=sgd(0.1), **common)
-    runs, quant_launches = {}, {}
-    for name, spec in specs.items():
+    one_dense = train_gnn(pg, policy=CommPolicy.parse("full", 1), epochs=1,
+                          optimizer=sgd(0.1), **{**common, "wire": "dense"})
+    runs, quant_launches, mask_launches = {}, {}, {}
+    plan = {name: (spec, "blockmask", "p2p", TRAIN_EPOCHS)
+            for name, spec in specs.items()}
+    plan.update(ALLGATHER_RUNS)
+    for name, (spec, comp, wire, epochs) in plan.items():
         before = {k: fn.launches for k, fn in counters.items()}
         res = train_gnn(pg, policy=CommPolicy.parse(
-            spec, TRAIN_EPOCHS, compressor="blockmask"),
-            epochs=TRAIN_EPOCHS, **common)
+            spec, epochs, compressor=comp), epochs=epochs,
+            **{**common, "wire": wire})
         runs[name] = res.history
         quant_launches[name] = {
             k: counters[k].launches - before[k]
             for k in ("varco_pack_quant", "varco_unpack_quant")}
+        mask_launches[name] = counters["random_mask"].launches - \
+            before["random_mask"]
         h = res.history
         for i, ep in enumerate(h.epoch):
             emit({"phase": "train_epoch", "run": name, "policy": spec,
+                  "compressor": comp or "randmask", "wire": wire,
                   "epoch": ep, "loss": h.loss[i], "rate": h.rate[i],
                   "width": h.width[i], "step_ms": h.step_s[i] * 1e3,
                   "transport_gfloats": h.transport_gfloats[i],
@@ -753,11 +934,17 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     ident = _grad_sync_identity(one, g, cfg, params)
+    ident_dense = _grad_sync_identity(one_dense, g, cfg, params)
+    wire_ident = _wire_identity(eng, params, seed)
     summary = {"phase": "train", "wall_s": wall, "epochs": TRAIN_EPOCHS,
                "launches": launches, "quant_launches": quant_launches,
-               "grad_sync_identity": ident, "peak_mem_gb": peak,
+               "random_mask_launches": mask_launches,
+               "grad_sync_identity": ident,
+               "dense_grad_sync_identity": ident_dense,
+               "wire_identity": wire_ident, "peak_mem_gb": peak,
                "step_ms_median": {
-                   k: float(np.median(np.asarray(h.step_s[1:]) * 1e3))
+                   k: float(np.median(np.asarray(h.step_s[1:] or
+                                                 h.step_s) * 1e3))
                    for k, h in runs.items()},
                "final_loss": {k: h.loss[-1] for k, h in runs.items()},
                "transport_gfloats": {k: h.transport_gfloats[-1]
@@ -770,10 +957,25 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
         check(count > 0, f"{name} never launched during the w8 run")
     check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
           f"grad-sync identity broken: {ident}")
+    check(ident_dense["loss_err"] <= GRAD_TOL and
+          ident_dense["param_err"] <= GRAD_TOL,
+          f"grad-sync identity broken on the dense wire: {ident_dense}")
+    check(wire_ident["packed_equals_dense_blockmask"],
+          "the packed halo differs from the dense blockmask halo")
+    check(wire_ident["p2p_equals_dense_blockmask"],
+          "the p2p remote values differ from the dense blockmask halo")
+    check(wire_ident["packed_transport_exact"],
+          f"packed transport is not halo_demand x K·128 x 32: {wire_ident}")
+    for name, (spec, comp, wire, _) in plan.items():
+        compresses = wire == "dense" and spec != "full" and \
+            comp in ("randmask", "int8")
+        check((mask_launches[name] > 0) == compresses,
+              f"{name}: random_mask launched {mask_launches[name]} times")
     for name, h in runs.items():
         check(bool(np.isfinite(h.loss).all()), f"{name}: non-finite loss")
-    check(runs["full"].loss[-1] < runs["full"].loss[0],
-          f"full: loss did not fall ({runs['full'].loss})")
+    for name in ("full", "dense_full"):
+        check(runs[name].loss[-1] < runs[name].loss[0],
+              f"{name}: loss did not fall ({runs[name].loss})")
     return launches
 
 
@@ -875,6 +1077,57 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
     return rec
 
 
+def prompt_positions(kind: str, b: int, s: int, device) -> torch.Tensor:
+    """int32 ``[B, S]`` prompt positions: ``shifted`` rows start at 7 +
+    3·row (``arange + c``); ``left_padded`` rows repeat position 0 over
+    their first ``97·row mod S/2`` slots, then count up."""
+    i = torch.arange(s, dtype=torch.int32)
+    if kind == "shifted":
+        rows = [i + 7 + 3 * r for r in range(b)]
+    else:
+        rows = [torch.clamp(i - (97 * r) % (s // 2), min=0) for r in range(b)]
+    return torch.stack(rows).contiguous().to(device)
+
+
+def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
+    """Flash attention with explicit positions (the JAX package's prefill
+    mask) against the plain version, on the kernel ``kernel_for`` names;
+    kernel and plain times."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     kernel_for)
+
+    dev = gen.device
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev,
+                           dtype=dtype).transpose(1, 2)
+               for n in (h, kv, kv))
+    pos = prompt_positions(kind, b, s, dev)
+    path = kernel_for(dtype, d)
+    kernel = "flash_attention" if path == "wgmma" else "flash_attention_simt"
+    counters = launch_counters()
+    before = counters[kernel].launches
+    out = flash_attention(q, k, v, True, window, pos, pos)
+    ref = flash_attention_plain(q, k, v, True, window, pos, pos).float()
+    torch.cuda.synchronize()
+    check(counters[kernel].launches == before + 1,
+          f"flash_attention {name}: {kernel} did not launch once")
+    err = float((out.float() - ref).abs().max())
+    tol = FLASH_TOL[dtype]
+    check(_within(out, ref, tol, tol),
+          f"flash_attention {name}: max abs err {err} (tol {tol})")
+    rec = {"kernel": kernel, "path": path, "case": name,
+           "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
+                     "dtype": str(dtype), "window": window,
+                     "positions": kind},
+           "max_abs_err": err,
+           "kernel_ms": cuda_ms(lambda: flash_attention(
+               q, k, v, True, window, pos, pos), reps),
+           "plain_ms": cuda_ms(lambda: flash_attention_plain(
+               q, k, v, True, window, pos, pos), max(reps // 5, 1))}
+    emit(rec)
+    return rec
+
+
 def _ssd_case(name, b, nc, q, h, p, g, n, reps, gen):
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
 
@@ -938,6 +1191,18 @@ def lm_kernels_phase(reps: int = 10) -> dict:
                     library=True),
         _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, reps, gen,
                     library=True),
+        # explicit positions on both kernels: a shifted and a left-padded
+        # batch at granite's widths (bf16) and in f32
+        _flash_pos_case("granite_shifted", 8, 32, 8, 2048, 64, bf16, 0,
+                        "shifted", reps, gen),
+        _flash_pos_case("granite_left_padded", 8, 32, 8, 2000, 64, bf16, 0,
+                        "left_padded", reps, gen),
+        _flash_pos_case("window_left_padded", 2, 32, 8, 2000, 128, bf16,
+                        512, "left_padded", reps, gen),
+        _flash_pos_case("f32_left_padded", 2, 32, 8, 2000, 64, f32, 0,
+                        "left_padded", reps, gen),
+        _flash_pos_case("f32_shifted", 2, 32, 8, 2048, 64, f32, 0,
+                        "shifted", reps, gen),
     ]
     ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
            _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen),
@@ -1031,6 +1296,9 @@ def lm_phase(seed: int = 0) -> dict:
             plain, _ = prefill(params, cfg, {"tokens": prompts},
                                max_len=LM_PROMPT + LM_NEW)
         plain_err = _rel_err(out.prefill_logits, plain)
+        pos_errs, pos_ms = {}, {}
+        if cfg.mamba is None:
+            pos_errs, pos_ms = _positions_prefill(cfg, params, prompts)
         if cfg.mamba is not None:
             # S = one chunk: 2047 tokens would be no multiple of it
             cons = _consistency(cfg, params, prompts, cfg.mamba.chunk)
@@ -1062,6 +1330,8 @@ def lm_phase(seed: int = 0) -> dict:
                **({"f32_consistency_launches": f32_got}
                   if cfg.mamba is None else {}),
                "plain_path_rel_err": plain_err,
+               "positions_plain_path_rel_err": pos_errs,
+               "positions_prefill_ms": pos_ms,
                "decode_consistency_rel_err": cons,
                "first_tokens": out.tokens[0, :8].tolist()}
         emit(rec)
@@ -1070,9 +1340,49 @@ def lm_phase(seed: int = 0) -> dict:
               f"path by {plain_err} of the largest logit")
         check(cons <= CONSISTENCY_TOL,
               f"{arch}: prefill + decode differs from prefill by {cons}")
+        for kind, e in pos_errs.items():
+            check(e <= PLAIN_PATH_TOL[arch],
+                  f"{arch}: {kind} prefill, kernel path against plain "
+                  f"path: {e} of the largest logit")
         del params, out, plain
         torch.cuda.empty_cache()
     return launches
+
+
+def _timed_prefill(params, cfg, batch):
+    from repro_torch.models.transformer import prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    return logits, (time.perf_counter() - t0) * 1e3
+
+
+def _positions_prefill(cfg, params, prompts) -> tuple[dict, dict]:
+    """Granite's prefill with explicit positions, kernel path against
+    plain path (relative to the largest logit): a shifted batch at S =
+    2048 (the index mask, as the JAX package's chunked branch masks) and
+    a left-padded one at S = 2000 (the position mask).  Also the host
+    clock of each warm prefill beside the same prompts' prefill with the
+    default positions."""
+    from repro_torch.models.transformer import prefill
+
+    errs, ms = {}, {}
+    for kind, s in (("shifted", LM_PROMPT), ("left_padded", 2000)):
+        batch = {"tokens": prompts[:, :s],
+                 "positions": prompt_positions(kind, prompts.shape[0], s,
+                                               prompts.device)}
+        got, _ = _timed_prefill(params, cfg, batch)
+        _, ms[kind] = _timed_prefill(params, cfg, batch)
+        _, ms[f"{kind}_default_positions"] = _timed_prefill(
+            params, cfg, {"tokens": prompts[:, :s]})
+        with plain_kernels():
+            want, _ = prefill(params, cfg, batch)
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{kind} prefill: non-finite logits")
+        errs[kind] = _rel_err(got, want)
+    return errs, ms
 
 
 def _tree_float(tree):

@@ -5,22 +5,26 @@
     python3 scripts/profile_gnn_step.py --nodes 20000    # a smaller graph
     python3 scripts/profile_gnn_step.py --nodes 2000 --device cpu
                                           # rehearsal: CPU times only
+    python3 scripts/profile_gnn_step.py --wires dense  # one wire only
 
 Builds ``chip_smoke.py``'s workload: ``citation_graph(n=169_343,
 feat_dim=128)`` cut ``metis-like`` into Q = 4 partitions on one card, and
 GraphSAGE at the paper's width (128 -> 256 -> 40, 3 layers) with seeded
-weights, served by a ``ServingEngine``.  For each training policy
-(``full``, ``varco:linear:5`` and ``auto:budget:<half the full-rate
-transport>:w8``) it sets up the step as ``train_gnn`` does (p2p wire,
-AdamW), runs two untraced steps (kernel build, allocator warm-up), then
-traces the third; then it traces one warm cold-start refresh of the
+weights, served by a ``ServingEngine``.  For each training run of the
+chosen wires — p2p: ``full``, ``varco:linear:5`` and ``auto:budget:<half
+the full-rate transport>:w8`` (``blockmask``); dense: ``full``,
+``fixed:4`` and ``varco:linear:5`` (the paper's ``randmask``); packed:
+``varco:linear:5`` (``blockmask``) — it sets up the step as
+``train_gnn`` does (AdamW), runs two untraced steps (kernel build,
+allocator warm-up), then traces the third; then it traces one warm
+cold-start refresh of the
 serving engine (``refresh(force=True)`` after an untraced one).  For each
 traced item it prints one JSON line: the host-clock wall time (ending in
 a device sync), the device time summed over every kernel (self time),
 the device's idle share of the wall time (an upper bound: the profiler's
 host cost inflates the wall time), the number of kernels launched, the
-port's kernel launch counters, the share of ``ell_spmm``'s kernel, and
-the kernels with the most device time.  The card's name and power limit
+port's kernel launch counters, the shares of ``ell_spmm``'s and
+``random_mask``'s kernels, and the kernels with the most device time.  The card's name and power limit
 go on the first line.  If the trace holds no device time it falls back
 to CUDA events around the step (device time then is not split by
 kernel).  On the CPU the list holds operators' CPU self times, never
@@ -50,6 +54,7 @@ from repro_torch.dist.ratectl import (exchange_widths,  # noqa: E402
                                       make_auto_train_step, make_controller)
 from repro_torch.graph.synthetic import citation_graph  # noqa: E402
 from repro_torch.kernels import ell_spmm as _ell  # noqa: E402
+from repro_torch.kernels import randmask as _rm  # noqa: E402
 from repro_torch.kernels import varco_pack as _vp  # noqa: E402
 from repro_torch.nn.gnn import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.serve import ServingEngine  # noqa: E402
@@ -60,7 +65,16 @@ EPOCHS = 5  # the policies' schedule length, as in chip_smoke.py
 COUNTERS = {"ell_spmm": _ell.ell_spmm, "varco_pack": _vp.varco_pack,
             "varco_unpack": _vp.varco_unpack,
             "varco_pack_quant": _vp.varco_pack_quant,
-            "varco_unpack_quant": _vp.varco_unpack_quant}
+            "varco_unpack_quant": _vp.varco_unpack_quant,
+            "random_mask": _rm.random_mask}
+#: the traced runs of each wire: name -> (policy spec, compressor)
+RUNS = {"p2p": {"full": ("full", "blockmask"),
+                "varco": ("varco:linear:5", "blockmask"),
+                "auto_w8": ("auto_w8", "blockmask")},
+        "dense": {"dense_full": ("full", None),
+                  "dense_fixed4": ("fixed:4", None),
+                  "dense_varco": ("varco:linear:5", None)},
+        "packed": {"packed_varco": ("varco:linear:5", "blockmask")}}
 
 
 def _self_time_us(evt, on_card: bool) -> float:
@@ -106,6 +120,7 @@ def _trace(fn, device: torch.device) -> dict:
                 "device_ms": start.elapsed_time(end)}
     busy_us = sum(r[1] for r in rows)
     ell_us = sum(r[1] for r in rows if "ell_spmm" in r[0])
+    mask_us = sum(r[1] for r in rows if "random_mask" in r[0])
     rec.update({
         "time_kind": "device self time" if on_card
         else "CPU self time (not a device number)",
@@ -114,18 +129,24 @@ def _trace(fn, device: torch.device) -> dict:
         "kernels_launched": sum(r[2] for r in rows) if on_card else None,
         "ell_spmm_ms": ell_us / 1e3 if on_card else None,
         "ell_spmm_share": ell_us / busy_us if on_card and busy_us else None,
+        "random_mask_ms": mask_us / 1e3 if on_card else None,
+        "random_mask_share": mask_us / busy_us if on_card and busy_us
+        else None,
         "top": [{"op": k, "ms": us / 1e3, "calls": n}
                 for k, us, n in rows[:TOP]]})
     return rec
 
 
-def _step_fn(pg, cfg, params, spec: str, device):
-    """One training step under ``spec`` as ``train_gnn`` runs it (p2p
-    wire, AdamW): returns ``step(epoch)``, which runs the step and waits
-    for its loss."""
-    policy = CommPolicy.parse(spec, EPOCHS, compressor="blockmask")
-    graph = attach_p2p(pg.device_arrays(device), pg, device)
-    meta = DistMeta.build(pg, params, wire="p2p")
+def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
+             compressor: str | None = "blockmask"):
+    """One training step under ``spec`` as ``train_gnn`` runs it on
+    ``wire`` (AdamW): returns ``step(epoch)``, which runs the step and
+    waits for its loss."""
+    policy = CommPolicy.parse(spec, EPOCHS, compressor=compressor)
+    graph = pg.device_arrays(device)
+    if wire == "p2p":
+        graph = attach_p2p(graph, pg, device)
+    meta = DistMeta.build(pg, params, wire=wire)
     opt = adamw(5e-3)
     state = {"params": params, "opt": opt.init(params), "cache": ()}
     if policy.mode == "auto":
@@ -157,7 +178,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=169_343)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--wires", default="p2p,dense,packed",
+                    help="comma-separated wires to trace steps on")
     args = ap.parse_args(argv)
+    wires = [w for w in args.wires.split(",") if w]
+    for w in wires:
+        if w not in RUNS:
+            ap.error(f"unknown wire {w!r}; have {sorted(RUNS)}")
 
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -183,15 +210,18 @@ def main(argv=None) -> int:
     pg = eng.pg
     full_bits = 2.0 * 32.0 * pg.halo_demand * sum(exchange_widths(cfg)) * \
         EPOCHS
-    specs = {"full": "full", "varco": "varco:linear:5",
-             "auto_w8": f"auto:budget:{0.5 * full_bits:g}:w8"}
-    for name, spec in specs.items():
-        run = _step_fn(pg, cfg, params, spec, device)
-        run(0)
-        run(1)                          # warm: kernels built, allocator
-        rec = _trace(lambda: run(2), device)
-        print(json.dumps({"item": "train_step", "run": name,
-                          "policy": spec, "epoch": 2, **rec}), flush=True)
+    auto_w8 = f"auto:budget:{0.5 * full_bits:g}:w8"
+    for wire in wires:
+        for name, (spec, comp) in RUNS[wire].items():
+            spec = auto_w8 if spec == "auto_w8" else spec
+            run = _step_fn(pg, cfg, params, spec, device, wire, comp)
+            run(0)
+            run(1)                      # warm: kernels built, allocator
+            rec = _trace(lambda: run(2), device)
+            print(json.dumps({"item": "train_step", "wire": wire,
+                              "run": name, "policy": spec,
+                              "compressor": comp or "randmask", "epoch": 2,
+                              **rec}), flush=True)
     eng.refresh(force=True)             # warm
     rec = _trace(lambda: eng.refresh(force=True), device)
     print(json.dumps({"item": "refresh", "force": True,

@@ -11,9 +11,11 @@ static description of a run's communication scheme:
   loop: a ``repro_torch.dist.ratectl`` controller plans per-pair rates
   (and wire widths) from measured transport.
 
-``compressor_name`` stays a string: the p2p wire realises ``blockmask``
-with the pack/unpack kernels, and the dense compressing wire that would
-need the other compressors is not ported.
+:meth:`CommPolicy.compressor` is the named
+:mod:`~repro_torch.core.compression` compressor: the dense wire applies
+any of them to each worker's boundary block, while the packed and p2p
+wires realise ``blockmask`` with the pack/unpack kernels (closed-loop
+policies ride those wires, so they must name ``blockmask``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import torch
 
 from . import schedulers
+from .compression import Compressor, get_compressor
 from .schedulers import Scheduler
 
 MODES = ("full", "none", "fixed", "varco", "auto")
@@ -160,6 +163,9 @@ class CommPolicy:
     @property
     def compresses(self) -> bool:
         return self.mode in ("fixed", "varco", "auto")
+
+    def compressor(self) -> Compressor:
+        return get_compressor(self.compressor_name)
 
     def rate(self, step) -> torch.Tensor:
         """Compression ratio at ``step`` (1.0 for full communication), a

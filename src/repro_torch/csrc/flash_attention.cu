@@ -25,8 +25,10 @@
 //     prefill mask): a key is live when kpos <= qpos (causal) and kpos >
 //     qpos - window.  Such a mask need not be lower-triangular in index,
 //     so the tile walk takes the query tile's key range [lo, hi) from the
-//     wrapper (ranges, int2 [B, S/kBQ]; outside it the positions' extremes
-//     prove every key masked) and masks every key of it by position.  A masked score is -inf and a row with no live key so far
+//     wrapper (ranges, int4 [B, S/kBQ]; outside it the positions' extremes
+//     prove every key masked) and masks its keys by position, except in
+//     the run of tiles [full_lo, full_hi) that the extremes prove wholly
+//     unmasked.  A masked score is -inf and a row with no live key so far
 //     keeps m = -inf, p = 0, so a fully masked row ends with l = 0 and
 //     writes 0 (acc / max(l, 1e-30)), as ref.mha_reference does.
 //   * GQA: query head h reads KV head h / group, never a repeated copy.
@@ -91,12 +93,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+// BY_POS: positions given (a separate instantiation, so the index-masked
+// kernel's code is the same as without the positions path)
+template <typename T, int D, bool BY_POS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 const int2* __restrict__ ranges, int group, int S,
+                 const int4* __restrict__ ranges, int group, int S,
                  Strides sq, Strides sk, Strides sv, Strides so, int causal,
                  int window, float scale) {
   constexpr int LD = D + 4;
@@ -119,15 +123,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(Qs, qb, sq.s, q0, kBQ, S);
 
   // the key range this query tile can see, in whole tiles
-  const bool by_pos = qpos != nullptr;
+  constexpr bool by_pos = BY_POS;
   const int q_last = min(q0 + kBQ, S) - 1;
   int k_end = causal ? q_last + 1 : S;
   int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
   long long rpos[4] = {0, 0, 0, 0};  // this thread's rows' positions
-  if (by_pos) {
-    const int2 r = ranges[(long long)b * gridDim.x + blockIdx.x];
+  int full_lo = 0, full_hi = 0;      // key tiles no position masks
+  if constexpr (by_pos) {
+    const int4 r = ranges[(long long)b * gridDim.x + blockIdx.x];
     k_begin = r.x;
     k_end = r.y;
+    full_lo = r.z;
+    full_hi = r.w;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
@@ -176,7 +183,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     long long kp[4] = {0, 0, 0, 0};  // this thread's keys' positions
-    if (by_pos) {
+    const bool pos_mask = by_pos && !(kt >= full_lo && kt + kBK <= full_hi);
+    if (pos_mask) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = kt + tx + 16 * j;
@@ -192,8 +200,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kj = kt + tx + 16 * j;
         const bool live =
             kj < S &&
-            (by_pos ? (!causal || kp[j] <= rpos[i]) &&
-                          (window <= 0 || kp[j] > rpos[i] - window)
+            (by_pos ? !pos_mask ||
+                          ((!causal || kp[j] <= rpos[i]) &&
+                           (window <= 0 || kp[j] > rpos[i] - window))
                     : (!causal || kj <= qi) &&
                           (window <= 0 || kj > qi - window));
         s[i][j] = live ? s[i][j] * scale : -INFINITY;
@@ -289,7 +298,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Pos {
   const int* q;
   const int* k;
-  const int2* ranges;
+  const int4* ranges;
 };
 
 template <typename T, int D>
@@ -297,12 +306,13 @@ int launch(const void* q, const void* k, const void* v, void* o, Pos pos,
            int B, int H, int KV, int S, const Strides* st, int causal,
            int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
+  auto kernel = pos.q != nullptr ? flash_fwd_kernel<T, D, true>
+                                 : flash_fwd_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), pos.q, pos.k, pos.ranges,
       H / KV, S, st[0], st[1], st[2], st[3], causal, window,
@@ -338,7 +348,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  qpos/kpos: int32 [B, S] positions and
-// ranges: int32 [B, ceil(S / 64), 2] key ranges, all three null for the
+// ranges: int32 [B, ceil(S / 64), 4] key ranges, all three null for the
 // index mask.  Strides (in elements) are (b, h, s) for q, k, v and o in
 // that order; the head dim is contiguous.
 extern "C" int flash_attention_fwd(
@@ -356,7 +366,7 @@ extern "C" int flash_attention_fwd(
   const Strides st[4] = {{qb, qh, qs}, {kb, kh, ks}, {vb, vh, vs},
                          {ob, oh, os}};
   const Pos pos{static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-                static_cast<const int2*>(ranges)};
+                static_cast<const int4*>(ranges)};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, o, pos, B, H, KV, S, st, causal,

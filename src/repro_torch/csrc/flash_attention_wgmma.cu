@@ -43,11 +43,12 @@
 //     prefill mask): a key is live when kpos <= qpos (causal) and kpos >
 //     qpos - window.  Such a mask need not be lower-triangular in index,
 //     so both the producer's and the consumers' tile walk take the query
-//     tile's key range [lo, hi) from the wrapper (ranges, int2 [B,
-//     S/kBQ]; outside it the positions' extremes prove every key masked),
-//     and every tile of it is masked by position (the row positions sit
-//     in registers, the key positions are read through the read-only
-//     cache).
+//     tile's key range [lo, hi) from the wrapper (ranges, int4 [B,
+//     S/kBQ]; outside it the positions' extremes prove every key masked).
+//     Tiles in the run [full_lo, full_hi) that the extremes prove wholly
+//     unmasked skip the mask, as interior tiles do on the index path;
+//     the others are masked by position (the row positions sit in
+//     registers, the key positions are read through the read-only cache).
 //   * O += P V: P is rounded to bf16 in registers straight into wgmma's
 //     A fragment (the accumulator layout of two 8-column chunks is the A
 //     layout of one 16-deep slice), with no trip through shared memory; V
@@ -320,7 +321,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, OutView o,
                    const int* __restrict__ qpos, const int* __restrict__ kpos,
-                   const int2* __restrict__ ranges, int S, int H, int B,
+                   const int4* __restrict__ ranges, int S, int H, int B,
                    int group, int causal, int window, float scale_log2,
                    int perm_q, int perm_kv) {
   constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES, NDB = D / 64;
@@ -345,10 +346,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q_last = min(q0 + kBQ, S) - 1;
   int k_end = causal ? q_last + 1 : S;
   int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  int full_lo = 0, full_hi = 0;  // key tiles no position masks
   if constexpr (by_pos) {  // >= 1 tile: the wrapper gives no empty range
-    const int2 r = ranges[(long long)b * n_qt + qt];
+    const int4 r = ranges[(long long)b * n_qt + qt];
     k_begin = r.x;
     k_end = r.y;
+    full_lo = r.z;
+    full_hi = r.w;
   }
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
@@ -430,14 +434,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // advance, al_* take the factor the accumulator must be scaled by
   auto softmax = [&](int it) {
     const int kt = k_begin + it * BK;
-    const bool need_mask = by_pos || kt + BK > S ||
-                           (causal && kt + BK - 1 > q0) ||
-                           (window > 0 && kt <= q0 + kBQ - 1 - window);
+    const bool need_mask =
+        by_pos ? !(kt >= full_lo && kt + BK <= full_hi)
+               : kt + BK > S || (causal && kt + BK - 1 > q0) ||
+                     (window > 0 && kt <= q0 + kBQ - 1 - window);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
       long long kp[2] = {0, 0};  // positions of this slice's two keys
-      if constexpr (by_pos) {
+      if (by_pos && need_mask) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int key = kt + 8 * j + cq + c;
@@ -671,7 +676,7 @@ int make_map(CUtensorMap* map, const void* p, int D, int S, int NH, int B,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const int* qpos, const int* kpos, const int2* ranges, int B,
+           const int* qpos, const int* kpos, const int4* ranges, int B,
            int H, int KV, int S, const long long* st, int causal, int window,
            cudaStream_t stream) {
   constexpr int BK = Cfg<D>::BK;
@@ -703,7 +708,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // bf16 only.  qpos/kpos: int32 [B, S] positions and ranges: int32 [B,
-// ceil(S / 128), 2] key ranges, all three null for the index mask.
+// ceil(S / 128), 4] key ranges, all three null for the index mask.
 // Strides (in elements) are (b, h, s) for q, k, v and o in that order; the
 // head dim is contiguous; pointers and strides of more than one element
 // must be 16-byte aligned (TMA).
@@ -722,7 +727,7 @@ extern "C" int flash_attention_wgmma_fwd(
   const long long st[12] = {qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
-  const int2* rg = static_cast<const int2*>(ranges);
+  const int4* rg = static_cast<const int4*>(ranges);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

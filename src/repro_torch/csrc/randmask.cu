@@ -1,0 +1,166 @@
+// The paper's random element mask for Hopper: the dense compressing wire's
+// Bernoulli(p) mask drawn from the shared Threefry key stream, applied in
+// one pass.
+//
+//   out[q, i] = mask(q, i) ? x[q, i] * scale : 0
+//   mask(q, i) = uniform(key[q], i + offset) < p
+//   uniform(key, c) = float((bits >> 9) | 0x3F800000) - 1,
+//   bits = y0 ^ y1, (y0, y1) = threefry2x32(key, (c >> 32, c & 0xffffffff))
+//
+// x is [Q, N] (a worker's [B, F] block flattened), keys [Q, 2] uint32, one
+// key per worker, and the counter c is the element's flat index inside
+// its worker's block plus offset: bitwise jax.random.bernoulli(key, p,
+// (B, F)) in the partitionable Threefry layout (jax's default), vmapped
+// over workers.  Optionally counts[q] += kept elements of worker q (the
+// compressor's wire bits).
+//
+// No TPU kernel corresponds: the JAX package leaves this mask to XLA
+// (repro/core/compression.py::_random_mask).  It is a kernel here
+// because the mask is one 20-round hash per activation, 45M per exchange
+// at the paper's width, which plain PyTorch would spend over a hundred
+// elementwise passes on.
+//
+// What bounds it: bytes and integer operations about equally.  Per
+// element 76 32-bit integer ops (20 rounds of add, rotate, xor; the key
+// injections; the conversion and compare) against 8 bytes moved (read x,
+// write out).  At the SM's issue ceiling (128 integer results a clock:
+// the ALU pipe's adds, logic and shifts and the FMA pipe's IMADs) the
+// ops of the path's [4, 44227, 256] block take 0.103 ms on an H100, its
+// bytes 0.108 ms.
+//
+// Design: a thread takes 4 consecutive elements (one float4 load and
+// store, four independent hashes to hide the ALU latency); rotations are
+// single funnel shifts; blockIdx.y is the worker, so a block loads one key
+// and its threads grid-stride over that worker's N elements; kept counts
+// are summed per thread, then per warp, one atomic per warp.
+//
+// C interface (ctypes): pointers and the stream are void*, sizes 64-bit;
+// returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr uint32_t kParity = 0x1BD11BDAu;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+// Threefry-2x32, 20 rounds, on the counter (hi, lo); returns y0 ^ y1
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t k2, uint32_t hi,
+                                                  uint32_t lo) {
+  uint32_t a = hi + k0, b = lo + k1;
+#define TF_ROUND(r) \
+  a += b;           \
+  b = rotl(b, r);   \
+  b ^= a;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  a += k1; b += k2 + 1u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  a += k2; b += k0 + 2u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  a += k0; b += k1 + 3u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  a += k1; b += k2 + 4u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  a += k2; b += k0 + 5u;
+#undef TF_ROUND
+  return a ^ b;
+}
+
+__device__ __forceinline__ bool keep(uint32_t k0, uint32_t k1, uint32_t k2,
+                                     uint64_t c, float p) {
+  const uint32_t bits = threefry_bits(k0, k1, k2, (uint32_t)(c >> 32),
+                                      (uint32_t)c);
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f < p;
+}
+
+// VEC: N % 4 == 0 and 16-byte aligned rows, so a group of 4 is one float4
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+random_mask_kernel(const float* __restrict__ x,
+                   const uint32_t* __restrict__ keys, float* __restrict__ out,
+                   unsigned long long* __restrict__ counts, int64_t n,
+                   uint64_t offset, float p, float scale) {
+  const int q = blockIdx.y;
+  const uint32_t k0 = keys[2 * q], k1 = keys[2 * q + 1];
+  const uint32_t k2 = k0 ^ k1 ^ kParity;
+  const float* xq = x + (int64_t)q * n;
+  float* oq = out + (int64_t)q * n;
+  const int64_t groups = (n + 3) / 4;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  unsigned int kept = 0;
+  for (int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x; g < groups;
+       g += stride) {
+    const int64_t i = 4 * g;
+    const uint64_t c = (uint64_t)i + offset;
+    if (VEC) {
+      const float4 v = reinterpret_cast<const float4*>(xq)[g];
+      const bool m0 = keep(k0, k1, k2, c, p), m1 = keep(k0, k1, k2, c + 1, p),
+                 m2 = keep(k0, k1, k2, c + 2, p),
+                 m3 = keep(k0, k1, k2, c + 3, p);
+      float4 o;
+      o.x = m0 ? v.x * scale : 0.f;
+      o.y = m1 ? v.y * scale : 0.f;
+      o.z = m2 ? v.z * scale : 0.f;
+      o.w = m3 ? v.w * scale : 0.f;
+      reinterpret_cast<float4*>(oq)[g] = o;
+      kept += (unsigned)m0 + (unsigned)m1 + (unsigned)m2 + (unsigned)m3;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i + j < n) {
+          const bool m = keep(k0, k1, k2, c + j, p);
+          oq[i + j] = m ? xq[i + j] * scale : 0.f;
+          kept += (unsigned)m;
+        }
+      }
+    }
+  }
+  if (counts != nullptr) {
+    // every thread of the block ran the loop above: the warp is whole
+    const unsigned warp_kept = __reduce_add_sync(0xffffffffu, kept);
+    if ((threadIdx.x & 31) == 0 && warp_kept)
+      atomicAdd(counts + q, (unsigned long long)warp_kept);
+  }
+}
+
+}  // namespace
+
+// x, out: float32 [Q, N]; keys: uint32 [Q, 2]; counts: uint64 [Q] (added
+// to) or null; offset: added to every counter.
+extern "C" int random_mask_f32(const void* x, const void* keys, void* out,
+                               void* counts, long long q, long long n,
+                               long long offset, float p, float scale,
+                               int device, void* stream) {
+  cudaSetDevice(device);
+  if (q == 0 || n == 0) return (int)cudaGetLastError();
+  if (q > 65535) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long groups = (n + 3) / 4;
+  // about 8 blocks of 256 threads per SM over all workers
+  long long want = ((long long)sms * 8 + q - 1) / q;
+  long long need = (groups + kThreads - 1) / kThreads;
+  const unsigned bx = (unsigned)(need < want ? need : want);
+  const dim3 grid(bx > 0 ? bx : 1, (unsigned)q);
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* kp = static_cast<const uint32_t*>(keys);
+  auto* cp = static_cast<unsigned long long*>(counts);
+  if (vec)
+    random_mask_kernel<true><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), kp, static_cast<float*>(out), cp,
+        (int64_t)n, (uint64_t)offset, p, scale);
+  else
+    random_mask_kernel<false><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), kp, static_cast<float*>(out), cp,
+        (int64_t)n, (uint64_t)offset, p, scale);
+  return (int)cudaGetLastError();
+}

@@ -13,20 +13,33 @@ dimension.  A layer's aggregation is
   offset out of its boundary block, and each receiver reads its hops out
   of a compact halo buffer.
 
-Wires: ``"p2p"`` carries every policy — ``full``/``none``, the
-scalar-rate open-loop policies (``fixed``/``varco``: each sender packs its
-boundary block to the kept 128-lane blocks with ``varco_pack`` and the
-receiver scatters them back with ``varco_unpack``) and the closed-loop
-per-pair ``[Q, Q]`` rate and width maps (nested kept sets carved out by
-column masks; quantised pairs through the fused ``varco_pack_quant`` /
-``varco_unpack_quant`` hop when every pair quantises, with optional
-error-feedback residuals).  ``"dense"`` (the all-gather of the boundary
-blocks) runs uncompressed only: it is the evaluation wire.
+Wires:
+
+* ``"dense"`` — the JAX package's default: every worker publishes its
+  whole ``[B, F]`` boundary block, compressed by the policy's compressor
+  (``repro_torch.core.compression``; the paper's ``randmask`` by default,
+  its mask drawn on the card by the ``random_mask`` kernel), and the
+  all-gather is a reshape to the ``[Q·B, F]`` halo; compression shrinks
+  the ledger, not the buffer.  The local and remote edges aggregate by
+  edge-list scatters, as the JAX package does.  It is also the
+  evaluation wire.
+* ``"packed"`` — the all-gather of the kept 128-lane blocks only
+  (``varco_pack`` → ship → ``varco_unpack``), the same per-worker keys
+  as ``blockmask``, so its halo is bitwise the dense ``blockmask`` halo
+  (the JAX package's module note); scalar rates only here.
+* ``"p2p"`` carries every policy — ``full``/``none``, the scalar-rate
+  open-loop policies (``fixed``/``varco``: each sender packs its
+  boundary block to the kept 128-lane blocks with ``varco_pack`` and the
+  receiver scatters them back with ``varco_unpack``) and the closed-loop
+  per-pair ``[Q, Q]`` rate and width maps (nested kept sets carved out by
+  column masks; quantised pairs through the fused ``varco_pack_quant`` /
+  ``varco_unpack_quant`` hop when every pair quantises, with optional
+  error-feedback residuals).
 
 Mask indices and the per-pair bookkeeping (kept counts, column masks,
 ledger rows) are tiny and computed on the host with the JAX package's key
-stream (``repro_torch.prng``); the ``[Q, P, F]`` activations stay on the
-device.
+stream (``repro_torch.prng``); the ``[Q, P, F]`` activations and the
+element masks stay on the device.
 """
 
 from __future__ import annotations
@@ -50,7 +63,7 @@ from repro_torch.nn.gnn import (GNNConfig, gnn_forward,
 from repro_torch.train.optim import (Optimizer, apply_updates, tree_leaves,
                                      tree_map)
 
-WIRES = ("dense", "p2p")
+WIRES = ("dense", "packed", "p2p")
 _F32 = torch.float32
 
 
@@ -87,13 +100,18 @@ class DistMeta:
     pair_rows: tuple = ()
 
     def __post_init__(self):
-        if self.wire == "packed":
-            raise NotImplementedError(
-                "the packed all-gather wire is not ported (ROADMAP queue 1)"
-                "; the port runs wire='p2p' (and 'dense' uncompressed)")
         if self.wire not in WIRES:
             raise ValueError(f"wire must be one of {WIRES}, got "
                              f"{self.wire!r}")
+        if self.wire == "packed":
+            # exchanges happen at each layer's input width (layer_dims)
+            for f in {self.feat_dim, *self.layer_dims}:
+                if f % LANE:
+                    raise ValueError(
+                        f"packed wire needs every exchanged feature width "
+                        f"divisible by {LANE}, got {f} (exchanged widths: "
+                        f"{sorted({self.feat_dim, *self.layer_dims})}); "
+                        f"use wire='dense' for off-lane-grid models")
 
     @staticmethod
     def build(pg, params: dict, wire: str = "p2p") -> "DistMeta":
@@ -105,11 +123,12 @@ class DistMeta:
                 dims.append(int(layer["taps"][0]["w"].shape[0]))
         hop_w = compact = 0
         pair_rows: tuple = ()
-        if wire == "p2p":
+        if wire != "dense":            # the per-pair facts, as JAX keeps
             from repro_torch.dist.halo import build_halo_spec
             spec = build_halo_spec(pg)
-            hop_w, compact = spec.hop_width, spec.compact_rows
             pair_rows = spec.pair_rows
+            if wire == "p2p":
+                hop_w, compact = spec.hop_width, spec.compact_rows
         return DistMeta(
             q=pg.q, part_size=pg.part_size, halo_size=pg.halo_size,
             num_nodes=pg.num_nodes, feat_dim=pg.feat_dim,
@@ -141,9 +160,11 @@ class DistMeta:
         return max(int(feat // LANE / max(float(rate), 1.0)), 1) * LANE
 
     def _wire_width(self, feat: int, rate: float) -> int:
-        """On-wire column count at ``rate``: dense rows uncompressed, the
-        kept lane-blocks on a compressing p2p exchange."""
-        if self.wire == "p2p" and float(rate) > 1.0:
+        """On-wire column count at ``rate``: the full rows on the dense
+        wire (zeros travel too), the kept lane-blocks on the packed wire
+        and on a compressing p2p exchange."""
+        if self.wire == "packed" or (self.wire == "p2p" and
+                                     float(rate) > 1.0):
             return self.packed_width(feat, rate)
         return feat
 
@@ -429,15 +450,26 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     The oracle carries the split-phase API: ``start(li, x) -> (token,
     bits)`` packs and ships, ``complete(li, x, token)`` runs the local
     aggregation and folds in the delivered halo.
+
+    On the dense wire a compressing policy compresses each worker's
+    published block with its compressor under ``fold_in(fold_in(key,
+    call), worker)`` (the JAX package's ``vmap`` of the compressor, here
+    one batched call); on the packed wire every worker ships its
+    ``packed_k`` kept blocks through ``wire_pack``/``wire_unpack`` under
+    the same keys.
     """
     p2p = meta.wire == "p2p"
+    packed_wire = meta.wire == "packed"
+    if rate_map is not None and packed_wire:
+        raise NotImplementedError(
+            "per-pair rate maps on the packed wire are not ported yet "
+            "(ROADMAP queue 1: auto policies on the packed wire); use "
+            "wire='p2p'")
     if rate_map is not None and not p2p:
         raise ValueError("per-pair rate maps need wire='p2p'; the dense "
                          "wire keeps the scalar path")
-    if policy.compresses and not p2p:
-        raise NotImplementedError(
-            "the dense compressing wire is not ported (ROADMAP queue 1); "
-            "compressing policies run on wire='p2p'")
+    compressor = policy.compressor() if policy.compresses and \
+        meta.wire == "dense" else None
     if width_map is not None and rate_map is None:
         raise ValueError("per-pair width maps ride the rate-map wire; pass "
                          "rate_map alongside width_map")
@@ -566,9 +598,22 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             return None, torch.zeros((2,), dtype=_F32, device=dev)
         publish = _rows_of(x, graph["send_idx"], p_sz) * \
             graph["send_valid"][..., None]             # [Q, B, F]
-        if not p2p:                                    # dense all-gather
+        if not p2p:                   # the all-gather wires: a reshape
+            wire_width = None
+            if packed_wire:
+                n_keep = _keep_of(f, rate, packed_k)
+                wire_width = n_keep * LANE
+                kept, inv = worker_block_maps(prng.fold_in(key, call), q,
+                                              f // LANE, n_keep)
+                kept_t, inv_t = to_dev(kept), to_dev(inv)
+                publish = wire_unpack(wire_pack(publish, kept_t, inv_t),
+                                      inv_t, kept_t)
+            elif compressor is not None:
+                k_call = prng.fold_in(key, call)
+                keys = np.stack([prng.fold_in(k_call, j) for j in range(q)])
+                publish = compressor.batched(keys, publish, rate)[0]
             return publish.reshape(q * b_sz, f), \
-                _exchange_bits(meta, f, rate).to(dev)
+                _exchange_bits(meta, f, rate, wire_width).to(dev)
         if rate_map is not None:
             sent, bits = start_rate_map(li, publish, call)
         else:
@@ -688,10 +733,13 @@ def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
     """One full-batch step of Algorithm 1 on the emulated backend.
 
     ``step(params, opt_state, graph, step_idx, key) -> (params, opt_state,
-    {loss, rate, halo_bits, transport_bits})``.  The schedule's rate is
-    quantised to the static kept-block counts on the host
-    (:func:`_packed_k_for`); a compressing policy on the p2p wire must use
-    the ``blockmask`` compressor, which the pack/unpack kernels realise.
+    {loss, rate, halo_bits, transport_bits})``.  On the dense wire a
+    compressing policy runs its compressor (any of
+    ``repro_torch.core.compression``'s).  On the packed wire, and under
+    compression on the p2p wire, the schedule's rate is quantised to the
+    static kept-block counts on the host (:func:`_packed_k_for`), and a
+    compressing policy must use the ``blockmask`` compressor, which the
+    pack/unpack kernels realise.
 
     Example::
 
@@ -712,23 +760,23 @@ def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
             "step with repro_torch.dist.ratectl.make_auto_train_step "
             "(train_gnn routes there automatically)")
     p2p = meta.wire == "p2p"
-    if policy.compresses and not p2p:
-        raise NotImplementedError(
-            "the dense compressing wire is not ported (ROADMAP queue 1); "
-            "run compressing policies with wire='p2p'")
+    packed_wire = meta.wire == "packed"
+    if (packed_wire or p2p) and policy.compresses and \
+            policy.compressor_name != "blockmask":
+        raise ValueError(
+            f"the {meta.wire} wire ships PRNG-selected lane-blocks; a "
+            f"compressing policy must use the 'blockmask' compressor, got "
+            f"{policy.compressor_name!r}")
     if p2p and policy.compresses:
-        if policy.compressor_name != "blockmask":
-            raise ValueError(
-                f"the p2p wire ships PRNG-selected lane-blocks; a "
-                f"compressing policy must use the 'blockmask' compressor, "
-                f"got {policy.compressor_name!r}")
         for f_ in {meta.feat_dim, *meta.layer_dims}:
             if f_ % LANE:
                 raise ValueError(
                     f"the p2p wire packs lane-blocks under a compressing "
                     f"policy, so every exchanged width must be divisible "
                     f"by {LANE}; got {f_}")
-    needs_kb = p2p and policy.compresses
+    # a static kept-block map wherever the payload's width follows the
+    # rate: always on the packed wire, under compression on p2p
+    needs_kb = packed_wire or (p2p and policy.compresses)
 
     def step(params, opt_state, graph, step_idx, key):
         rate = policy.rate(step_idx)

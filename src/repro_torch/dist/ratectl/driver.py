@@ -154,6 +154,11 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     if mesh is not None:
         raise NotImplementedError(
             "the shard_map backend is not ported (ROADMAP queue 1)")
+    if meta.wire == "packed":
+        raise NotImplementedError(
+            "auto policies on the packed wire (per-sender rate and width "
+            "maps) are not ported yet (ROADMAP queue 1: auto policies on "
+            "the packed wire); use wire='p2p'")
     if meta.wire != "p2p":
         raise ValueError(f"per-pair rate maps need wire='p2p', got "
                          f"{meta.wire!r}")

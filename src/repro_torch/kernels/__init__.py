@@ -8,6 +8,9 @@ PyTorch version and a launch counter:
   (``csrc/varco_pack.cu``), each the other's VJP
 * ``varco_pack_quant`` — the fused quantised-wire codecs
   (``csrc/varco_pack_quant.cu``)
+* ``randmask``         — the paper's shared-key random element mask of
+  the dense compressing wire (``csrc/randmask.cu``; no TPU kernel: the
+  JAX package leaves it to XLA)
 * ``flash_attention``  — causal / sliding-window GQA attention of the LM
   prefill: a tensor-core kernel for bf16 at head dims 64/128/256
   (``csrc/flash_attention_wgmma.cu``) and a CUDA-core one for f32 and

@@ -24,8 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the package, by library name
-SOURCES = ("ell_spmm", "varco_pack", "varco_pack_quant", "flash_attention",
-           "flash_attention_wgmma", "ssd_chunk")
+SOURCES = ("ell_spmm", "varco_pack", "varco_pack_quant", "randmask",
+           "flash_attention", "flash_attention_wgmma", "ssd_chunk")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -39,8 +39,9 @@ indices as in the Pallas kernel and ``chunked_sdpa``.  Under positions
 the mask need not be lower-triangular in index (left padding repeats a
 position), so index-based tile skipping would be wrong: the wrapper
 computes, per query tile, the key range outside which the tiles' position
-extremes prove every key masked (:func:`position_key_ranges`), and the
-kernel walks that range with the mask on every tile.  This is a
+extremes prove every key masked, and the run of tiles inside it that
+they prove wholly unmasked (:func:`position_key_ranges`); the kernel
+walks the range and masks by position the tiles outside that run.  This is a
 dispatch, not a fallback: a failed build or launch of either raises.
 
 Layout: the public function keeps the JAX layout ``[B, H, S, D]``, but
@@ -135,13 +136,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def position_key_ranges(q_pos: torch.Tensor, k_pos: torch.Tensor,
                         causal: bool, window: int, q_tile: int,
                         key_tile: int) -> torch.Tensor:
-    """int32 ``[B, ceil(S / q_tile), 2]``: for each query tile, the key
+    """int32 ``[B, ceil(S / q_tile), 4]``: for each query tile, the key
     range ``[lo, hi)`` (``lo`` a multiple of ``key_tile``) outside which
-    every key is masked for every query of the tile.  A key tile is left
-    out only when its position extremes prove it: ``min k_pos > max
-    q_pos`` (causal) or ``max k_pos <= min q_pos − window``.  Tiles inside
-    the range may still be masked; the kernel masks every key by
-    position.  A tile with no live key gets one key tile, all masked."""
+    every key is masked for every query of the tile, and inside it the
+    run of whole key tiles ``[full_lo, full_hi)`` in which no key is
+    masked for any query of the tile (empty when ``full_lo == full_hi``).
+    Both follow from the tiles' position extremes: a key tile is left out
+    when ``min k_pos > max q_pos`` (causal) or ``max k_pos <= min q_pos −
+    window``; it is whole when ``max k_pos <= min q_pos`` (causal), ``min
+    k_pos > max q_pos − window`` and it ends inside ``S``.  The kernels
+    walk ``[lo, hi)`` and mask by position the tiles outside the whole
+    run.  A query tile with no live key gets one key tile, all masked."""
     b, s = q_pos.shape
     big = 1 << 40
 
@@ -156,20 +161,46 @@ def position_key_ranges(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
     q_min, q_max, _ = extremes(q_pos, q_tile)
     k_min, k_max, nk = extremes(k_pos, key_tile)
-    live = torch.ones((b, q_min.shape[1], nk), dtype=torch.bool,
-                      device=q_pos.device)
+    shape = (b, q_min.shape[1], nk)
+    live = torch.ones(shape, dtype=torch.bool, device=q_pos.device)
+    t = torch.arange(nk, device=q_pos.device)
+    whole = ((t + 1) * key_tile <= s).expand(shape).clone()
     if causal:
         live &= k_min[:, None, :] <= q_max[:, :, None]
+        whole &= k_max[:, None, :] <= q_min[:, :, None]
     if window > 0:
         live &= k_max[:, None, :] > q_min[:, :, None] - window
-    t = torch.arange(nk, device=q_pos.device)
+        whole &= k_min[:, None, :] > q_max[:, :, None] - window
     lo = torch.where(live, t, nk).amin(-1)
     hi = torch.where(live, t + 1, 0).amax(-1)
     empty = hi <= lo
     lo = torch.where(empty, 0, lo)
     hi = torch.where(empty, 1, hi)
-    return torch.stack([lo * key_tile, (hi * key_tile).clamp(max=s)],
+    # the first run of whole tiles (inside [lo, hi): whole tiles are live)
+    f_lo = torch.where(whole, t, nk).amin(-1)
+    f_hi = torch.where(~whole & (t >= f_lo[..., None]), t, nk).amin(-1)
+    none = f_lo >= nk
+    f_lo = torch.where(none, 0, f_lo)
+    f_hi = torch.where(none, 0, f_hi)
+    return torch.stack([lo * key_tile, (hi * key_tile).clamp(max=s),
+                        f_lo * key_tile, f_hi * key_tile],
                        -1).to(torch.int32).contiguous()
+
+
+def _key_ranges(q_pos, k_pos, causal, window, q_tile, key_tile):
+    """:func:`position_key_ranges`, computed once per positions tensor:
+    the table rides on ``q_pos`` (keyed by ``k_pos``, both tensors'
+    versions, the mask and the tiles), so a prefill that hands the same
+    positions to every layer builds it once rather than in each of them
+    (a few dozen small launches a call)."""
+    key = (k_pos.data_ptr(), q_pos._version, k_pos._version, bool(causal),
+           int(window), q_tile, key_tile)
+    memo = getattr(q_pos, "_flash_key_ranges", None)
+    if memo is None or memo[0] != key:
+        memo = (key, position_key_ranges(q_pos, k_pos, causal, window,
+                                         q_tile, key_tile))
+        q_pos._flash_key_ranges = memo
+    return memo[1]
 
 
 def _check(q, k, v):
@@ -252,7 +283,7 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)                  # q's strides
     if out.numel() == 0:
         return out
-    ranges = None if q_pos is None else position_key_ranges(
+    ranges = None if q_pos is None else _key_ranges(
         q_pos, k_pos, causal, window, SIMT_TILE, SIMT_TILE)
     lib = _build.library("flash_attention", _FUNCS)
     args = _launch_args(q, k, v, out, causal, window, q_pos, k_pos, ranges)
@@ -289,7 +320,7 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)                  # q's strides
     if out.numel() == 0:
         return out
-    ranges = None if q_pos is None else position_key_ranges(
+    ranges = None if q_pos is None else _key_ranges(
         q_pos, k_pos, causal, window, WGMMA_Q_TILE, WGMMA_KEY_TILE[d])
     lib = _build.library("flash_attention_wgmma", _WGMMA_FUNCS)
     _build.check(lib.flash_attention_wgmma_fwd(

@@ -13,6 +13,10 @@ version and no global backend switch — the tensor decides.
 * :func:`pack_quant` / :func:`unpack_quant` — the fused quantised-wire
   codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels), and
   :func:`quant_hop`, the straight-through sub-byte hop built from them;
+* :func:`random_mask` — the paper's shared-key Bernoulli element mask of
+  the dense compressing wire (``random_mask`` kernel), differentiable: its
+  backward is the same kernel on the cotangent (the mask depends only on
+  the key and the index, so nothing is saved);
 * :func:`mha` — flash attention of the LM prefill (``flash_attention``
   kernel; index or position masks), and :func:`ssd_chunk` — the Mamba2 intra-chunk form
   (``ssd_chunk`` kernel); forward only, as in the JAX package;
@@ -34,6 +38,8 @@ import torch
 from . import ref
 from .ell_spmm import ell_spmm, ell_spmm_plain
 from .flash_attention import flash_attention, flash_attention_plain
+from .randmask import random_mask as random_mask_kernel
+from .randmask import random_mask_plain
 from .ssd_chunk import ssd_chunk as ssd_chunk_kernel
 from .ssd_chunk import ssd_chunk_plain
 from .varco_pack import (LANE, varco_pack, varco_pack_plain,
@@ -180,6 +186,39 @@ def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     return _EllAggregate.apply(x, nbr, w,
                                empty if rnbr is None else rnbr,
                                empty if rslot is None else rslot)
+
+
+class _RandomMask(torch.autograd.Function):
+    """``random_mask`` forward; the same kernel on the cotangent backward
+    (``d(where(mask, x·scale, 0)) = where(mask, g·scale, 0)``)."""
+
+    @staticmethod
+    def forward(ctx, x, keys, p, scale, offset):
+        ctx.save_for_backward(keys)
+        ctx.args = (p, scale, offset)
+        out, counts = _route(random_mask_kernel, random_mask_plain,
+                             x.contiguous(), keys, p, scale, offset, True)
+        ctx.mark_non_differentiable(counts)
+        return out, counts
+
+    @staticmethod
+    def backward(ctx, g, _g_counts):
+        keys, = ctx.saved_tensors
+        dx, _ = _route(random_mask_kernel, random_mask_plain,
+                       g.contiguous(), keys, *ctx.args, False)
+        return dx, None, None, None, None
+
+
+def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float,
+                scale: float = 1.0, offset: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's random element mask over workers: x ``[Q, ...]`` f32,
+    keys int32 ``[Q, 2]`` (uint32 bits; ``randmask.keys_tensor``), ``p``
+    and ``scale`` float32 values -> ``(where(mask, x·scale, 0), kept
+    counts int64 [Q])`` with worker ``q``'s mask bitwise
+    ``jax.random.bernoulli(keys[q], p, x.shape[1:])``; ``offset`` shifts
+    every counter.  Differentiable in ``x``."""
+    return _RandomMask.apply(x, keys, p, scale, offset)
 
 
 # ---------------------------------------------------------------------------

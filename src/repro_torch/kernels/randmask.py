@@ -1,0 +1,106 @@
+"""The paper's random element mask on Hopper — the dense compressing wire.
+
+The paper's compression keeps each element of a worker's boundary block
+independently with probability ``1/rate``; the receiver shares the key a
+priori, so no index travels (``repro/core/compression.py::
+_random_mask``).  The JAX package draws the mask with
+``jax.random.bernoulli`` and leaves it to XLA: there is no Pallas kernel
+for it.  Here it is one hand-written CUDA kernel (``csrc/randmask.cu``),
+because the mask is one 20-round Threefry hash per activation — 45M per
+exchange at the paper's width — and a plain PyTorch version spends over a
+hundred elementwise int64 passes on it.
+
+:func:`random_mask` — x ``[Q, N]`` f32 (a worker's ``[B, F]`` block
+flattened, or any trailing shape), per-worker keys ``[Q, 2]`` -> ``where(
+mask, x · scale, 0)`` with ``mask[q, i] = uniform(keys[q], i + offset) <
+p``, bitwise ``jax.random.bernoulli(keys[q], p, block_shape)`` vmapped
+over workers; optionally each worker's kept count.  Bound about equally
+by bytes (8 an element) and integer operations (76 a hash at the SM's
+issue ceiling): a thread hashes 4 consecutive elements between one
+float4 load and store, a block serves one worker.
+
+Beside the kernel: its plain version :func:`random_mask_plain` (the key
+stream of ``repro_torch.prng.random_bits_torch``; what CPU tensors run)
+and the launch counter ``random_mask.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels import _build
+
+_FUNCS = {
+    "random_mask_f32": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 +
+    [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def keys_tensor(keys, device) -> torch.Tensor:
+    """``[Q, 2]`` uint32 keys (numpy) as the int32 tensor the kernel
+    reads as uint32."""
+    k = np.ascontiguousarray(np.asarray(keys, np.uint32).reshape(-1, 2))
+    return torch.from_numpy(k.view(np.int32).copy()).to(device)
+
+
+def _uint32(keys: torch.Tensor) -> np.ndarray:
+    return keys.cpu().numpy().astype(np.int32).view(np.uint32)
+
+
+def random_mask_plain(x: torch.Tensor, keys: torch.Tensor, p: float,
+                      scale: float, offset: int = 0,
+                      count: bool = False):
+    """x ``[Q, ...]`` f32, keys int32 ``[Q, 2]`` (uint32 bits) -> ``(out,
+    counts int64 [Q] or None)``: the kernel's function in PyTorch."""
+    q = x.shape[0]
+    bits = prng.random_bits_torch(_uint32(keys), tuple(x.shape[1:]),
+                                  x.device, offset)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    mask = u < torch.tensor(p, dtype=torch.float32, device=x.device)
+    out = torch.where(mask, x * torch.tensor(scale, dtype=torch.float32,
+                                             device=x.device),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    counts = mask.reshape(q, -1).sum(-1) if count else None
+    return out, counts
+
+
+def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float, scale: float,
+                offset: int = 0, count: bool = False):
+    """CUDA random mask: x ``[Q, ...]`` f32 contiguous, keys int32 ``[Q,
+    2]`` on the same card -> ``(out, counts int64 [Q] or None)``."""
+    if x.dtype != torch.float32 or keys.dtype != torch.int32:
+        raise TypeError(f"random_mask needs f32 x and int32 keys, got "
+                        f"{x.dtype}, {keys.dtype}")
+    if x.dim() < 1 or tuple(keys.shape) != (x.shape[0], 2):
+        raise ValueError(f"random_mask needs x [Q, ...] and keys [Q, 2], "
+                         f"got {tuple(x.shape)}, {tuple(keys.shape)}")
+    for arg, t in (("x", x), ("keys", keys)):
+        if not t.is_cuda:
+            raise ValueError(f"random_mask: {arg} must be a CUDA tensor, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"random_mask: {arg} must be contiguous")
+    if keys.device != x.device:
+        raise ValueError("random_mask: tensors on different devices")
+    if not 0 <= offset < 2 ** 63:
+        raise ValueError(f"random_mask: offset {offset} out of range")
+    q = x.shape[0]
+    n = x.numel() // max(q, 1)
+    out = torch.empty_like(x)
+    counts = torch.zeros((q,), dtype=torch.int64, device=x.device) \
+        if count else None
+    lib = _build.library("randmask", _FUNCS)
+    _build.check(lib.random_mask_f32(
+        x.data_ptr(), keys.data_ptr(), out.data_ptr(),
+        counts.data_ptr() if count else None, q, n, offset, float(p),
+        float(scale), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream), "random_mask")
+    random_mask.launches += 1
+    return out, counts
+
+
+random_mask.launches = 0

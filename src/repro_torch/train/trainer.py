@@ -138,12 +138,22 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     ``g`` is a host ``GraphData``, or a ``PartitionedGraph`` already cut
     (then ``q`` and ``scheme`` come with it and the partitioner does not
     run again).  Mirrors the paper's §V setup by default: 3-layer SAGE,
-    256 hidden, full batch.  ``wire="p2p"`` runs the neighbour-only halo
-    wire with the ELL local aggregation; compressing policies need it
-    (with the ``blockmask`` compressor), and auto policies default to it.
-    ``params`` (a parameter tree, e.g. ``params_from_jax`` of the JAX
-    package's ``init_gnn``) replaces the seeded initialisation, which
-    draws from a CPU ``torch.Generator(seed)``.
+    256 hidden, full batch, and the JAX package's default wire,
+    ``"dense"``: each worker's boundary block compressed by the policy's
+    compressor (the paper's ``randmask`` unless the policy names another)
+    and all-gathered.  ``wire="packed"`` ships only the kept 128-lane
+    blocks (feature widths multiples of 128, compressing policies with
+    the ``blockmask`` compressor); ``wire="p2p"`` the neighbour-only halo
+    wire with the ELL local aggregation (same constraints under
+    compression), to which auto policies default.  ``params`` (a
+    parameter tree, e.g. ``params_from_jax`` of the JAX package's
+    ``init_gnn``) replaces the seeded initialisation, which draws from a
+    CPU ``torch.Generator(seed)``.
+
+    The paper's comparison (the JAX package's quickstart) on the CPU::
+
+        for pol in (FULL_COMM, fixed(4.0), varco(300, slope=5)):
+            res = train_gnn(g, q=4, policy=pol, epochs=300, device="cpu")
 
     ``auto:<controller>:<budget-bits>[:w<width>][:per-layer]`` closes the
     loop: the controller (``budget`` or ``qos``) plans a per-pair rate
@@ -153,8 +163,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     Not ported (raise ``NotImplementedError``): ``use_shard_map``,
     ``faults``, checkpointing (``checkpoint_dir``/``resume``/
     ``stop_after``), shard directories, the ``error``/``stale``
-    controllers.  The quantised wire rounds half to even (the JAX
-    package's default off the TPU).
+    controllers, auto policies on the packed wire.  The quantised wire
+    rounds half to even (the JAX package's default off the TPU).
     """
     _not_ported(use_shard_map=(use_shard_map, "queue 1: shard_map backend"),
                 faults=(faults is not None, "queue 1: fault channels"),

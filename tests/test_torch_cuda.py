@@ -16,7 +16,9 @@ ulp of the rounded output, relative 2^-8, where the two f32 sums straddle
 a rounding edge; the tensor-core kernel also rounds P to bf16, about one
 more ulp of the output), with a check of which of its two kernels ran;
 the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
-to Q·N products in another order).  Flash attention with explicit
+to Q·N products in another order).  The dense wire's random mask
+bitwise (a hash and one multiply per element), its VJP bitwise, and one
+dense ``varco`` step on the card against the CPU within 1e-4.  Flash attention with explicit
 positions (shifted and left-padded prompts) on both kernels, under the
 same tolerances.
 """
@@ -313,6 +315,123 @@ def test_cuda_quant_hop_forward_and_backward(cuda_device):
         lambda a, k, i, qm: tops.quant_hop(a, k, i, qm, 8),
         [torch.from_numpy(a) for a in (x, kept, inv, qmax)], cuda_device, 4)
     assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+
+
+# ---------------------------------------------------------------------------
+# The dense wire's random element mask
+# ---------------------------------------------------------------------------
+
+
+def _mask_keys(q, seed):
+    from repro_torch import prng
+    from repro_torch.kernels.randmask import keys_tensor
+
+    k = prng.fold_in(prng.key(seed), 3)
+    return keys_tensor(np.stack([prng.fold_in(k, j) for j in range(q)]),
+                       "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,b,f", [(4, 1000, 256), (4, 1000, 128),
+                                   (3, 77, 42), (1, 1, 1)])
+@pytest.mark.parametrize("rate,unbiased", [(2.0, False), (4.0, True),
+                                           (5.3, False), (1.0, False)])
+def test_cuda_random_mask_matches_plain(cuda_device, q, b, f, rate,
+                                        unbiased):
+    """Mask, output and kept counts bitwise, on the float4 path (F % 4
+    == 0) and the scalar one, with the launch counted once."""
+    from repro_torch.kernels import randmask as trm
+
+    x = torch.from_numpy(np.random.default_rng(b + f).normal(
+        size=(q, b, f)).astype(np.float32))
+    keys = _mask_keys(q, b)
+    p = float(np.float32(1.0) / np.float32(rate))
+    scale = float(np.float32(rate)) if unbiased else 1.0
+    before = trm.random_mask.launches
+    out, counts = trm.random_mask(x.to(cuda_device), keys.to(cuda_device),
+                                  p, scale, count=True)
+    torch.cuda.synchronize()
+    assert trm.random_mask.launches == before + 1
+    ref, ref_counts = trm.random_mask_plain(x, keys, p, scale, count=True)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(counts.cpu(), ref_counts)
+
+
+@pytest.mark.cuda
+def test_cuda_random_mask_counter_past_2_32(cuda_device):
+    """A block of more than 2^32 elements, reached by the counter offset:
+    the high counter word carries on the card as in the plain version."""
+    from repro_torch.kernels import randmask as trm
+
+    x = torch.ones((2, 4096), device=cuda_device)
+    keys = _mask_keys(2, 1).to(cuda_device)
+    off = 2 ** 32 - 2048
+    out, counts = trm.random_mask(x, keys, 0.5, 1.0, offset=off, count=True)
+    ref, ref_counts = trm.random_mask_plain(x.cpu(), keys.cpu(), 0.5, 1.0,
+                                            offset=off, count=True)
+    assert torch.equal(out.cpu(), ref) and torch.equal(counts.cpu(),
+                                                       ref_counts)
+    lo, _ = trm.random_mask_plain(x.cpu(), keys.cpu(), 0.5, 1.0)
+    assert not torch.equal(ref, lo)       # the offset moved the stream
+
+
+@pytest.mark.cuda
+def test_cuda_random_mask_vjp(cuda_device):
+    """The backward is the same kernel on the cotangent: bitwise the
+    plain version's autograd, and the launch count moves by two."""
+    from repro_torch.kernels import randmask as trm
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 300, 256)).astype(np.float32))
+    keys = _mask_keys(4, 9)
+    args = (keys, float(np.float32(0.25)), 4.0)
+    before = trm.random_mask.launches
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, k: tops.random_mask(a, k, *args[1:])[0],
+        [x, keys], cuda_device, 5)
+    assert trm.random_mask.launches == before + 2
+    assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_varco_step_matches_cpu(cuda_device):
+    """One dense-wire ``varco:linear:5`` step (the paper's random mask) on
+    the card against the same step on the CPU, within 1e-4 (atomic
+    scatters and FMA contraction reorder f32 sums), the mask kernel
+    launched 5 times (3 forward exchanges, 2 cotangents: the raw
+    features need none)."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as tgp
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.kernels import randmask as trm
+    from repro_torch.nn.gnn import GNNConfig, init_gnn, params_to
+    from repro_torch.train.optim import sgd, tree_leaves
+
+    g = tiny_graph(n=512, feat_dim=128)
+    cfg = GNNConfig(in_dim=128, hidden=256, out_dim=g.num_classes, layers=3)
+    pg = partition_graph(g, 4, seed=0)
+    pol = CommPolicy.parse("varco:linear:5", 100)
+    init = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    results = []
+    for dev in ("cpu", cuda_device):
+        params = params_to(init, dev)
+        meta = tgp.DistMeta.build(pg, params, wire="dense")
+        opt = sgd(0.1, momentum=0.9)
+        step = tgp.make_train_step(cfg, pol, opt, meta)
+        before = trm.random_mask.launches
+        new, _, m = step(params, opt.init(params), pg.device_arrays(dev), 3,
+                         prng.key(3))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert trm.random_mask.launches == before + 5
+        results.append((new, m))
+    (pc, mc), (pg_, mg) = results
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-4
+    assert float(mc["halo_bits"]) == float(mg["halo_bits"])
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg_)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -513,7 +513,9 @@ def test_position_key_ranges_cover_every_live_key(s, q_tile, key_tile,
                                                   window):
     """The key range the kernels walk per query tile holds every key the
     position mask keeps for any query of the tile, starts on a key-tile
-    boundary and leaves out whole tiles only."""
+    boundary and leaves out whole tiles only; the run of tiles the
+    kernels leave unmasked lies inside it, in whole tiles within S, and
+    the mask keeps every key of it for every query of the tile."""
     from repro_torch.kernels.flash_attention import (attention_mask,
                                                      position_key_ranges)
 
@@ -522,15 +524,24 @@ def test_position_key_ranges_cover_every_live_key(s, q_tile, key_tile,
     ranges = position_key_ranges(pos, pos, True, window, q_tile, key_tile)
     n_qt = -(-s // q_tile)
     assert ranges.dtype == torch.int32 and \
-        tuple(ranges.shape) == (3, n_qt, 2)
+        tuple(ranges.shape) == (3, n_qt, 4)
     mask = attention_mask(s, True, window, "cpu", pos, pos)   # [B, S, S]
     keys = torch.arange(s)
+    runs = 0
     for bi in range(3):
         for t in range(n_qt):
-            lo, hi = (int(x) for x in ranges[bi, t])
+            lo, hi, f_lo, f_hi = (int(x) for x in ranges[bi, t])
             assert lo % key_tile == 0 and 0 <= lo < hi <= s
-            live = mask[bi, t * q_tile:(t + 1) * q_tile].any(0)
-            assert bool(((keys >= lo) & (keys < hi))[live].all())
+            rows = mask[bi, t * q_tile:(t + 1) * q_tile]
+            assert bool(((keys >= lo) & (keys < hi))[rows.any(0)].all())
+            assert f_lo % key_tile == 0 and f_hi % key_tile == 0
+            if f_hi > f_lo:
+                runs += 1
+                assert lo <= f_lo and f_hi <= hi
+                assert bool(rows[:, f_lo:f_hi].all())
+            else:
+                assert f_lo == f_hi == 0
+    assert runs > 0 or s < 2 * key_tile      # no whole tile fits
     # arange positions give the index walk's causal ranges
     ar = torch.arange(s, dtype=torch.int32).expand(2, s).contiguous()
     r = position_key_ranges(ar, ar, True, 0, q_tile, key_tile)
@@ -538,3 +549,6 @@ def test_position_key_ranges_cover_every_live_key(s, q_tile, key_tile,
     assert bool((r[..., 0] == 0).all())
     assert torch.equal(r[0, :, 1].long(), torch.clamp(
         (q_last // key_tile + 1) * key_tile, max=s))
+    # the whole tiles: those wholly at or below the query tile's first row
+    q0 = torch.arange(n_qt) * q_tile
+    assert torch.equal(r[0, :, 3].long(), (q0 + 1) // key_tile * key_tile)

@@ -253,9 +253,10 @@ def test_port_steps_refuse_unported_options(setup):
         with pytest.raises(NotImplementedError):
             trc.make_controller(CommPolicy.parse(f"auto:{ctl}:1e9", 4),
                                 s["meta_t"], s["ct"], 4)
+    # the dense compressing wire is ported now: the same call builds a
+    # step (its parity with the JAX package: tests/test_torch_dense_wire.py)
     dense = tgp.DistMeta.build(partition_graph(tiny_graph(n=64, feat_dim=F),
                                                2), _port(s["pj"]),
                                wire="dense")
-    with pytest.raises(NotImplementedError):
-        tgp.make_train_step(s["ct"], CommPolicy.parse(
-            "fixed:2", 1, compressor="blockmask"), toptim.sgd(0.1), dense)
+    assert callable(tgp.make_train_step(s["ct"], CommPolicy.parse(
+        "fixed:2", 1, compressor="blockmask"), toptim.sgd(0.1), dense))
