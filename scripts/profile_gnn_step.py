@@ -8,26 +8,26 @@
     python3 scripts/profile_gnn_step.py --wires dense  # one wire only
 
 Builds ``chip_smoke.py``'s workload: ``citation_graph(n=169_343,
-feat_dim=128)`` cut ``metis-like`` into Q = 4 partitions on one card, and
-GraphSAGE at the paper's width (128 -> 256 -> 40, 3 layers) with seeded
-weights, served by a ``ServingEngine``.  For each training run of the
-chosen wires — p2p: ``full``, ``varco:linear:5`` and ``auto:budget:<half
-the full-rate transport>:w8`` (``blockmask``); dense: ``full``,
-``fixed:4`` and ``varco:linear:5`` (the paper's ``randmask``); packed:
-``varco:linear:5`` (``blockmask``) — it sets up the step as
-``train_gnn`` does (AdamW), runs two untraced steps (kernel build,
-allocator warm-up), then traces the third; then it traces one warm
-cold-start refresh of the
-serving engine (``refresh(force=True)`` after an untraced one).  For each
-traced item it prints one JSON line: the host-clock wall time (ending in
-a device sync), the device time summed over every kernel (self time),
-the device's idle share of the wall time (an upper bound: the profiler's
-host cost inflates the wall time), the number of kernels launched, the
-port's kernel launch counters, the shares of ``ell_spmm``'s and
-``random_mask``'s kernels, and the kernels with the most device time.  The card's name and power limit
-go on the first line.  If the trace holds no device time it falls back
-to CUDA events around the step (device time then is not split by
-kernel).  On the CPU the list holds operators' CPU self times, never
+feat_dim=128)`` cut ``metis-like`` into Q = 4 partitions on one card,
+and GraphSAGE at the paper's width (128 -> 256 -> 40, 3 layers) with
+seeded weights, served by a ``ServingEngine``. For each training run of
+the chosen wires — p2p: ``full``, ``varco:linear:5`` and
+``auto:budget:<half the full-rate transport>:w8`` (``blockmask``);
+dense: ``full``, ``fixed:4`` and ``varco:linear:5`` (the paper's
+``randmask``); packed: ``varco:linear:5`` (``blockmask``) — it sets up
+the step as ``train_gnn`` does (AdamW), runs two untraced steps (kernel
+build, allocator warm-up), then traces the third; then it traces one
+warm cold-start refresh of the serving engine (``refresh(force=True)``
+after an untraced one). For each traced item it prints one JSON line:
+the host-clock wall time (ending in a device sync), the device time
+summed over every kernel (self time), the device's idle share of the
+wall time (an upper bound: the profiler's host cost inflates the wall
+time), the number of kernels launched, the port's kernel launch
+counters, the shares of ``ell_spmm``'s and ``random_mask``'s kernels,
+and the kernels with the most device time. The card's name and power
+limit go on the first line. If the trace holds no device time it falls
+back to CUDA events around the step (device time then is not split by
+kernel). On the CPU the list holds operators' CPU self times, never
 device numbers.
 """
 

@@ -183,7 +183,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     long long kp[4] = {0, 0, 0, 0};  // this thread's keys' positions
-    const bool pos_mask = by_pos && !(kt >= full_lo && kt + kBK <= full_hi);
+    bool pos_mask = false;
+    if constexpr (by_pos) pos_mask = !(kt >= full_lo && kt + kBK <= full_hi);
     if (pos_mask) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -198,13 +199,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = kt + tx + 16 * j;
-        const bool live =
-            kj < S &&
-            (by_pos ? !pos_mask ||
-                          ((!causal || kp[j] <= rpos[i]) &&
-                           (window <= 0 || kp[j] > rpos[i] - window))
-                    : (!causal || kj <= qi) &&
-                          (window <= 0 || kj > qi - window));
+        bool live;
+        if constexpr (by_pos)
+          live = kj < S && (!pos_mask ||
+                            ((!causal || kp[j] <= rpos[i]) &&
+                             (window <= 0 || kp[j] > rpos[i] - window)));
+        else
+          live = kj < S && (!causal || kj <= qi) &&
+                 (window <= 0 || kj > qi - window);
         s[i][j] = live ? s[i][j] * scale : -INFINITY;
         mt = fmaxf(mt, s[i][j]);
       }

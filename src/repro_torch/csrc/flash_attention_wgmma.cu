@@ -432,38 +432,52 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   };
   // online softmax of tile it in place: sacc becomes p (f32), m and l
   // advance, al_* take the factor the accumulator must be scaled by
-  auto softmax = [&](int it) {
-    const int kt = k_begin + it * BK;
-    const bool need_mask =
-        by_pos ? !(kt >= full_lo && kt + BK <= full_hi)
-               : kt + BK > S || (causal && kt + BK - 1 > q0) ||
-                     (window > 0 && kt <= q0 + kBQ - 1 - window);
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+  // the position mask of a tile outside the whole run: its own pass
+  // before the softmax, so that the softmax keeps the index path's code
+  auto position_mask = [&](int kt) {
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
       long long kp[2] = {0, 0};  // positions of this slice's two keys
-      if (by_pos && need_mask) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = kt + 8 * j + cq + c;
-          if (key < S) kp[c] = __ldg(kpos + (long long)b * S + key);
-        }
+      for (int c = 0; c < 2; ++c) {
+        const int key = kt + 8 * j + cq + c;
+        if (key < S) kp[c] = __ldg(kpos + (long long)b * S + key);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long kq = kp[e & 1], rq = e < 2 ? pos_a : pos_b;
+        if ((causal && kq > rq) || (window > 0 && kq <= rq - window))
+          sacc[4 * j + e] = -INFINITY;
+      }
+    }
+  };
+  // online softmax of tile it in place: sacc becomes p (f32), m and l
+  // advance, al_* take the factor the accumulator must be scaled by
+  auto softmax = [&](int it) {
+    const int kt = k_begin + it * BK;
+    bool need_mask;
+    if constexpr (by_pos) {
+      if (!(kt >= full_lo && kt + BK <= full_hi)) position_mask(kt);
+      need_mask = kt + BK > S;  // left: the keys past S
+    } else {
+      need_mask = kt + BK > S || (causal && kt + BK - 1 > q0) ||
+                  (window > 0 && kt <= q0 + kBQ - 1 - window);
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sacc[4 * j + e];
         if (need_mask) {
           const int key = kt + 8 * j + cq + (e & 1);
+          const int row = e < 2 ? ra : rb;
           bool live;
-          if constexpr (by_pos) {
-            const long long kq = kp[e & 1], rq = e < 2 ? pos_a : pos_b;
-            live = key < S && (!causal || kq <= rq) &&
-                   (window <= 0 || kq > rq - window);
-          } else {
-            const int row = e < 2 ? ra : rb;
+          if constexpr (by_pos)
+            live = key < S;
+          else
             live = key < S && (!causal || key <= row) &&
                    (window <= 0 || key > row - window);
-          }
           x = live ? x : -INFINITY;
           sacc[4 * j + e] = x;
         }
@@ -472,7 +486,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         else
           mx_b = fmaxf(mx_b, x);
       }
-    }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));

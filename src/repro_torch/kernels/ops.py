@@ -18,8 +18,9 @@ version and no global backend switch — the tensor decides.
   backward is the same kernel on the cotangent (the mask depends only on
   the key and the index, so nothing is saved);
 * :func:`mha` — flash attention of the LM prefill (``flash_attention``
-  kernel; index or position masks), and :func:`ssd_chunk` — the Mamba2 intra-chunk form
-  (``ssd_chunk`` kernel); forward only, as in the JAX package;
+  kernel; index or position masks), and :func:`ssd_chunk` — the Mamba2
+  intra-chunk form (``ssd_chunk`` kernel); forward only, as in the JAX
+  package;
 * the elementwise quantised-wire codecs (:func:`quant_levels`,
   :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
   :func:`wire_quant`) — PyTorch on every device, as the JAX runtime

@@ -18,9 +18,9 @@ more ulp of the output), with a check of which of its two kernels ran;
 the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
 to Q·N products in another order).  The dense wire's random mask
 bitwise (a hash and one multiply per element), its VJP bitwise, and one
-dense ``varco`` step on the card against the CPU within 1e-4.  Flash attention with explicit
-positions (shifted and left-padded prompts) on both kernels, under the
-same tolerances.
+dense ``varco`` step on the card against the CPU within 1e-4.  Flash
+attention with explicit positions (shifted and left-padded prompts) on
+both kernels, under the same tolerances.
 """
 
 from __future__ import annotations
