@@ -9,7 +9,11 @@ flash_attention_wgmma.cu`` or ``ssd_chunk.cu``) with a few named text
 edits: a scheduling choice flipped (the numbers behind the choices in the
 sources' notes) or, for the ``diag_*`` flash variants, a part of the work
 removed, to see where the time goes (their outputs are wrong by design and
-are not checked).  Every variant is built with the package's own ``nvcc``
+are not checked).  Flash is also timed with explicit positions (granite's
+prefill shape at S = 2000, half the rows left-padded, half shifted: the
+position-mask path), where two variants bear on that path: the position
+mask applied to every key tile (no wholly-unmasked run) and, as a
+diagnostic, no position-mask pass at all.  Every variant is built with the package's own ``nvcc``
 flags (all at once, one process each) into ``build/lm_kernel_variants/``
 and timed by CUDA events at the LM paths' shapes, twice in turns; the SSD
 ``Y`` pass's heads per block is a launch argument and is swept too.
@@ -48,6 +52,8 @@ _D128 = _cfg(128, "  static constexpr int BK = 128, STAGES = 3;\n"
                   "  static constexpr bool OVERLAP = true;")
 _D256 = _cfg(256, "  static constexpr int BK = 64, STAGES = 2;\n"
                   "  static constexpr bool OVERLAP = false;")
+_POS_PASS = ("      if (!(kt >= full_lo && kt + BK <= full_hi)) "
+             "position_mask(kt);")
 FLASH = {
     "shipped": [],
     "d64_no_overlap": [(_D64, _D64.replace("true", "false"))],
@@ -68,6 +74,9 @@ FLASH = {
                     "        if (it < 0) wgmma_rs_n64(oacc + 32 * j, pa[t],")],
     "diag_no_qk": [("      wgmma_ss<BK>(sacc,", "      if (kk < 0) "
                     "wgmma_ss<BK>(sacc,")],
+    "position_mask_every_tile": [(_POS_PASS, _POS_PASS.replace(
+        "!(kt >= full_lo && kt + BK <= full_hi)", "true"))],
+    "diag_no_position_pass": [(_POS_PASS, "      ;")],
 }
 _HB = "  const int hb = rep;  // heads per Y block"
 SSD = {
@@ -156,6 +165,18 @@ def main(argv=None) -> int:
                    for n in (h, kv, kv))
         flash_in[name] = (q, k, v, window,
                           fa.flash_attention_plain(q, k, v, True, window))
+    b_, s_ = 8, 2000
+    q, k, v = (torch.randn((b_, s_, n, 64), generator=gen, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for n in (32, 8, 8))
+    i = torch.arange(s_, dtype=torch.int32, device="cuda")
+    pos = torch.stack([i + 7 + r if r % 2 else
+                       torch.clamp(i - 97 * r, min=0) for r in range(b_)]
+                      ).contiguous()
+    ranges = fa.position_key_ranges(pos, pos, True, 0, fa.WGMMA_Q_TILE,
+                                    fa.WGMMA_KEY_TILE[64])
+    pos_in = (q, k, v, 0, fa.flash_attention_plain(q, k, v, True, 0, pos,
+                                                   pos))
     for turn in range(2):
         for vname in FLASH:
             fn = load(libs[("flash_attention_wgmma", vname)],
@@ -174,6 +195,29 @@ def main(argv=None) -> int:
                     "max_abs_err": err,
                     "ms": cuda_ms(lambda: fn(*call_args), args.reps)}),
                     flush=True)
+        # the position-mask path: granite's widths at S = 2000, rows
+        # alternately left-padded and shifted (positions built once, as
+        # a prefill hands the same positions to every layer)
+        q, k, v, _, _ = pos_in
+        for vname in FLASH:
+            if vname.startswith("diag_") and "position" not in vname:
+                continue
+            fn = load(libs[("flash_attention_wgmma", vname)],
+                      "flash_attention_wgmma_fwd",
+                      fa._WGMMA_FUNCS["flash_attention_wgmma_fwd"])
+            out = torch.empty_like(q)
+            call_args = fa._launch_args(q, k, v, out, True, 0, pos, pos,
+                                        ranges)
+            rc = fn(*call_args)
+            torch.cuda.synchronize()
+            err = None if vname.startswith("diag") else \
+                float((out.float() - pos_in[4].float()).abs().max())
+            print(json.dumps({
+                "kernel": "flash_attention", "variant": vname,
+                "shape": "granite_positions_s2000", "turn": turn, "rc": rc,
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: fn(*call_args), args.reps)}),
+                flush=True)
         q, k, v, window, _ = flash_in["granite_prefill"]
         print(json.dumps({
             "kernel": "scaled_dot_product_attention", "shape":
