@@ -37,6 +37,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    its gathers move (one row slice per valid slot) and their rate.  Each
    autograd function's backward on the card is held to the plain
    version's autograd within 1e-4 (atomic scatters reorder f32 sums).
+   Stochastic rounding: the fused codec's stochastic instantiation at the
+   p2p hop shape ``[12, 40960, 256]`` (w8, w4), at the packed all-gather's
+   ``[4, 44227, 256]`` (w4) and ragged, and ``random_uniform`` over the
+   hop's ``[12, 40960·256]``, each bitwise against its plain version, its
+   bound the larger of the bytes and 76 integer operations an element
+   (the rint kernel timed beside it on the same inputs).
 5. slice   — launch counts set to 0, then the serving path: ``refresh(
    force=True)``, a few hundred node and edge queries through ``submit``/
    ``flush``, and three non-forced ``refresh()`` calls under the default
@@ -54,9 +60,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``auto:budget:<half the full-rate transport>:w8``, on the dense wire
    the JAX package's quickstart trio ``full``, ``fixed:4`` and
    ``varco:linear:5`` (the paper's ``randmask``), on the packed wire
-   ``varco:linear:5`` (``blockmask``), 5 epochs each with AdamW, and one
-   epoch each of ``fixed:4`` with ``topk`` and ``fixed:8`` with ``int8``
-   on the dense wire; launch counts read right after (every kernel must
+   ``varco:linear:5`` (``blockmask``), the closed loops
+   ``auto:error:<half>:w8`` and ``auto:stale:<half>`` on the p2p wire and
+   ``auto:budget:<half>:w4`` on the packed wire, 5 epochs each with
+   AdamW, and one epoch each of ``fixed:4`` with ``topk`` and ``fixed:8``
+   with ``int8`` on the dense wire; launch counts read right after (every kernel must
    have run, the quantised codecs during the w8 run, ``random_mask`` in
    exactly the dense runs that draw the random mask).  Then, at rate 2
    on the card: the packed halo must equal the dense ``blockmask`` halo
@@ -65,6 +73,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    loss must be finite and both ``full`` runs' must fall; per-epoch loss,
    rate, width, bits, step time, test accuracy and the peak device
    memory are printed.
+6b. auto  — launch counts set to 0, then three ``make_auto_train_step(
+   rounding="stochastic")`` steps: every pair at w8 on the p2p wire and at
+   w4 on the packed wire (the fused stochastic codec) and a mixed-width
+   p2p plan with one fp32 pair (``random_uniform``); counts read right
+   after (both kernels must have run).  Each step's loss must match the
+   same step with the plain codecs swapped in within 1e-4, and its
+   layer-1 halo the plain codecs' bitwise; a ``stale`` step with every
+   pair skipped must charge 0 bits and deliver the cache bitwise; one w4
+   packed and one w8 p2p exchange must ship exactly ``ceil(ledger bits /
+   8)`` bytes (``wire_out`` capture).
 
 7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
    ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
@@ -107,6 +125,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
 no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
+from the auto phase for the stochastic codec and ``random_uniform``;
 from the LM prefills for the
 LM kernels, from granite's f32 check for the CUDA-core flash kernel); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -178,11 +197,23 @@ KERNELS = {
     # line named here
     "random_mask": {"source": "src/repro_torch/csrc/randmask.cu",
                     "replaces": "src/repro/core/compression.py:142"},
+    # the fused codec with stochastic rounding: the TPU kernel rounds to
+    # nearest; the JAX package rounds stochastically around it in XLA
+    # (src/repro/kernels/ops.py:195)
+    "varco_pack_quant_stochastic": {
+        "source": "src/repro_torch/csrc/varco_pack_quant.cu",
+        "replaces": "src/repro/kernels/varco_pack.py:158"},
+    # no TPU kernel: the uniforms of stochastic rounding, drawn by XLA
+    "random_uniform": {"source": "src/repro_torch/csrc/randmask.cu",
+                       "replaces": "src/repro/kernels/ops.py:195"},
 }
 
 
 GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
                "varco_unpack_quant", "random_mask")
+#: the kernels of stochastic rounding: launched by make_auto_train_step(
+#: rounding="stochastic") steps (the auto phase), not by train_gnn
+STOCH_KERNELS = ("varco_pack_quant_stochastic", "random_uniform")
 #: kernel -> the arch whose prefill runs it (once per layer); the CUDA-core
 #: flash kernel runs in neither bf16 granite nor f32 mamba2 serving, but in
 #: granite served in f32 (the decode-consistency check's path)
@@ -194,7 +225,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ell_spmm import ell_spmm
     from repro_torch.kernels.flash_attention import (flash_attention_simt,
                                                      flash_attention_wgmma)
-    from repro_torch.kernels.randmask import random_mask
+    from repro_torch.kernels.randmask import random_mask, random_uniform
     from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels import varco_pack as vp
 
@@ -204,7 +235,9 @@ def launch_counters() -> dict:
             "varco_unpack_quant": vp.varco_unpack_quant,
             "flash_attention": flash_attention_wgmma,
             "flash_attention_simt": flash_attention_simt,
-            "ssd_chunk": ssd_chunk, "random_mask": random_mask}
+            "ssd_chunk": ssd_chunk, "random_mask": random_mask,
+            "varco_pack_quant_stochastic": vp.varco_pack_quant_stochastic,
+            "random_uniform": random_uniform}
 
 
 def emit(obj) -> None:
@@ -502,6 +535,91 @@ def _mask_case(name, x, rate, unbiased, reps, int_rate):
     return rec
 
 
+def _round_keys(b: int, seed: int, dev):
+    """``b`` stochastic-rounding keys (``round_key`` of one exchange key,
+    one per batch row) as the int32 ``[b, 2]`` tensor the kernels read."""
+    from repro_torch import prng
+    from repro_torch.kernels.ops import round_key
+    from repro_torch.kernels.randmask import keys_tensor
+
+    k = prng.fold_in(prng.key(seed), 1)
+    return keys_tensor(np.stack([round_key(k, r) for r in range(b)]), dev)
+
+
+def _stoch_case(name, x, kept, width, reps, int_rate):
+    """The fused codec's stochastic instantiation at one shape and width:
+    payload and scales bitwise against the plain version (``floor(v + u)``
+    with ``prng.random_bits_torch`` uniforms); kernel, plain and, on the
+    same inputs, the round-half-even kernel's times beside the bound (the
+    bytes of the rint case against 76 integer ops per quantised element
+    at the integer issue ceiling)."""
+    from repro_torch.kernels.ops import qmax_of
+    from repro_torch.kernels.varco_pack import (
+        LANE, varco_pack_quant, varco_pack_quant_stochastic,
+        varco_pack_quant_stochastic_plain)
+
+    b, h, f = x.shape
+    k = kept.shape[1]
+    qmax = qmax_of(width).expand(b).contiguous().to(x.device)
+    keys = _round_keys(b, width + f, x.device)
+    payload, scales = varco_pack_quant_stochastic(x, kept, qmax, keys, width)
+    p_ref, s_ref = varco_pack_quant_stochastic_plain(x, kept, qmax, keys,
+                                                     width)
+    rint, _ = varco_pack_quant(x, kept, qmax, width)
+    torch.cuda.synchronize()
+    check(torch.equal(payload, p_ref) and torch.equal(scales, s_ref),
+          f"varco_pack_quant_stochastic {name}: not bitwise equal")
+    check(not torch.equal(payload, rint),
+          f"varco_pack_quant_stochastic {name}: rounds like rint")
+    n = b * h * k * LANE
+    n_bytes = n * 4 + kept.numel() * 4 + b * 4 + keys.numel() * 4 + \
+        n * width // 8 + b * h * k * 4
+    b_ms, b_by = bound_ms(n_bytes, MASK_INT_OPS * n, int_rate)
+    rec = {"kernel": "varco_pack_quant_stochastic", "case": name,
+           "shape": {"x": list(x.shape), "kept": list(kept.shape),
+                     "width": width},
+           "max_abs_err": 0.0,
+           "kernel_ms": cuda_ms(lambda: varco_pack_quant_stochastic(
+               x, kept, qmax, keys, width), reps),
+           "rint_kernel_ms": cuda_ms(lambda: varco_pack_quant(
+               x, kept, qmax, width), reps),
+           "plain_ms": cuda_ms(lambda: varco_pack_quant_stochastic_plain(
+               x, kept, qmax, keys, width), max(reps // 10, 1)),
+           "library_ms": None,   # PyTorch has no Threefry call
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+           "int_ops": MASK_INT_OPS * n, "int32_ops_per_s": int_rate}
+    emit(rec)
+    return rec
+
+
+def _uniform_case(name, b, n, reps, int_rate, dev):
+    """``random_uniform`` over ``b`` keys of ``n`` counters: bitwise
+    against the plain version; bound by 76 integer ops an element against
+    the 4 bytes it writes."""
+    from repro_torch.kernels.randmask import (random_uniform,
+                                              random_uniform_plain)
+
+    keys = _round_keys(b, n, dev)
+    out = random_uniform(keys, n)
+    ref = random_uniform_plain(keys, n)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref),
+          f"random_uniform {name}: not bitwise equal to the plain version")
+    b_ms, b_by = bound_ms(b * n * 4 + keys.numel() * 4, MASK_INT_OPS * b * n,
+                          int_rate)
+    rec = {"kernel": "random_uniform", "case": name,
+           "shape": {"keys": list(keys.shape), "n": n}, "max_abs_err": 0.0,
+           "kernel_ms": cuda_ms(lambda: random_uniform(keys, n), reps),
+           "plain_ms": cuda_ms(lambda: random_uniform_plain(keys, n),
+                               max(reps // 10, 1)),
+           "library_ms": None,   # PyTorch has no Threefry call
+           "bound_ms": b_ms, "bound_by": b_by,
+           "int_ops": MASK_INT_OPS * b * n, "int32_ops_per_s": int_rate}
+    emit(rec)
+    return rec
+
+
 def _grad_err(fn, ref_fn, x, gen):
     """Max abs difference between ``fn``'s input cotangent (the autograd
     function, kernels on the card) and ``ref_fn``'s (the plain version's
@@ -643,6 +761,27 @@ def kernels_phase(eng, reps: int = 20):
     keep(_mask_case("ragged", torch.randn((3, 77, 42), generator=gen,
                                           device=dev), 5.3, False, 5,
                     int_rate), False)
+    # stochastic rounding: the fused codec at the p2p hop shape (w8, w4)
+    # and at the packed all-gather's [Q, B, F] (w4), and the uniforms of
+    # the mixed-width hops over the same [Q·D, H·K·128]
+    kept, _, _ = worker_block_maps_pos(prng.key(258), q, 2, 2)
+    x = torch.randn((q * d_hops, h_w, 256), generator=gen, device=dev)
+    kept_hop = torch.from_numpy(kept[bk]).to(dev)
+    for width in (8, 4):
+        keep(_stoch_case(f"hop_f256_k2_w{width}", x, kept_hop, width, reps,
+                         int_rate), width == 8)
+    keep(_stoch_case("packed_f256_k2_w4",
+                     torch.randn((q, b_sz, 256), generator=gen, device=dev),
+                     torch.from_numpy(kept).to(dev), 4, reps, int_rate),
+         False)
+    kept3, _, _ = worker_block_maps_pos(prng.key(5), 3, 3, 2)
+    keep(_stoch_case("ragged_w2",
+                     torch.randn((3, 1001, 384), generator=gen, device=dev),
+                     torch.from_numpy(kept3).to(dev), 2, 5, int_rate), False)
+    del x
+    keep(_uniform_case("hop_f256_k2", q * d_hops, h_w * 256, reps, int_rate,
+                       dev), True)
+    keep(_uniform_case("ragged", 3, 1001 * 42 + 1, 5, int_rate, dev), False)
     kept, inv, _ = worker_block_maps_pos(prng.key(4), 3, 3, 2)
     for width in (8, 4, 2):
         for rec in _quant_case(
@@ -895,8 +1034,11 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
                   seed=seed, eval_every=1, device=eng.device, params=params)
     full_bits = 2.0 * 32.0 * pg.halo_demand * sum(exchange_widths(cfg)) * \
         TRAIN_EPOCHS
+    half = 0.5 * full_bits
     specs = {"full": "full", "varco": "varco:linear:5",
-             "auto_w8": f"auto:budget:{0.5 * full_bits:g}:w8"}
+             "auto_w8": f"auto:budget:{half:g}:w8",
+             "auto_error_w8": f"auto:error:{half:g}:w8",
+             "auto_stale": f"auto:stale:{half:g}"}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -909,6 +1051,8 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     plan = {name: (spec, "blockmask", "p2p", TRAIN_EPOCHS)
             for name, spec in specs.items()}
     plan.update(ALLGATHER_RUNS)
+    plan["packed_auto_w4"] = (f"auto:budget:{half:g}:w4", "blockmask",
+                              "packed", TRAIN_EPOCHS)
     for name, (spec, comp, wire, epochs) in plan.items():
         before = {k: fn.launches for k, fn in counters.items()}
         res = train_gnn(pg, policy=CommPolicy.parse(
@@ -955,6 +1099,10 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
               f"path")
     for name, count in quant_launches["auto_w8"].items():
         check(count > 0, f"{name} never launched during the w8 run")
+    if min(runs["packed_auto_w4"].width) < 32:   # a sub-byte all-gather
+        for name, count in quant_launches["packed_auto_w4"].items():
+            check(count > 0, f"{name} never launched during the packed "
+                  f"auto run")
     check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
           f"grad-sync identity broken: {ident}")
     check(ident_dense["loss_err"] <= GRAD_TOL and
@@ -977,6 +1125,212 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
         check(runs[name].loss[-1] < runs[name].loss[0],
               f"{name}: loss did not fall ({runs[name].loss})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: closed-loop steps — stochastic rounding, hop reuse, bytes
+# ---------------------------------------------------------------------------
+
+#: the plain versions the auto phase swaps in for the wire kernels
+WIRE_KERNELS = ("varco_pack", "varco_unpack", "varco_pack_quant",
+                "varco_pack_quant_stochastic", "varco_unpack_quant",
+                "random_uniform")
+
+
+@contextlib.contextmanager
+def plain_codecs():
+    """Run the wire with the plain versions in place of its kernels (for
+    the comparison of the two on the card only)."""
+    from repro_torch.kernels import ops
+
+    saved = {n: getattr(ops, n) for n in WIRE_KERNELS}
+    for n in WIRE_KERNELS:
+        setattr(ops, n, getattr(ops, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def _pair_map(q: int, off: float, diag: float) -> np.ndarray:
+    eye = np.eye(q, dtype=bool)
+    return np.where(eye, diag, off).astype(np.float32)
+
+
+#: the stochastic steps: name -> (wire, rate, off-diagonal width, one pair
+#: left at fp32 (the mixed-width path through random_uniform))
+STOCH_RUNS = {"p2p_w8": ("p2p", 1.0, 8.0, False),
+              "packed_w4": ("packed", 1.0, 4.0, False),
+              "p2p_mixed": ("p2p", 2.0, 8.0, True)}
+
+
+def _conservation(graph, meta, wire, width, x, seed) -> dict:
+    """One exchange at rate 2, every pair at ``width``, with ``wire_out``
+    capture: each p2p hop ships ``ceil(rows · k · (128·w + 32) / 8)``
+    bytes over its genuine rows and each pair ``ceil(ledger bits / 8)``;
+    each packed row ``ceil(k · (128·w + 32) / 8)``."""
+    import math
+
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.kernels.varco_pack import LANE
+
+    q = meta.q
+    rm, wm = _pair_map(q, 2.0, 1.0), _pair_map(q, float(width), 32.0)
+    cap: list = []
+    agg = gp._make_aggregate_emulated(
+        graph, meta, CommPolicy.parse("fixed:2", 1, compressor="blockmask"),
+        torch.ones(()), prng.key(seed), rate_map=rm, width_map=wm,
+        packed_k=dict(gp._packed_pair_k_for(meta, rm)),
+        store_w=gp._packed_store_w(meta, wm), wire_out=cap)
+    with torch.no_grad():
+        _, bits = agg.start(1, x)
+    torch.cuda.synchronize()
+    payload, scales = cap[0]
+    k = max(x.shape[-1] // LANE // 2, 1)
+    row = payload.shape[-1] + 4 * scales.shape[-1]
+    want_row = math.ceil(k * (LANE * width + 32.0) / 8.0)
+    out = {"wire": wire, "width": width, "payload": list(payload.shape),
+           "row_bytes": row, "want_row_bytes": want_row}
+    if wire == "packed":
+        out["ok"] = payload.dtype == torch.uint8 and row == want_row
+        return out
+    rows = graph["p2p_send_valid"].sum(-1).long().cpu().numpy()  # [Q, D]
+    meas = np.zeros((q, q))
+    ok = payload.dtype == torch.uint8
+    for j in range(q):
+        for d in range(q - 1):
+            m = int(rows[j, d]) * row
+            ok &= m == math.ceil(int(rows[j, d]) * k *
+                                 (LANE * width + 32.0) / 8.0)
+            meas[(j + d + 1) % q, j] += m
+    pair_t = bits[2:2 + q * q].cpu().numpy().astype(np.float64).reshape(q, q)
+    out["pair_bytes"] = float(meas.sum())
+    out["ok"] = bool(ok and (meas == np.ceil(pair_t / 8.0)).all())
+    return out
+
+
+def auto_phase(eng, params, cfg, seed: int = 0) -> dict:
+    """Launch counts set to 0, then three ``make_auto_train_step(rounding=
+    "stochastic")`` steps (p2p w8 and packed w4 through the fused
+    stochastic codec, a mixed-width p2p plan through ``random_uniform``);
+    counts read right after.  Then each step's layer-1 halo against the
+    same exchange with the plain codecs (bitwise) and its loss against
+    the same step's (within 1e-4), a ``stale`` step with every pair
+    skipped (0 transport bits, its halo the cache bitwise), and byte
+    conservation of a w4 packed and a w8 p2p exchange."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.dist.ratectl import (RatePlan, init_halo_cache,
+                                          init_wire_residuals,
+                                          make_auto_train_step)
+    from repro_torch.train.optim import sgd
+
+    counters = launch_counters()
+    dev = eng.device
+    pg, q = eng.pg, eng.pg.q
+    metas = {"p2p": eng.meta,
+             "packed": gp.DistMeta.build(pg, params, wire="packed")}
+    graphs = {"p2p": eng.graph,
+              "packed": attach_p2p(pg.device_arrays(dev), pg, dev)}
+    pol = CommPolicy.parse("auto:budget:1e9:w4", 1)
+    opt = sgd(0.1)
+    key = prng.key(seed + 11)
+
+    def plan_of(rate, width, fp32_pair):
+        wm = _pair_map(q, width, 32.0)
+        if fp32_pair:
+            wm[0, 1] = 32.0
+        return RatePlan(_pair_map(q, rate, 1.0), _pair_map(q, 0.0, 0.0), wm)
+
+    def run_step(name):
+        wire, rate, width, fp32_pair = STOCH_RUNS[name]
+        meta = metas[wire]
+        step = make_auto_train_step(cfg, pol, opt, meta,
+                                    rounding="stochastic")
+        cache = init_wire_residuals(meta, cfg, dev) if wire == "p2p" else ()
+        t0 = time.perf_counter()
+        _, _, m, _ = step(params, opt.init(params), graphs[wire], key,
+                          plan_of(rate, width, fp32_pair), cache)
+        loss = float(m["loss"])
+        return loss, time.perf_counter() - t0
+
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_s = {}, {}
+    for name in STOCH_RUNS:
+        losses[name], step_s[name] = run_step(name)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    with plain_codecs():
+        plain = {name: run_step(name)[0] for name in STOCH_RUNS}
+    halo_equal = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    x = torch.randn((q, pg.part_size, 256), generator=gen, device=dev)
+    for name, (wire, rate, width, fp32_pair) in STOCH_RUNS.items():
+        plan = plan_of(rate, width, fp32_pair)
+        meta, toks = metas[wire], []
+        for ctx in (contextlib.nullcontext, plain_codecs):
+            agg = gp._make_aggregate_emulated(
+                graphs[wire], meta, pol, torch.ones(()), key,
+                packed_k=dict(gp._packed_pair_k_for(meta, plan.rates)),
+                rate_map=plan.rates, width_map=plan.widths,
+                store_w=gp._packed_store_w(meta, plan.widths),
+                rounding="stochastic")
+            with ctx(), torch.no_grad():
+                toks.append(agg.start(1, x)[0])
+        torch.cuda.synchronize()
+        halo_equal[name] = torch.equal(toks[0], toks[1])
+    # hop reuse: a fresh stale step, then one with every pair skipped
+    meta = metas["p2p"]
+    stale = make_auto_train_step(cfg, CommPolicy.parse("auto:stale:1e9", 2),
+                                 opt, meta)
+    ones = _pair_map(q, 1.0, 1.0)
+    p1, s1, m0, cache1 = stale(params, opt.init(params), graphs["p2p"],
+                               prng.key(seed), RatePlan(
+                                   ones, _pair_map(q, 0.0, 0.0)),
+                               init_halo_cache(meta, cfg, dev))
+    _, _, m1, cache2 = stale(p1, s1, graphs["p2p"], prng.key(seed + 1),
+                             RatePlan(ones, _pair_map(q, 1.0, 0.0)), cache1)
+    torch.cuda.synchronize()
+    stale_rec = {"fresh_transport_bits": float(m0["transport_bits"]),
+                 "skipped_transport_bits": float(m1["transport_bits"]),
+                 "skipped_halo_bits": float(m1["halo_bits"]),
+                 "halo_equals_cache": all(torch.equal(a, b) for a, b in
+                                          zip(cache2, cache1)),
+                 "loss": float(m1["loss"])}
+    del cache1, cache2
+    conserve = [_conservation(graphs["packed"], metas["packed"], "packed",
+                              4, x, seed),
+                _conservation(graphs["p2p"], metas["p2p"], "p2p", 8, x,
+                              seed)]
+    summary = {"phase": "auto", "launches": launches, "loss": losses,
+               "plain_loss": plain, "step_s": step_s,
+               "halo_equals_plain": halo_equal, "stale": stale_rec,
+               "conservation": conserve}
+    emit(summary)
+    for name in STOCH_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the "
+              f"stochastic-rounding path")
+    for name in STOCH_RUNS:
+        check(np.isfinite(losses[name]), f"{name}: non-finite loss")
+        check(abs(losses[name] - plain[name]) <= GRAD_TOL,
+              f"{name}: loss {losses[name]} vs plain codecs {plain[name]}")
+        check(halo_equal[name], f"{name}: the halo differs from the plain "
+              f"codecs' halo")
+    check(stale_rec["fresh_transport_bits"] > 0 and
+          stale_rec["skipped_transport_bits"] == 0.0 and
+          stale_rec["skipped_halo_bits"] == 0.0,
+          f"a fully skipped stale step charged bits: {stale_rec}")
+    check(stale_rec["halo_equals_cache"],
+          "a fully skipped stale step's halo differs from the cache")
+    for rec in conserve:
+        check(rec["ok"], f"bytes not conserved: {rec}")
+    return {name: launches[name] for name in STOCH_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1403,6 +1757,7 @@ def main(argv=None) -> int:
         main_recs = kernels_phase(eng)
         slice_phase(g, cfg, params, eng)
         launches = train_phase(g, cfg, params, eng)
+        launches.update(auto_phase(eng, params, cfg))
         del eng
         torch.cuda.empty_cache()
         main_recs.update(lm_kernels_phase())

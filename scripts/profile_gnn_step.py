@@ -6,19 +6,24 @@
     python3 scripts/profile_gnn_step.py --nodes 2000 --device cpu
                                           # rehearsal: CPU times only
     python3 scripts/profile_gnn_step.py --wires dense  # one wire only
+    python3 scripts/profile_gnn_step.py --runs auto_w8,auto_stale
+                                          # named runs only, no refresh
 
 Builds ``chip_smoke.py``'s workload: ``citation_graph(n=169_343,
 feat_dim=128)`` cut ``metis-like`` into Q = 4 partitions on one card,
 and GraphSAGE at the paper's width (128 -> 256 -> 40, 3 layers) with
 seeded weights, served by a ``ServingEngine``. For each training run of
-the chosen wires — p2p: ``full``, ``varco:linear:5`` and
-``auto:budget:<half the full-rate transport>:w8`` (``blockmask``);
-dense: ``full``, ``fixed:4`` and ``varco:linear:5`` (the paper's
-``randmask``); packed: ``varco:linear:5`` (``blockmask``) — it sets up
-the step as ``train_gnn`` does (AdamW), runs two untraced steps (kernel
-build, allocator warm-up), then traces the third; then it traces one
-warm cold-start refresh of the serving engine (``refresh(force=True)``
-after an untraced one). For each traced item it prints one JSON line:
+the chosen wires — p2p: ``full``, ``varco:linear:5``,
+``auto:budget:<half the full-rate transport>:w8``, ``auto:error:<half>:w8``
+and ``auto:stale:<half>`` (``blockmask``); dense: ``full``, ``fixed:4``
+and ``varco:linear:5`` (the paper's ``randmask``); packed:
+``varco:linear:5`` (``blockmask``) and ``auto:budget:<half>:w4`` — it
+sets up the step as ``train_gnn`` does (AdamW, the controller, the
+``stale`` halo cache or the p2p error-feedback residuals), runs two
+untraced steps (kernel build, allocator warm-up), then traces the
+third; then, unless ``--runs`` names runs, it traces one warm
+cold-start refresh of the serving engine (``refresh(force=True)`` after
+an untraced one). For each traced item it prints one JSON line:
 the host-clock wall time (ending in a device sync), the device time
 summed over every kernel (self time), the device's idle share of the
 wall time (an upper bound: the profiler's host cost inflates the wall
@@ -50,7 +55,7 @@ from repro_torch.core.varco import CommPolicy  # noqa: E402
 from repro_torch.dist.gnn_parallel import DistMeta, make_train_step  # noqa
 from repro_torch.dist.halo import attach_p2p  # noqa: E402
 from repro_torch.dist.ratectl import (exchange_widths,  # noqa: E402
-                                      init_wire_residuals,
+                                      init_halo_cache, init_wire_residuals,
                                       make_auto_train_step, make_controller)
 from repro_torch.graph.synthetic import citation_graph  # noqa: E402
 from repro_torch.kernels import ell_spmm as _ell  # noqa: E402
@@ -66,15 +71,22 @@ COUNTERS = {"ell_spmm": _ell.ell_spmm, "varco_pack": _vp.varco_pack,
             "varco_unpack": _vp.varco_unpack,
             "varco_pack_quant": _vp.varco_pack_quant,
             "varco_unpack_quant": _vp.varco_unpack_quant,
-            "random_mask": _rm.random_mask}
-#: the traced runs of each wire: name -> (policy spec, compressor)
+            "random_mask": _rm.random_mask,
+            "varco_pack_quant_stochastic": _vp.varco_pack_quant_stochastic,
+            "random_uniform": _rm.random_uniform}
+#: the traced runs of each wire: name -> (policy spec, compressor);
+#: ``{half}`` is half the full-rate transport of EPOCHS steps
 RUNS = {"p2p": {"full": ("full", "blockmask"),
                 "varco": ("varco:linear:5", "blockmask"),
-                "auto_w8": ("auto_w8", "blockmask")},
+                "auto_w8": ("auto:budget:{half:g}:w8", "blockmask"),
+                "auto_error_w8": ("auto:error:{half:g}:w8", "blockmask"),
+                "auto_stale": ("auto:stale:{half:g}", "blockmask")},
         "dense": {"dense_full": ("full", None),
                   "dense_fixed4": ("fixed:4", None),
                   "dense_varco": ("varco:linear:5", None)},
-        "packed": {"packed_varco": ("varco:linear:5", "blockmask")}}
+        "packed": {"packed_varco": ("varco:linear:5", "blockmask"),
+                   "packed_auto_w4": ("auto:budget:{half:g}:w4",
+                                      "blockmask")}}
 
 
 def _self_time_us(evt, on_card: bool) -> float:
@@ -144,7 +156,7 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
     waits for its loss."""
     policy = CommPolicy.parse(spec, EPOCHS, compressor=compressor)
     graph = pg.device_arrays(device)
-    if wire == "p2p":
+    if wire == "p2p" or policy.mode == "auto":
         graph = attach_p2p(graph, pg, device)
     meta = DistMeta.build(pg, params, wire=wire)
     opt = adamw(5e-3)
@@ -153,7 +165,9 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
         ctl = make_controller(policy, meta, cfg, total_steps=EPOCHS)
         state["ctl"] = ctl.init()
         step = make_auto_train_step(cfg, policy, opt, meta)
-        if policy.max_width < 32:
+        if policy.controller == "stale":
+            state["cache"] = init_halo_cache(meta, cfg, device)
+        elif policy.max_width < 32 and wire == "p2p":
             state["cache"] = init_wire_residuals(meta, cfg, device)
 
         def run(epoch):
@@ -180,11 +194,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--wires", default="p2p,dense,packed",
                     help="comma-separated wires to trace steps on")
+    ap.add_argument("--runs", default="",
+                    help="comma-separated run names to trace (default: "
+                    "every run of the wires, then the refresh)")
     args = ap.parse_args(argv)
     wires = [w for w in args.wires.split(",") if w]
     for w in wires:
         if w not in RUNS:
             ap.error(f"unknown wire {w!r}; have {sorted(RUNS)}")
+    only = {r for r in args.runs.split(",") if r}
+    known = {name for runs in RUNS.values() for name in runs}
+    if only - known:
+        ap.error(f"unknown runs {sorted(only - known)}; have "
+                 f"{sorted(known)}")
 
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -210,10 +232,11 @@ def main(argv=None) -> int:
     pg = eng.pg
     full_bits = 2.0 * 32.0 * pg.halo_demand * sum(exchange_widths(cfg)) * \
         EPOCHS
-    auto_w8 = f"auto:budget:{0.5 * full_bits:g}:w8"
     for wire in wires:
         for name, (spec, comp) in RUNS[wire].items():
-            spec = auto_w8 if spec == "auto_w8" else spec
+            if only and name not in only:
+                continue
+            spec = spec.format(half=0.5 * full_bits)
             run = _step_fn(pg, cfg, params, spec, device, wire, comp)
             run(0)
             run(1)                      # warm: kernels built, allocator
@@ -222,6 +245,8 @@ def main(argv=None) -> int:
                               "run": name, "policy": spec,
                               "compressor": comp or "randmask", "epoch": 2,
                               **rec}), flush=True)
+    if only:
+        return 0
     eng.refresh(force=True)             # warm
     rec = _trace(lambda: eng.refresh(force=True), device)
     print(json.dumps({"item": "refresh", "force": True,

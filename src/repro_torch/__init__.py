@@ -16,8 +16,11 @@ Ported so far:
 * the serving slice — :class:`repro_torch.serve.ServingEngine` over the
   p2p halo wire;
 * the training slice — :func:`repro_torch.train.train_gnn` (Algorithm 1,
-  every partition stacked on one card) under the open-loop policies and
-  the ``budget`` controller, with the kernels' backward passes;
+  every partition stacked on one card) on the dense, packed and p2p
+  wires under the open-loop policies and the closed-loop controllers
+  (``budget``, :func:`error_controller`, :func:`stale_controller` with
+  hop reuse, ``qos``), with the kernels' backward passes and the
+  quantised wire's stochastic rounding (:func:`round_key`);
 
 over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
 ``varco_pack_quant`` and ``varco_unpack_quant`` kernels; and
@@ -30,8 +33,9 @@ over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
 """
 
 __version__ = "0.2.0"
-__all__ = ["CommPolicy", "ServingEngine", "decode_step", "init_lm",
-           "prefill", "serve_lm", "train_gnn"]
+__all__ = ["CommPolicy", "ServingEngine", "decode_step", "error_controller",
+           "init_lm", "prefill", "round_key", "serve_lm",
+           "stale_controller", "train_gnn"]
 
 
 def __getattr__(name):
@@ -48,6 +52,12 @@ def __getattr__(name):
     if name in ("init_lm", "prefill", "decode_step"):
         from repro_torch.models import transformer
         return getattr(transformer, name)
+    if name in ("error_controller", "stale_controller"):
+        from repro_torch.dist import ratectl
+        return getattr(ratectl, name)
+    if name == "round_key":
+        from repro_torch.kernels.ops import round_key
+        return round_key
     if name == "train_gnn":
         from repro_torch.train.trainer import train_gnn
         return train_gnn

@@ -34,49 +34,37 @@
 // and its threads grid-stride over that worker's N elements; kept counts
 // are summed per thread, then per warp, one atomic per warp.
 //
+// random_uniform draws the same stream as floats, for the uniforms of
+// stochastic rounding where the width map mixes fp32 and quantised pairs:
+//
+//   out[b, i] = uniform(key[b], i + offset)       float32 [B, N]
+//
+// bitwise jax.random.uniform(key, shape) with N = prod(shape), vmapped
+// over keys (repro/kernels/ops.py::quant_levels draws it through XLA; no
+// TPU kernel corresponds).  It is bound by operations: 76 integer ops an
+// element against 4 bytes written; at [12, 40960, 256] the ops take about
+// 0.285 ms at the issue ceiling, the bytes 0.150 ms.  Same layout as the
+// mask: 4 consecutive counters per thread, one float4 store, blockIdx.y
+// the key.
+//
+// The Threefry round function is shared with the fused stochastic codec
+// (threefry.cuh).
+//
 // C interface (ctypes): pointers and the stream are void*, sizes 64-bit;
 // returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr uint32_t kParity = 0x1BD11BDAu;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Threefry-2x32, 20 rounds, on the counter (hi, lo); returns y0 ^ y1
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t k2, uint32_t hi,
-                                                  uint32_t lo) {
-  uint32_t a = hi + k0, b = lo + k1;
-#define TF_ROUND(r) \
-  a += b;           \
-  b = rotl(b, r);   \
-  b ^= a;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  a += k1; b += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  a += k2; b += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  a += k0; b += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  a += k1; b += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  a += k2; b += k0 + 5u;
-#undef TF_ROUND
-  return a ^ b;
-}
 
 __device__ __forceinline__ bool keep(uint32_t k0, uint32_t k1, uint32_t k2,
                                      uint64_t c, float p) {
-  const uint32_t bits = threefry_bits(k0, k1, k2, (uint32_t)(c >> 32),
-                                      (uint32_t)c);
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f < p;
+  return threefry::uniform(k0, k1, k2, c) < p;
 }
 
 // VEC: N % 4 == 0 and 16-byte aligned rows, so a group of 4 is one float4
@@ -88,7 +76,7 @@ random_mask_kernel(const float* __restrict__ x,
                    uint64_t offset, float p, float scale) {
   const int q = blockIdx.y;
   const uint32_t k0 = keys[2 * q], k1 = keys[2 * q + 1];
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
+  const uint32_t k2 = k0 ^ k1 ^ threefry::kParity;
   const float* xq = x + (int64_t)q * n;
   float* oq = out + (int64_t)q * n;
   const int64_t groups = (n + 3) / 4;
@@ -129,6 +117,47 @@ random_mask_kernel(const float* __restrict__ x,
   }
 }
 
+// VEC: N % 4 == 0 and a 16-byte aligned output, so a group is one float4
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+random_uniform_kernel(const uint32_t* __restrict__ keys,
+                      float* __restrict__ out, int64_t n, uint64_t offset) {
+  const int b = blockIdx.y;
+  const uint32_t k0 = keys[2 * b], k1 = keys[2 * b + 1];
+  const uint32_t k2 = k0 ^ k1 ^ threefry::kParity;
+  float* ob = out + (int64_t)b * n;
+  const int64_t groups = (n + 3) / 4;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x; g < groups;
+       g += stride) {
+    const int64_t i = 4 * g;
+    const uint64_t c = (uint64_t)i + offset;
+    if (VEC) {
+      float4 o;
+      o.x = threefry::uniform(k0, k1, k2, c);
+      o.y = threefry::uniform(k0, k1, k2, c + 1);
+      o.z = threefry::uniform(k0, k1, k2, c + 2);
+      o.w = threefry::uniform(k0, k1, k2, c + 3);
+      reinterpret_cast<float4*>(ob)[g] = o;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i + j < n) ob[i + j] = threefry::uniform(k0, k1, k2, c + j);
+    }
+  }
+}
+
+// about 8 blocks of kThreads threads per SM over all rows
+dim3 grid_for(long long q, long long n, int device) {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long groups = (n + 3) / 4;
+  const long long want = ((long long)sms * 8 + q - 1) / q;
+  const long long need = (groups + kThreads - 1) / kThreads;
+  const unsigned bx = (unsigned)(need < want ? need : want);
+  return dim3(bx > 0 ? bx : 1, (unsigned)q);
+}
+
 }  // namespace
 
 // x, out: float32 [Q, N]; keys: uint32 [Q, 2]; counts: uint64 [Q] (added
@@ -140,14 +169,7 @@ extern "C" int random_mask_f32(const void* x, const void* keys, void* out,
   cudaSetDevice(device);
   if (q == 0 || n == 0) return (int)cudaGetLastError();
   if (q > 65535) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long groups = (n + 3) / 4;
-  // about 8 blocks of 256 threads per SM over all workers
-  long long want = ((long long)sms * 8 + q - 1) / q;
-  long long need = (groups + kThreads - 1) / kThreads;
-  const unsigned bx = (unsigned)(need < want ? need : want);
-  const dim3 grid(bx > 0 ? bx : 1, (unsigned)q);
+  const dim3 grid = grid_for(q, n, device);
   const bool vec = n % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -162,5 +184,25 @@ extern "C" int random_mask_f32(const void* x, const void* keys, void* out,
     random_mask_kernel<false><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), kp, static_cast<float*>(out), cp,
         (int64_t)n, (uint64_t)offset, p, scale);
+  return (int)cudaGetLastError();
+}
+
+// keys: uint32 [B, 2]; out: float32 [B, N]; offset: added to every
+// counter.
+extern "C" int random_uniform_f32(const void* keys, void* out, long long b,
+                                  long long n, long long offset, int device,
+                                  void* stream) {
+  cudaSetDevice(device);
+  if (b == 0 || n == 0) return (int)cudaGetLastError();
+  if (b > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(b, n, device);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* kp = static_cast<const uint32_t*>(keys);
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    random_uniform_kernel<true><<<grid, kThreads, 0, s>>>(
+        kp, static_cast<float*>(out), (int64_t)n, (uint64_t)offset);
+  else
+    random_uniform_kernel<false><<<grid, kThreads, 0, s>>>(
+        kp, static_cast<float*>(out), (int64_t)n, (uint64_t)offset);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,13 @@
 //     level = clamp(rint(blk / scale), -qmax[b], qmax[b])      (int)
 //     payload: 8/W consecutive lanes per byte, little-endian, the low W
 //     bits of each level's two's complement
+//   stochastic rounding (keys [B, 2] uint32 given): for lane l of kept
+//   block k of row h of batch row b,
+//     u     = uniform(keys[b], h*K*128 + k*128 + l)     (threefry.cuh)
+//     level = clamp(floor(blk / scale + u), -qmax[b], qmax[b])
+//   bitwise the JAX package's quant_levels(wire_pack(x), w, key=keys[b])
+//   (repro/kernels/ops.py:195, jax.random.uniform over the packed
+//   [H, K, 128] block: the Pallas kernel rounds to nearest only)
 // unpack_quant: payload, scales, inv [B, NB] i32 -> out [B, H, NB*128] f32
 //   out[b, h, j*128 + l] = level(payload[b, h, inv[b, j]], l) *
 //                          scales[b, h, inv[b, j]]    where inv[b, j] >= 0,
@@ -34,12 +41,23 @@
 // jnp.rint), clamp before the integer cast, and on decode one f32
 // multiply per lane (no add to contract into an FMA).
 //
+// The stochastic variant is a second instantiation (STOCH, selected with
+// if constexpr, so the rint instantiation keeps its code): each lane
+// hashes its 4 consecutive counters (one 20-round Threefry each, 76
+// integer ops) and rounds with floorf(__fadd_rn(__fdiv_rn(v, scale), u)).
+// It is bound by operations, not bytes: at the w8 hop shape [12, 40960,
+// 256] the hashes take about 0.285 ms at the SM's integer issue ceiling
+// (128 results a clock), the bytes 0.189 ms.
+//
 // C interface (ctypes): pointers and the stream are void*, sizes 64-bit,
-// width an int in {2, 4, 8}; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for any other width).
+// width an int in {2, 4, 8}, keys null for round-half-even; returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for any
+// other width).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -51,16 +69,23 @@ __device__ __forceinline__ int level_of(float v, float scale, float qmax) {
   return static_cast<int>(fminf(fmaxf(l, -qmax), qmax));
 }
 
+__device__ __forceinline__ int level_stoch(float v, float scale, float qmax,
+                                           float u) {
+  const float l = floorf(__fadd_rn(__fdiv_rn(v, scale), u));
+  return static_cast<int>(fminf(fmaxf(l, -qmax), qmax));
+}
+
 template <int W>
 __device__ __forceinline__ int sign_extend(uint32_t field) {
   return static_cast<int>(static_cast<int8_t>(
              static_cast<uint8_t>(field << (8 - W)))) >> (8 - W);
 }
 
-template <int W>
+template <int W, bool STOCH>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 pack_quant_kernel(const float4* __restrict__ x, const int* __restrict__ kept,
                   const float* __restrict__ qmax_b,
+                  const uint32_t* __restrict__ keys,
                   uint8_t* __restrict__ payload, float* __restrict__ scales,
                   int64_t rows, int64_t h, int nb, int k) {
   constexpr int kBytes = 128 * W / 8;  // payload bytes per lane-block
@@ -73,6 +98,14 @@ pack_quant_kernel(const float4* __restrict__ x, const int* __restrict__ kept,
   uint8_t* prow = payload + row * k * kBytes;
   float* srow = scales + row * k;
   const int lane = threadIdx.x;
+  uint32_t k0 = 0, k1 = 0, k2 = 0;
+  uint64_t c = 0;  // the counter of this lane's first value in block 0
+  if constexpr (STOCH) {
+    k0 = keys[2 * bat];
+    k1 = keys[2 * bat + 1];
+    k2 = k0 ^ k1 ^ threefry::kParity;
+    c = (uint64_t)(row - bat * h) * (uint64_t)k * 128u + 4u * lane;
+  }
   for (int kb = 0; kb < k; ++kb) {
     const int b = kq[kb];
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -83,10 +116,23 @@ pack_quant_kernel(const float4* __restrict__ x, const int* __restrict__ kept,
     for (int off = 16; off > 0; off >>= 1)
       a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
     const float scale = a > 0.f ? __fdiv_rn(a, qmax) : 1.f;
-    const uint32_t l0 = (uint32_t)level_of(v.x, scale, qmax);
-    const uint32_t l1 = (uint32_t)level_of(v.y, scale, qmax);
-    const uint32_t l2 = (uint32_t)level_of(v.z, scale, qmax);
-    const uint32_t l3 = (uint32_t)level_of(v.w, scale, qmax);
+    uint32_t l0, l1, l2, l3;
+    if constexpr (STOCH) {
+      const uint64_t cb = c + (uint64_t)kb * 128u;
+      l0 = (uint32_t)level_stoch(v.x, scale, qmax,
+                                 threefry::uniform(k0, k1, k2, cb));
+      l1 = (uint32_t)level_stoch(v.y, scale, qmax,
+                                 threefry::uniform(k0, k1, k2, cb + 1));
+      l2 = (uint32_t)level_stoch(v.z, scale, qmax,
+                                 threefry::uniform(k0, k1, k2, cb + 2));
+      l3 = (uint32_t)level_stoch(v.w, scale, qmax,
+                                 threefry::uniform(k0, k1, k2, cb + 3));
+    } else {
+      l0 = (uint32_t)level_of(v.x, scale, qmax);
+      l1 = (uint32_t)level_of(v.y, scale, qmax);
+      l2 = (uint32_t)level_of(v.z, scale, qmax);
+      l3 = (uint32_t)level_of(v.w, scale, qmax);
+    }
     uint8_t* dst = prow + kb * kBytes;
     if (W == 8) {
       reinterpret_cast<uint32_t*>(dst)[lane] =
@@ -146,15 +192,29 @@ dim3 grid_for(int64_t rows) {
   return dim3((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
 }
 
+template <int W, bool STOCH>
+void launch_pack_as(const void* x, const void* kept, const void* qmax,
+                    const void* keys, void* payload, void* scales,
+                    int64_t rows, int64_t h, int nb, int k,
+                    cudaStream_t stream) {
+  pack_quant_kernel<W, STOCH><<<grid_for(rows), dim3(32, kRowsPerBlock), 0,
+                                stream>>>(
+      static_cast<const float4*>(x), static_cast<const int*>(kept),
+      static_cast<const float*>(qmax), static_cast<const uint32_t*>(keys),
+      static_cast<uint8_t*>(payload), static_cast<float*>(scales), rows, h,
+      nb, k);
+}
+
 template <int W>
 void launch_pack(const void* x, const void* kept, const void* qmax,
-                 void* payload, void* scales, int64_t rows, int64_t h,
-                 int nb, int k, cudaStream_t stream) {
-  pack_quant_kernel<W><<<grid_for(rows), dim3(32, kRowsPerBlock), 0,
-                         stream>>>(
-      static_cast<const float4*>(x), static_cast<const int*>(kept),
-      static_cast<const float*>(qmax), static_cast<uint8_t*>(payload),
-      static_cast<float*>(scales), rows, h, nb, k);
+                 const void* keys, void* payload, void* scales, int64_t rows,
+                 int64_t h, int nb, int k, cudaStream_t stream) {
+  if (keys != nullptr)
+    launch_pack_as<W, true>(x, kept, qmax, keys, payload, scales, rows, h,
+                            nb, k, stream);
+  else
+    launch_pack_as<W, false>(x, kept, qmax, keys, payload, scales, rows, h,
+                             nb, k, stream);
 }
 
 template <int W>
@@ -170,22 +230,24 @@ void launch_unpack(const void* payload, const void* scales, const void* inv,
 
 }  // namespace
 
+// keys: uint32 [B, 2] (one key per batch row: stochastic rounding) or
+// null (round half to even)
 extern "C" int varco_pack_quant_f32(const void* x, const void* kept,
-                                    const void* qmax, void* payload,
-                                    void* scales, long long b, long long h,
-                                    long long nb, long long k, int width,
-                                    int device, void* stream) {
+                                    const void* qmax, const void* keys,
+                                    void* payload, void* scales, long long b,
+                                    long long h, long long nb, long long k,
+                                    int width, int device, void* stream) {
   cudaSetDevice(device);
   const int64_t rows = (int64_t)b * h;
   if (width != 2 && width != 4 && width != 8) return (int)cudaErrorInvalidValue;
   if (rows == 0 || k == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (width == 8) {
-    launch_pack<8>(x, kept, qmax, payload, scales, rows, h, (int)nb, (int)k, s);
+    launch_pack<8>(x, kept, qmax, keys, payload, scales, rows, h, (int)nb, (int)k, s);
   } else if (width == 4) {
-    launch_pack<4>(x, kept, qmax, payload, scales, rows, h, (int)nb, (int)k, s);
+    launch_pack<4>(x, kept, qmax, keys, payload, scales, rows, h, (int)nb, (int)k, s);
   } else {
-    launch_pack<2>(x, kept, qmax, payload, scales, rows, h, (int)nb, (int)k, s);
+    launch_pack<2>(x, kept, qmax, keys, payload, scales, rows, h, (int)nb, (int)k, s);
   }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,10 @@ Wires:
 * ``"packed"`` — the all-gather of the kept 128-lane blocks only
   (``varco_pack`` → ship → ``varco_unpack``), the same per-worker keys
   as ``blockmask``, so its halo is bitwise the dense ``blockmask`` halo
-  (the JAX package's module note); scalar rates only here.
+  (the JAX package's module note).  Under a closed-loop ``[Q, Q]`` rate
+  and width map one payload serves every receiver, so each sender ships
+  the maximum of its receivers' kept counts and widths (quantised
+  through the fused codec when every pair quantises).
 * ``"p2p"`` carries every policy — ``full``/``none``, the scalar-rate
   open-loop policies (``fixed``/``varco``: each sender packs its
   boundary block to the kept 128-lane blocks with ``varco_pack`` and the
@@ -34,7 +37,9 @@ Wires:
   per-pair ``[Q, Q]`` rate and width maps (nested kept sets carved out by
   column masks; quantised pairs through the fused ``varco_pack_quant`` /
   ``varco_unpack_quant`` hop when every pair quantises, with optional
-  error-feedback residuals).
+  error-feedback residuals, stochastic rounding under the JAX package's
+  per-pair ``round_key`` stream, and the ``stale`` controller's hop
+  reuse).
 
 Mask indices and the per-pair bookkeeping (kept counts, column masks,
 ledger rows) are tiny and computed on the host with the JAX package's key
@@ -54,8 +59,8 @@ from repro_torch import prng
 from repro_torch.core.varco import FULL_COMM, CommPolicy
 from repro_torch.kernels.ops import (WIRE_WIDTHS, ell_aggregate,
                                      per_block_wire_bits, qmax_of,
-                                     quant_hop, wire_pack, wire_quant,
-                                     wire_unpack)
+                                     quant_hop, round_key, wire_pack,
+                                     wire_quant, wire_unpack)
 from repro_torch.kernels.varco_pack import (LANE, worker_block_maps,
                                             worker_block_maps_pos)
 from repro_torch.nn.gnn import (GNNConfig, gnn_forward,
@@ -422,9 +427,10 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                              cache_out: list | None = None,
                              width_map=None, resid=None,
                              resid_out: list | None = None,
-                             store_w: int = 0):
+                             store_w: int = 0, rounding: str = "rint",
+                             wire_out: list | None = None):
     """AggregateFn over stacked ``[Q, P, F]`` tensors on one device — the
-    JAX package's ``_make_aggregate_emulated`` (rounding ``"rint"``).
+    JAX package's ``_make_aggregate_emulated``.
 
     ``key`` is the step's raw key (``repro_torch.prng``); exchange
     ``call`` draws worker ``i``'s kept blocks from ``fold_in(fold_in(key,
@@ -443,9 +449,27 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     are the error-feedback residuals (one full-width ``[Q, D, H, F]``
     buffer per exchange): injected before quantising, replaced by the
     fresh quantisation error.  ``skip``/``cache``/``cache_out`` are the
-    drift-gated hop reuse of serving: a pair with ``skip[i, j] == 1`` is
-    served ``cache[call]``'s rows at zero wire bits, and the fresh hop
-    buffers land in ``cache_out``.
+    hop reuse of the ``stale`` controller and of serving's drift-gated
+    cache: a pair with ``skip[i, j] == 1`` is served ``cache[call]``'s
+    rows at zero wire bits (no cotangent reaches it), and the delivered
+    hop buffers land in ``cache_out`` (detached).
+
+    On the packed wire a rate map becomes per-SENDER rates and widths:
+    one payload serves every receiver, so sender ``j`` keeps the maximum
+    of its receivers' kept counts (``k_send``, columns past it zeroed)
+    and quantises at their maximum width (``w_send``), through the fused
+    codec on ``[Q, B, F]`` under ``store_w``; the ledger charges each
+    receiver the sender's row bits.
+
+    ``rounding="stochastic"`` rounds the quantised wire ``floor(v + u)``
+    under the JAX package's keys, ``round_key(fold_in(key, call), sender,
+    hop)`` on the p2p hops and ``round_key(fold_in(key, call), sender)``
+    on the packed payload: into the fused codec under ``store_w``, else
+    into ``wire_quant``.  ``wire_out``, a list, captures each rate-map
+    exchange's shipped buffers: ``(payload uint8, scales)`` under
+    ``store_w``, else ``(fp32 buffer, None)`` — sender-major ``[Q, D, H,
+    ·]`` hop stacks on the p2p wire, ``[Q, B, ·]`` payloads on the packed
+    wire (the ledger-vs-bytes conservation hook).
 
     The oracle carries the split-phase API: ``start(li, x) -> (token,
     bits)`` packs and ships, ``complete(li, x, token)`` runs the local
@@ -460,14 +484,14 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     """
     p2p = meta.wire == "p2p"
     packed_wire = meta.wire == "packed"
-    if rate_map is not None and packed_wire:
-        raise NotImplementedError(
-            "per-pair rate maps on the packed wire are not ported yet "
-            "(ROADMAP queue 1: auto policies on the packed wire); use "
-            "wire='p2p'")
-    if rate_map is not None and not p2p:
-        raise ValueError("per-pair rate maps need wire='p2p'; the dense "
-                         "wire keeps the scalar path")
+    if rate_map is not None and not (p2p or packed_wire):
+        raise ValueError("per-pair rate maps need wire='packed' or 'p2p'; "
+                         "the dense wire keeps the scalar path")
+    if rounding not in ("rint", "stochastic"):
+        raise ValueError(f"rounding must be 'rint' or 'stochastic', got "
+                         f"{rounding!r}")
+    if resid is not None and not p2p:
+        raise ValueError("error-feedback residuals are a p2p-wire feature")
     compressor = policy.compressor() if policy.compresses and \
         meta.wire == "dense" else None
     if width_map is not None and rate_map is None:
@@ -501,24 +525,43 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         return _rows_of(rows, graph["p2p_send_slot"], b_sz) * \
             graph["p2p_send_valid"][..., None]
 
+    def select(li):
+        """Layer ``li``'s ``(rate map, ledger slice, width map)``."""
+        rm = rate_map if rate_map.ndim == 2 else rate_map[li]
+        wm = None
+        if width_map is not None:
+            wm = width_map if width_map.ndim == 2 else width_map[li]
+        return rm, 0 if n_layers == 1 else li, wm
+
+    def pair_err_of(publish, pos_all, k_jd):
+        """Per-pair dropped-block energy ``[Q, Q]``: ``k_jd [Q, D]`` is
+        the kept count governing hop ``(j, d)``."""
+        if "p2p_send_slot" not in graph:
+            return torch.zeros((q, q), dtype=_F32, device=dev)
+        energy = _pair_hop_energy(publish.detach(), graph["p2p_send_slot"],
+                                  graph["p2p_send_valid"])   # [Q, D, nb]
+        dropped = to_dev(pos_all[:, None, :] >= k_jd[:, :, None], _F32)
+        return _scatter_pairs((energy * dropped).sum(-1), q)
+
     def start_rate_map(li, publish, call):
         """The per-pair rate-map hop path: ``(sent [Q, D, H, F], ledger
         vector)``."""
         f = publish.shape[-1]
-        rm = rate_map if rate_map.ndim == 2 else rate_map[li]
-        lix = 0 if n_layers == 1 else li
-        wm = None
-        if width_map is not None:
-            wm = width_map if width_map.ndim == 2 else width_map[li]
+        rm, lix, wm = select(li)
         nb = f // LANE
         n_keep = _keep_of(f, rate, packed_k)
-        kept, inv, pos_all = worker_block_maps_pos(prng.fold_in(key, call),
-                                                   q, nb, n_keep)
+        k_call = prng.fold_in(key, call)
+        kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
         pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
         k_pairs = _pair_keep(nb, rm, n_keep)                     # [Q, Q]
         k_jd = k_pairs[rv, jj]                                   # [Q, D]
         kept_t, inv_t = to_dev(kept), to_dev(inv)
         valid = graph["p2p_send_valid"][..., None]
+        rks = None
+        if wm is not None and rounding == "stochastic":
+            # one rounding stream per (sender, ring hop)
+            rks = np.stack([[round_key(k_call, j, d) for d in range(d_hops)]
+                            for j in range(q)])                  # [Q, D, 2]
         if wm is not None and store_w:
             # sub-byte wire: each (sender, hop) row block is quantised at
             # its pair's width into store_w-bit storage and rebuilt from
@@ -531,10 +574,17 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             pre = rows * to_dev(colmask, _F32)
             h_w = pre.shape[2]
             qmax = qmax_of(wm[rv, jj]).reshape(-1)               # [Q·D]
+            shipped: list | None = [] if wire_out is not None else None
             sent = quant_hop(pre.reshape(q * d_hops, h_w, f),
                              to_dev(np.repeat(kept, d_hops, axis=0)),
                              to_dev(np.repeat(inv, d_hops, axis=0)),
-                             qmax, store_w).reshape(q, d_hops, h_w, f)
+                             qmax, store_w,
+                             keys=None if rks is None else rks.reshape(-1, 2),
+                             wire_out=shipped).reshape(q, d_hops, h_w, f)
+            if shipped is not None:
+                payload, scales = shipped[0]
+                wire_out.append((payload.reshape(q, d_hops, h_w, -1),
+                                 scales.reshape(q, d_hops, h_w, -1)))
             if resid_out is not None:
                 resid_out.append((pre - sent).detach())
         else:
@@ -552,27 +602,25 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                         resid[call].reshape(q, d_hops * h_w, f), kept_t,
                         inv_t).reshape(hops.shape)
                     hops = hops + r_pack * cmask_l * valid
-                hops_q = wire_quant(hops, w_jd)
+                hops_q = wire_quant(hops, w_jd, key=rks)
                 if resid_out is not None:
                     err = (hops - hops_q).detach()
                     resid_out.append(wire_unpack(
                         err.reshape(q, d_hops * h_w, -1), inv_t, kept_t
                     ).reshape(q, d_hops, h_w, f))
                 hops = hops_q
+            if wire_out is not None:
+                wire_out.append((hops.detach(), None))
             sent = wire_unpack(hops.reshape(q, d_hops * h_w, -1), inv_t,
                                kept_t).reshape(q, d_hops, h_w, f)
-        pub = publish.detach()
-        pair_err = _scatter_pairs(
-            (_pair_hop_energy(pub, graph["p2p_send_slot"],
-                              graph["p2p_send_valid"]) *
-             to_dev(pos_all[:, None, :] >= k_jd[:, :, None],
-                    _F32)).sum(-1), q)
+        pair_err = pair_err_of(publish, pos_all, k_jd)
         pair_delta = torch.zeros((q, q), dtype=_F32, device=dev)
         live = None
         if cache is not None:
             c = cache[call]
-            num = ((sent - c) ** 2).sum(dim=(-1, -2))
-            den = (sent ** 2).sum(dim=(-1, -2)) + 1e-12
+            fresh = sent.detach()
+            num = ((fresh - c) ** 2).sum(dim=(-1, -2))
+            den = (fresh ** 2).sum(dim=(-1, -2)) + 1e-12
             pair_delta = _scatter_pairs(num / den, q)
             sk = skip[rv, jj]                                    # [Q, D]
             if sk.any():
@@ -580,13 +628,64 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                                    sent)
             live = 1.0 - skip
         if cache_out is not None:
-            cache_out.append(sent)
+            cache_out.append(sent.detach())
         row_bits = k_pairs.astype(np.float32) * (
             per_block_wire_bits(wm).numpy() if wm is not None
             else np.float32(LANE * 32.0))
         bits = _pair_ledger(meta, f, rm, row_bits, pair_err, pair_delta,
                             live=live, li=lix, n_layers=n_layers,
                             width_map=wm)
+        return sent, bits
+
+    def start_packed_rate_map(li, publish, call):
+        """The packed all-gather under a rate map: one payload per sender
+        at the maximum of its receivers' kept counts and widths.  Returns
+        ``(delivered [Q, B, F], ledger vector)``."""
+        f = publish.shape[-1]
+        rm, lix, wm = select(li)
+        nb = f // LANE
+        n_keep = _keep_of(f, rate, packed_k)
+        k_call = prng.fold_in(key, call)
+        kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+        pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
+        eye = np.eye(q, dtype=bool)
+        k_pairs = _pair_keep(nb, rm, n_keep)
+        k_send = np.maximum(np.where(eye, 0, k_pairs).max(axis=0), 1)  # [Q]
+        kept_t, inv_t = to_dev(kept), to_dev(inv)
+        w_send = rks = None
+        if wm is not None:
+            w_send = np.where(eye, np.float32(0.0), wm).max(axis=0)
+            w_send = np.where(w_send > 0.0, w_send,
+                              np.float32(32.0)).astype(np.float32)  # [Q]
+            if rounding == "stochastic":
+                rks = np.stack([round_key(k_call, j) for j in range(q)])
+        if wm is not None and store_w:
+            # sub-byte all-gather: the fused codec on [Q, B, F], each
+            # sender at its own qmax under the storage width
+            colmask = np.repeat(pos_all < k_send[:, None], LANE,
+                                axis=-1)[:, None, :]             # [Q, 1, F]
+            sent = quant_hop(publish * to_dev(colmask, _F32), kept_t, inv_t,
+                             qmax_of(w_send), store_w, keys=rks,
+                             wire_out=wire_out)
+        else:
+            cmask = np.repeat(pos_kept < k_send[:, None], LANE, axis=-1)
+            packed = wire_pack(publish, kept_t, inv_t) * \
+                to_dev(cmask[:, None, :], _F32)
+            if wm is not None:
+                packed = wire_quant(packed, to_dev(w_send[:, None, None]),
+                                    key=rks)
+            if wire_out is not None:
+                wire_out.append((packed.detach(), None))
+            sent = wire_unpack(packed, inv_t, kept_t)
+        k_jd = np.broadcast_to(k_send[:, None], (q, d_hops))
+        pair_err = pair_err_of(publish, pos_all, k_jd)
+        per_row = k_send.astype(np.float32) * (
+            per_block_wire_bits(w_send).numpy() if wm is not None
+            else np.float32(LANE * 32.0))
+        row_bits = np.tile(per_row, (q, 1))       # receiver × sender
+        bits = _pair_ledger(meta, f, rm, row_bits, pair_err,
+                            torch.zeros((q, q), dtype=_F32, device=dev),
+                            li=lix, n_layers=n_layers, width_map=wm)
         return sent, bits
 
     def start(li, x):                                  # x: [Q, P, F]
@@ -598,6 +697,9 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             return None, torch.zeros((2,), dtype=_F32, device=dev)
         publish = _rows_of(x, graph["send_idx"], p_sz) * \
             graph["send_valid"][..., None]             # [Q, B, F]
+        if packed_wire and rate_map is not None:
+            sent, bits = start_packed_rate_map(li, publish, call)
+            return sent.reshape(q * b_sz, f), bits
         if not p2p:                   # the all-gather wires: a reshape
             wire_width = None
             if packed_wire:

@@ -2,19 +2,21 @@
 
 Counterpart of ``repro/dist/ratectl/driver.py`` (emulated backend):
 
-* :func:`make_controller` — instantiate the named controller (``budget``
-  or ``qos``) with the shared budget pacing;
-* :func:`make_auto_train_step` — the per-pair-rate Algorithm-1 step: the
-  compression operand is a host ``[Q, Q]`` (or per-layer ``[L, Q, Q]``)
-  rate map and optional width map planned by the controller each step;
+* :func:`make_controller` — instantiate the named controller (``budget``,
+  ``error``, ``stale`` or ``qos``) with the shared budget pacing;
+* :func:`make_auto_train_step` — the per-pair-rate Algorithm-1 step on
+  the p2p or packed wire: the compression operand is a host ``[Q, Q]``
+  (or per-layer ``[L, Q, Q]``) rate map, optional width map and skip
+  mask planned by the controller each step;
 * :func:`init_halo_cache` / :func:`init_wire_residuals` — the per-exchange
-  buffers the cache channel carries (serving's hop cache, training's
-  error-feedback residuals).
+  buffers the cache channel carries (the ``stale`` controller's and
+  serving's hop cache, or the error-feedback residuals of a quantising
+  p2p policy: stale XOR error feedback).
 
 The loop a trainer runs (``repro_torch.train.trainer.train_gnn``)::
 
     ctl = make_controller(policy, meta, cfg, total_steps)
-    state, cache = ctl.init(), init_wire_residuals(meta, cfg)
+    state, cache = ctl.init(), init_halo_cache(meta, cfg)  # under stale
     step = make_auto_train_step(cfg, policy, opt, meta)
     for t in range(total_steps):
         plan, state = ctl.plan(state, t)
@@ -35,7 +37,9 @@ from repro_torch.dist.gnn_parallel import (DistMeta, _make_aggregate_emulated,
                                            _per, _snap_width, _value_and_grad)
 from repro_torch.dist.ratectl.base import RateController, RatePlan, make_pacing
 from repro_torch.dist.ratectl.budget import budget_controller
+from repro_torch.dist.ratectl.error import error_controller
 from repro_torch.dist.ratectl.qos import qos_controller
+from repro_torch.dist.ratectl.stale import stale_controller
 from repro_torch.kernels.varco_pack import LANE
 from repro_torch.nn.gnn import GNNConfig, gnn_forward, masked_loss_and_correct
 
@@ -63,32 +67,47 @@ def make_controller(policy: CommPolicy, meta, cfg, total_steps: int,
                     **overrides) -> RateController:
     """Instantiate ``policy.controller`` with pacing scaled to
     ``policy.budget_bits`` over ``total_steps``.  ``overrides`` pass to
-    :func:`make_pacing` (``c_max``, ``slope``, ``kp``, ``ki``, ...) and
-    ``ema_decay`` to the controller."""
+    :func:`make_pacing` (``c_max``, ``slope``, ``kp``, ``ki``, ...) and to
+    the controller (``threshold``/``max_stale`` for ``stale``,
+    ``ema_decay`` for ``error``/``qos`` and the per-layer modes)."""
     if policy.mode != "auto":
         raise ValueError(f"policy mode must be 'auto', got {policy.mode!r}")
-    if policy.controller not in ("budget", "qos"):
-        raise NotImplementedError(
-            f"the {policy.controller!r} controller is not ported yet "
-            f"(ROADMAP queue 1: rate control); the port runs 'budget' and "
-            f"'qos'")
-    ctl_kw = {k: overrides.pop(k) for k in ("ema_decay",) if k in overrides}
+    ctl_kw = {k: overrides.pop(k) for k in ("threshold", "max_stale",
+                                            "ema_decay") if k in overrides}
+    per_layer = policy.per_layer
     pacing = make_pacing(meta, exchange_widths(cfg), total_steps,
                          policy.budget_bits,
                          layer_widths=layer_exchange_widths(cfg)
-                         if policy.per_layer else None, **overrides)
+                         if per_layer else None, **overrides)
+    if policy.controller != "stale":
+        bad = sorted(k for k in ("threshold", "max_stale") if k in ctl_kw)
+        if bad:
+            raise ValueError(
+                f"{'/'.join(bad)} are stale-controller knobs; the "
+                f"{policy.controller!r} controller does not accept them")
+    if "ema_decay" in ctl_kw and policy.controller not in ("error", "qos") \
+            and not per_layer:
+        raise ValueError(
+            f"ema_decay drives the error/qos EMAs; the scalar "
+            f"{policy.controller!r} controller keeps none — use the error "
+            f"or qos controller or a :per-layer policy")
+    kw = dict(per_layer=per_layer, max_width=policy.max_width, **ctl_kw)
     if policy.controller == "budget":
-        return budget_controller(meta.q, pacing, per_layer=policy.per_layer,
-                                 max_width=policy.max_width, **ctl_kw)
-    return qos_controller(meta.q, pacing, meta.pair_table(),
-                          per_layer=policy.per_layer,
-                          max_width=policy.max_width, **ctl_kw)
+        return budget_controller(meta.q, pacing, **kw)
+    if policy.controller == "error":
+        return error_controller(meta.q, pacing, meta.pair_table(), **kw)
+    if policy.controller == "qos":
+        return qos_controller(meta.q, pacing, meta.pair_table(), **kw)
+    if policy.controller == "stale":
+        return stale_controller(meta.q, pacing, **kw)
+    raise ValueError(f"unknown controller {policy.controller!r}")
 
 
 def init_halo_cache(meta, cfg, device="cuda") -> tuple:
     """Zero-initialised per-exchange hop buffers (``[Q, D, H, width]``
-    per exchange call; p2p wire).  Serving's drift-gated hop cache never
-    reads them before the first refresh fills them."""
+    per exchange call; p2p wire) for the ``stale`` controller and
+    serving's drift-gated hop cache.  Neither skips before the first
+    exchange fills them, so the zeros are never read."""
     d = max(meta.q - 1, 1)
     return tuple(torch.zeros((meta.q, d, meta.p2p_hop_width, w),
                              dtype=_F32, device=device)
@@ -97,7 +116,8 @@ def init_halo_cache(meta, cfg, device="cuda") -> tuple:
 
 def init_wire_residuals(meta, cfg, device="cuda") -> tuple:
     """Zero-initialised error-feedback residuals for quantising policies
-    (``max_width < 32``): one full-width ``[Q, D, H, width]`` buffer per
+    on the p2p wire (``max_width < 32``, never under ``stale``): one
+    full-width ``[Q, D, H, width]`` buffer per
     exchange call, the same shapes as :func:`init_halo_cache`.  Each step
     the residual is added to the pre-quantisation rows and replaced by
     the new quantisation error, so the wire's rounding error is re-shipped
@@ -141,45 +161,47 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     opt_state, metrics, cache')``: ``plan.rates`` is a host ``[Q, Q]`` map
     or per-layer ``[L, Q, Q]`` tensor, quantised to the static kept-block
     maximum per width; ``plan.widths`` (``None`` or a map) is snapped to
-    the storage grid, and when every pair quantises the hops ride the
-    fused sub-byte kernels at the maximum snapped width.  ``cache`` is the
-    error-feedback residual tuple (:func:`init_wire_residuals`) for a
-    quantising policy, else ``()``; an exact step carries it unchanged.
-    ``metrics`` adds ``pair_transport`` / ``pair_err`` / ``pair_delta``
-    ``[Q, Q]`` to the usual scalars.  Rounding is round-to-nearest-even
-    (the JAX package's default off the TPU)."""
+    the storage grid, and when every pair quantises the wire rides the
+    fused sub-byte kernels at the maximum snapped width.  ``meta.wire`` is
+    ``"p2p"`` or ``"packed"`` (one payload per sender: the maximum of its
+    receivers' kept counts and widths).  ``cache`` is the ``stale``
+    controller's halo cache (:func:`init_halo_cache`; ``plan.skip`` marks
+    the pairs served from it, p2p only), or on the p2p wire the
+    error-feedback residuals (:func:`init_wire_residuals`) of a
+    quantising policy — stale XOR error feedback — else ``()``; an exact
+    step carries residuals unchanged.  ``metrics`` adds ``pair_transport``
+    / ``pair_err`` / ``pair_delta`` ``[Q, Q]`` to the usual scalars.
+    ``rounding`` is ``"rint"`` (round half to even; ``None`` picks it, the
+    JAX package's default off the TPU) or ``"stochastic"`` (``floor(v +
+    u)`` under the per-pair ``round_key`` stream)."""
     if policy.mode != "auto":
         raise ValueError(f"make_auto_train_step needs an 'auto' policy, "
                          f"got mode {policy.mode!r}")
     if mesh is not None:
         raise NotImplementedError(
             "the shard_map backend is not ported (ROADMAP queue 1)")
-    if meta.wire == "packed":
-        raise NotImplementedError(
-            "auto policies on the packed wire (per-sender rate and width "
-            "maps) are not ported yet (ROADMAP queue 1: auto policies on "
-            "the packed wire); use wire='p2p'")
-    if meta.wire != "p2p":
-        raise ValueError(f"per-pair rate maps need wire='p2p', got "
-                         f"{meta.wire!r}")
+    if meta.wire not in ("packed", "p2p"):
+        raise ValueError(f"per-pair rate maps need wire='packed' or 'p2p', "
+                         f"got {meta.wire!r} (the dense wire is "
+                         f"scalar-only)")
     if sync not in ("grad", "fedavg"):
         raise ValueError(f"sync must be 'grad' or 'fedavg', got {sync!r}")
-    stale = (policy.controller == "stale") if stale is None else stale
-    if stale:
-        raise NotImplementedError(
-            "training hop reuse (the stale controller) is not ported yet "
-            "(ROADMAP queue 1: rate control)")
-    if rounding not in (None, "rint"):
-        raise NotImplementedError(
-            f"rounding {rounding!r} is not ported (ROADMAP queue 1): the "
-            f"port rounds half to even ('rint')")
     for f_ in {meta.feat_dim, *meta.layer_dims}:
         if f_ % LANE:
             raise ValueError(
                 f"per-pair rate maps pack lane-blocks; every exchanged "
                 f"width must be divisible by {LANE}, got {f_}")
     n_ex = len(exchange_widths(cfg))
-    use_ef = policy.max_width < 32
+    stale = (policy.controller == "stale") if stale is None else stale
+    if stale and meta.wire != "p2p":
+        raise ValueError("the stale controller reuses per-pair hop buffers; "
+                         "it needs wire='p2p'")
+    rounding = "rint" if rounding is None else rounding
+    if rounding not in ("rint", "stochastic"):
+        raise ValueError(f"rounding must be 'rint' or 'stochastic', "
+                         f"got {rounding!r}")
+    # error feedback and hop reuse share the cache channel: stale XOR EF
+    use_ef = policy.max_width < 32 and meta.wire == "p2p" and not stale
 
     def plan_widths(plan: RatePlan):
         """Snap the planned widths to the storage grid; ``None`` when no
@@ -201,9 +223,12 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
             agg = _make_aggregate_emulated(
                 graph, meta, policy, torch.ones((), dtype=_F32), key,
                 packed_k=kb, rate_map=rm, width_map=wm,
+                skip=np.asarray(plan.skip, np.float32) if stale else None,
+                cache=cache if stale else None,
+                cache_out=cache_out if stale else None,
                 resid=cache if ef else None,
                 resid_out=cache_out if ef else None,
-                store_w=_packed_store_w(meta, wm))
+                store_w=_packed_store_w(meta, wm), rounding=rounding)
             logits, bits = gnn_forward(p, cfg, graph["features"], agg)
             loss_sum, _ = masked_loss_and_correct(
                 logits, graph["labels"], graph["train_mask"])
@@ -213,6 +238,6 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
         new_params, new_state = _optimize(opt, grads, opt_state, params)
         metrics = _auto_metrics(loss, rm, bits.detach().cpu(), meta.q, n_ex)
         return new_params, new_state, metrics, \
-            tuple(cache_out) if ef else tuple(cache)
+            tuple(cache_out) if cache_out else tuple(cache)
 
     return step

@@ -7,10 +7,13 @@ PyTorch version and a launch counter:
 * ``varco_pack``       — lane-block pack / unpack of the wire
   (``csrc/varco_pack.cu``), each the other's VJP
 * ``varco_pack_quant`` — the fused quantised-wire codecs
-  (``csrc/varco_pack_quant.cu``)
+  (``csrc/varco_pack_quant.cu``), round half to even or, in a second
+  instantiation (``varco_pack_quant_stochastic``), stochastic rounding
+  from the shared Threefry stream (``csrc/threefry.cuh``)
 * ``randmask``         — the paper's shared-key random element mask of
-  the dense compressing wire (``csrc/randmask.cu``; no TPU kernel: the
-  JAX package leaves it to XLA)
+  the dense compressing wire and ``random_uniform``, the uniforms of
+  stochastic rounding (``csrc/randmask.cu``; no TPU kernel: the JAX
+  package draws both through XLA)
 * ``flash_attention``  — causal / sliding-window GQA attention of the LM
   prefill: a tensor-core kernel for bf16 at head dims 64/128/256
   (``csrc/flash_attention_wgmma.cu``) and a CUDA-core one for f32 and

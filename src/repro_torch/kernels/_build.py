@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, never at import, into ``build/repro_torch/``
 under the repository root (listed in ``.gitignore``); each library's file
-name carries a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is reused.  :func:`build` compiles several sources in
+name carries a hash of its source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.  :func:`build` compiles several sources in
 parallel, one ``nvcc`` process each.
 """
 
@@ -44,7 +44,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's file: its name carries a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

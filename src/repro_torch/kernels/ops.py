@@ -11,8 +11,10 @@ version and no global backend switch — the tensor decides.
 * :func:`ell_aggregate` — the local-edge ELL aggregation (``ell_spmm``
   kernel); its x-cotangent is the same kernel over the reversed lists;
 * :func:`pack_quant` / :func:`unpack_quant` — the fused quantised-wire
-  codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels), and
-  :func:`quant_hop`, the straight-through sub-byte hop built from them;
+  codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels; with
+  ``keys``, stochastic rounding in the ``varco_pack_quant_stochastic``
+  instantiation), and :func:`quant_hop`, the straight-through sub-byte
+  hop built from them;
 * :func:`random_mask` — the paper's shared-key Bernoulli element mask of
   the dense compressing wire (``random_mask`` kernel), differentiable: its
   backward is the same kernel on the cotangent (the mask depends only on
@@ -24,7 +26,10 @@ version and no global backend switch — the tensor decides.
 * the elementwise quantised-wire codecs (:func:`quant_levels`,
   :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
   :func:`wire_quant`) — PyTorch on every device, as the JAX runtime
-  composes them from jnp ops.
+  composes them from jnp ops; their ``key=`` (stochastic rounding)
+  draws its uniforms with the ``random_uniform`` kernel, and
+  :func:`round_key` is the JAX package's per-pair rounding key
+  schedule.
 
 Every op takes a leading batch dimension (``[Q, N, F]`` with per-batch
 index rows) or, for the wire ops, an unbatched ``[N, F]`` with one index
@@ -34,19 +39,27 @@ backward launches kernels too.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from repro_torch import prng
 
 from . import ref
 from .ell_spmm import ell_spmm, ell_spmm_plain
 from .flash_attention import flash_attention, flash_attention_plain
+from .randmask import keys_tensor
 from .randmask import random_mask as random_mask_kernel
-from .randmask import random_mask_plain
+from .randmask import random_mask_plain, random_uniform, random_uniform_plain
 from .ssd_chunk import ssd_chunk as ssd_chunk_kernel
 from .ssd_chunk import ssd_chunk_plain
 from .varco_pack import (LANE, varco_pack, varco_pack_plain,
                          varco_pack_quant, varco_pack_quant_plain,
-                         varco_unpack, varco_unpack_plain,
-                         varco_unpack_quant, varco_unpack_quant_plain)
+                         varco_pack_quant_stochastic,
+                         varco_pack_quant_stochastic_plain, varco_unpack,
+                         varco_unpack_plain, varco_unpack_quant,
+                         varco_unpack_quant_plain)
 
 #: wire bit-widths the quantised codecs speak — 32 is the fp32 passthrough,
 #: the rest symmetric per-lane-block int formats bit-packed to sub-byte
@@ -260,23 +273,44 @@ def qmax_of(width) -> torch.Tensor:
     return 2.0 ** (w - 1.0) - 1.0
 
 
+def _keys_on(keys, device) -> torch.Tensor:
+    """Rounding keys as the int32 ``[B, 2]`` tensor the kernels read:
+    ``keys`` is such a tensor or numpy ``uint32 [..., 2]`` keys
+    (``repro_torch.prng``), flattened over their leading dimensions."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int32).reshape(-1, 2) \
+            .contiguous()
+    return keys_tensor(keys, device)
+
+
+def _pack_quant(x, kept, qmax, width, keys):
+    if keys is None:
+        return _route(varco_pack_quant, varco_pack_quant_plain, x, kept,
+                      qmax, width)
+    return _route(varco_pack_quant_stochastic,
+                  varco_pack_quant_stochastic_plain, x, kept, qmax,
+                  _keys_on(keys, x.device), width)
+
+
 def pack_quant(x: torch.Tensor, kept: torch.Tensor, width: int,
-               qmax: torch.Tensor | None = None
+               qmax: torch.Tensor | None = None, keys=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused gather + quantise + bit-pack: ``[B, N, F]`` with ``kept [B,
     K]`` -> ``(payload uint8 [B, N, K·128·width/8], scales f32 [B, N,
     K])`` (or unbatched ``[N, F]`` with ``kept [K]``).  ``qmax [B]``
     defaults to ``2^(width-1) - 1`` for every row — the JAX package's
     static-width ``pack_quant``; a smaller per-row ``qmax`` quantises that
-    row at a narrower width inside the same storage."""
+    row at a narrower width inside the same storage.  ``keys`` (one
+    uint32 key per batch row, ``[B, 2]``; one ``[2]`` key unbatched)
+    rounds stochastically: bitwise ``pack_bits(quant_levels(wire_pack(x),
+    width, key=keys[b]))``; without them rounding is half to even."""
     squeeze = x.dim() == 2
     if squeeze:
         x, kept = x[None], kept[None]
     if qmax is None:
         qmax = qmax_of(width).expand(x.shape[0])
     qmax = qmax.to(device=x.device, dtype=torch.float32).contiguous()
-    payload, scales = _route(varco_pack_quant, varco_pack_quant_plain,
-                             x.contiguous(), kept, qmax, width)
+    payload, scales = _pack_quant(x.contiguous(), kept, qmax, width, keys)
     return (payload[0], scales[0]) if squeeze else (payload, scales)
 
 
@@ -296,12 +330,14 @@ class _QuantHop(torch.autograd.Function):
     """The sub-byte hop: ``unpack_quant(pack_quant(x))`` forward, the
     straight-through estimator followed by ``wire_unpack``'s VJP
     backward — the cotangent passes unchanged on kept blocks and is zero
-    on dropped ones."""
+    on dropped ones.  ``wire_out`` (a list, or None) receives the
+    ``(payload, scales)`` that crossed the wire."""
 
     @staticmethod
-    def forward(ctx, x, kept, inv, qmax, width):
-        payload, scales = _route(varco_pack_quant, varco_pack_quant_plain,
-                                 x, kept, qmax, width)
+    def forward(ctx, x, kept, inv, qmax, width, keys, wire_out):
+        payload, scales = _pack_quant(x, kept, qmax, width, keys)
+        if wire_out is not None:
+            wire_out.append((payload, scales))
         ctx.save_for_backward(inv)
         return _route(varco_unpack_quant, varco_unpack_quant_plain,
                       payload, scales, inv, width)
@@ -310,20 +346,24 @@ class _QuantHop(torch.autograd.Function):
     def backward(ctx, g):
         inv, = ctx.saved_tensors
         keep = (inv >= 0).to(g.dtype).repeat_interleave(LANE, dim=-1)
-        return g * keep[:, None, :], None, None, None, None
+        return g * keep[:, None, :], None, None, None, None, None, None
 
 
 def quant_hop(x: torch.Tensor, kept: torch.Tensor, inv: torch.Tensor,
-              qmax: torch.Tensor, width: int) -> torch.Tensor:
+              qmax: torch.Tensor, width: int, keys=None,
+              wire_out: list | None = None) -> torch.Tensor:
     """What a receiver rebuilds from a sub-byte hop: ``x [B, H, F]`` (the
     full-width pre-quantisation rows), each batch row's ``kept [B, K]`` /
     ``inv [B, F/128]`` and ``qmax [B]``, stored at ``width`` bits ->
     ``[B, H, F]`` f32, bitwise ``wire_unpack(dequant_bits(pack_bits(
-    quant_levels(wire_pack(x)))))``.  Gradients pass straight through to
-    ``x`` on the kept blocks."""
+    quant_levels(wire_pack(x)))))``; ``keys [B, 2]`` rounds each row
+    stochastically under its key.  Gradients pass straight through to
+    ``x`` on the kept blocks.  ``wire_out``, a list, captures the
+    ``(payload, scales)`` the hop shipped."""
     return _QuantHop.apply(x.contiguous(), kept, inv,
                            qmax.to(device=x.device,
-                                   dtype=torch.float32).contiguous(), width)
+                                   dtype=torch.float32).contiguous(), width,
+                           keys, wire_out)
 
 
 # ---------------------------------------------------------------------------
@@ -335,13 +375,48 @@ def _width_tensor(width, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(width, dtype=torch.float32, device=like.device)
 
 
-def quant_levels(x: torch.Tensor, width) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-lane-block symmetric round-to-nearest-even quantisation:
-    ``x [..., nb·128]`` -> ``(int8 levels [..., nb·128], f32 scales
-    [..., nb])`` with ``qmax = 2^(w-1) - 1`` and ``scale = amax/qmax``
-    (1 for an all-zero block).  ``width`` is a number or a tensor
-    broadcastable against the scales; ``width >= 32`` yields levels that
-    callers on the fp32 passthrough discard."""
+#: fold_in salt separating the stochastic-rounding key stream from the
+#: mask-selection streams that share the per-exchange key
+ROUND_SALT = 0x5EED
+
+
+def round_key(key, sender: int, hop: int | None = None) -> np.ndarray:
+    """The JAX package's per-pair stochastic-rounding key: the
+    per-exchange key (``fold_in(step key, call)``) salted away from the
+    mask streams, folded with the sender and — on the p2p wire — the ring
+    hop (``uint32[2]``, ``repro_torch.prng``)."""
+    k = prng.fold_in(prng.fold_in(np.asarray(key, np.uint32), ROUND_SALT),
+                     sender)
+    return k if hop is None else prng.fold_in(k, hop)
+
+
+def _uniforms(key, xb: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` for each key of ``key`` (numpy
+    ``uint32 [..., 2]`` or an int32 tensor), whose leading dimensions
+    prefix ``xb``'s: each key draws over the trailing shape, counters in
+    row-major order.  One ``random_uniform`` launch on the card."""
+    lead = (np.shape(key) if not isinstance(key, torch.Tensor)
+            else tuple(key.shape))[:-1]
+    if tuple(xb.shape[:len(lead)]) != tuple(lead):
+        raise ValueError(f"keys {tuple(lead)} do not prefix the shape "
+                         f"{tuple(xb.shape)}")
+    keys = _keys_on(key, xb.device)
+    n = math.prod(xb.shape[len(lead):])
+    return _route(random_uniform, random_uniform_plain, keys, n) \
+        .reshape(xb.shape)
+
+
+def quant_levels(x: torch.Tensor, width, key=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-lane-block symmetric quantisation: ``x [..., nb·128]`` ->
+    ``(int8 levels [..., nb·128], f32 scales [..., nb])`` with ``qmax =
+    2^(w-1) - 1`` and ``scale = amax/qmax`` (1 for an all-zero block).
+    Round half to even by default; ``key`` (one ``uint32[2]`` key, or
+    keys ``[..., 2]`` whose leading dimensions prefix ``x``'s) rounds
+    stochastically, ``floor(v + u)`` with ``u = uniform(key, [...,
+    nb, 128])`` — the JAX package's ``key=``.  ``width`` is a number or a
+    tensor broadcastable against the scales; ``width >= 32`` yields
+    levels that callers on the fp32 passthrough discard."""
     lead = x.shape[:-1]
     nb = x.shape[-1] // LANE
     xb = x.reshape(*lead, nb, LANE)
@@ -349,31 +424,34 @@ def quant_levels(x: torch.Tensor, width) -> tuple[torch.Tensor, torch.Tensor]:
     qmax = 2.0 ** (w - 1.0) - 1.0
     amax = xb.abs().amax(dim=-1)
     scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
-    qv = torch.round(xb / scale[..., None])
+    v = xb / scale[..., None]
+    qv = torch.round(v) if key is None else torch.floor(v + _uniforms(key,
+                                                                      xb))
     qm = torch.broadcast_to(qmax, scale.shape)[..., None]
     qv = torch.minimum(torch.maximum(qv, -qm), qm)
     return qv.to(torch.int8).reshape(x.shape), scale
 
 
-def quant_dequant(x: torch.Tensor, width) -> torch.Tensor:
+def quant_dequant(x: torch.Tensor, width, key=None) -> torch.Tensor:
     """Symmetric per-lane-block quantise→dequantise at ``width`` bits;
-    ``width >= 32`` is an exact fp32 passthrough."""
+    ``width >= 32`` is an exact fp32 passthrough; ``key`` as in
+    :func:`quant_levels`."""
     lead = x.shape[:-1]
     nb = x.shape[-1] // LANE
     xb = x.reshape(*lead, nb, LANE)
     w = _width_tensor(width, x)
-    levels, scale = quant_levels(x, width)
+    levels, scale = quant_levels(x, width, key)
     dq = levels.to(torch.float32).reshape(*lead, nb, LANE) * scale[..., None]
     exact = torch.broadcast_to(w >= 32.0, scale.shape)[..., None]
     return torch.where(exact, xb, dq).reshape(x.shape)
 
 
-def wire_quant(x: torch.Tensor, width) -> torch.Tensor:
+def wire_quant(x: torch.Tensor, width, key=None) -> torch.Tensor:
     """Straight-through :func:`quant_dequant`: the forward sees the
     quantised wire values, ``x + (quant_dequant(x) - x)`` term for term as
     the JAX package rounds them; the backward passes gradients through
-    unchanged."""
-    return x + (quant_dequant(x, width) - x).detach()
+    unchanged.  ``key`` as in :func:`quant_levels`."""
+    return x + (quant_dequant(x, width, key) - x).detach()
 
 
 def pack_bits(levels: torch.Tensor, width: int) -> torch.Tensor:

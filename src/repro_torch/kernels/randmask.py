@@ -22,6 +22,16 @@ float4 load and store, a block serves one worker.
 Beside the kernel: its plain version :func:`random_mask_plain` (the key
 stream of ``repro_torch.prng.random_bits_torch``; what CPU tensors run)
 and the launch counter ``random_mask.launches``.
+
+:func:`random_uniform` — the same stream as float32 uniforms, ``out[b, i]
+= uniform(keys[b], i + offset)``, bitwise ``jax.random.uniform(keys[b],
+shape)`` with ``N = prod(shape)``: the draw of stochastic rounding where a
+width map mixes fp32 and quantised pairs (``repro/kernels/ops.py::
+quant_levels``, which draws it through XLA; no TPU kernel).  Bound by
+integer operations (76 an element against 4 bytes written).  Its plain
+version is :func:`random_uniform_plain`, its counter
+``random_uniform.launches``; the Threefry round function lives in
+``csrc/threefry.cuh``, shared with the fused stochastic codec.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from repro_torch.kernels import _build
 _FUNCS = {
     "random_mask_f32": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 +
     [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "random_uniform_f32": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 +
+    [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -51,6 +63,14 @@ def _uint32(keys: torch.Tensor) -> np.ndarray:
     return keys.cpu().numpy().astype(np.int32).view(np.uint32)
 
 
+def uniform_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax.random.uniform's float32 draw from 32-bit ``bits`` (an int64
+    tensor of uint32 values): ``((bits >> 9) | 0x3F800000)`` viewed as
+    float32, minus 1."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) \
+        - 1.0
+
+
 def random_mask_plain(x: torch.Tensor, keys: torch.Tensor, p: float,
                       scale: float, offset: int = 0,
                       count: bool = False):
@@ -59,8 +79,7 @@ def random_mask_plain(x: torch.Tensor, keys: torch.Tensor, p: float,
     q = x.shape[0]
     bits = prng.random_bits_torch(_uint32(keys), tuple(x.shape[1:]),
                                   x.device, offset)
-    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    mask = u < torch.tensor(p, dtype=torch.float32, device=x.device)
+    mask = uniform_of_bits(bits) < torch.tensor(p, dtype=torch.float32, device=x.device)
     out = torch.where(mask, x * torch.tensor(scale, dtype=torch.float32,
                                              device=x.device),
                       torch.zeros((), dtype=x.dtype, device=x.device))
@@ -104,3 +123,38 @@ def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float, scale: float,
 
 
 random_mask.launches = 0
+
+
+def random_uniform_plain(keys: torch.Tensor, n: int, offset: int = 0
+                         ) -> torch.Tensor:
+    """keys int32 ``[B, 2]`` (uint32 bits) -> float32 ``[B, n]`` on the
+    keys' device: the kernel's function in PyTorch."""
+    return uniform_of_bits(prng.random_bits_torch(_uint32(keys), (n,),
+                                                  keys.device, offset))
+
+
+def random_uniform(keys: torch.Tensor, n: int, offset: int = 0
+                   ) -> torch.Tensor:
+    """CUDA uniforms: keys int32 ``[B, 2]`` on the card -> float32 ``[B,
+    n]``, row ``b`` the stream of ``keys[b]`` from counter ``offset``."""
+    if keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"random_uniform needs int32 keys [B, 2], got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    if not keys.is_cuda or not keys.is_contiguous():
+        raise ValueError(f"random_uniform: keys must be a contiguous CUDA "
+                         f"tensor, got {keys.device}")
+    if n < 0 or not 0 <= offset < 2 ** 63:
+        raise ValueError(f"random_uniform: n {n} or offset {offset} out of "
+                         f"range")
+    b = keys.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=keys.device)
+    lib = _build.library("randmask", _FUNCS)
+    _build.check(lib.random_uniform_f32(
+        keys.data_ptr(), out.data_ptr(), b, n, offset, keys.device.index,
+        torch.cuda.current_stream(keys.device).cuda_stream),
+        "random_uniform")
+    random_uniform.launches += 1
+    return out
+
+
+random_uniform.launches = 0

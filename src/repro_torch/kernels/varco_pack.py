@@ -39,10 +39,18 @@ memory nor atomics.  The TPU kernels take one static ``qmax``; here each
 batch row (one sender's hop to one receiver) carries its own ``qmax``,
 so pairs planned below the storage width share the launch.
 
+:func:`varco_pack_quant_stochastic` is the same kernel with unbiased
+stochastic rounding, ``floor(x / scale + u)``, its uniforms ``u`` drawn
+in-register from one Threefry key per batch row over the packed ``[N,
+K, 128]`` block — bitwise the JAX package's ``quant_levels(wire_pack(x),
+w, key=keys[b])``, which the TPU computes around its Pallas kernel in
+XLA.  A second template instantiation of the kernel, so the rint code is
+unchanged; bound by integer operations (a 20-round hash an element).
+
 Beside each kernel: its plain PyTorch version (``varco_pack_plain``,
-``varco_pack_quant_plain``, ...; what CPU tensors run) and a launch
-counter (``varco_pack.launches``), bumped only where the kernel is
-launched.
+``varco_pack_quant_plain``, ``varco_pack_quant_stochastic_plain``, ...;
+what CPU tensors run) and a launch counter (``varco_pack.launches``),
+bumped only where the kernel is launched.
 
 The mask builders (:func:`block_mask_indices_k`,
 :func:`block_mask_indices_pos`, :func:`worker_block_maps`,
@@ -60,6 +68,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import _build
+from repro_torch.kernels.randmask import random_uniform_plain
 
 LANE = 128
 
@@ -70,7 +79,7 @@ _FUNCS = {
     [ctypes.c_int, ctypes.c_void_p],
 }
 _QUANT_FUNCS = {
-    "varco_pack_quant_f32": [ctypes.c_void_p] * 5 +
+    "varco_pack_quant_f32": [ctypes.c_void_p] * 6 +
     [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "varco_unpack_quant_f32": [ctypes.c_void_p] * 4 +
     [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -195,6 +204,27 @@ def unpack_bits_plain(packed: torch.Tensor, width: int,
     return out[..., : (m if m is not None else out.shape[-1])]
 
 
+def _pack_quant_plain(x: torch.Tensor, kept: torch.Tensor,
+                      qmax: torch.Tensor, width: int,
+                      keys: torch.Tensor | None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    packed = varco_pack_plain(x, kept)
+    b, n, kf = packed.shape
+    k = kf // LANE
+    pb = packed.reshape(b, n, k, LANE)
+    qm = qmax.to(torch.float32).reshape(b, 1, 1)
+    amax = pb.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qm, torch.ones_like(amax))
+    v = pb / scale[..., None]
+    if keys is None:
+        lv = torch.round(v)
+    else:
+        u = random_uniform_plain(keys, n * kf).reshape(pb.shape)
+        lv = torch.floor(v + u)
+    lv = torch.minimum(torch.maximum(lv, -qm[..., None]), qm[..., None])
+    return pack_bits_plain(lv.to(torch.int8).reshape(b, n, kf), width), scale
+
+
 def varco_pack_quant_plain(x: torch.Tensor, kept: torch.Tensor,
                            qmax: torch.Tensor, width: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -203,16 +233,17 @@ def varco_pack_quant_plain(x: torch.Tensor, kept: torch.Tensor,
     per-(row, block) symmetric levels ``clamp(round(x / scale), ±qmax)``
     with ``scale = amax / qmax`` (1 for an all-zero block), bit-packed at
     ``width``."""
-    packed = varco_pack_plain(x, kept)
-    b, n, kf = packed.shape
-    k = kf // LANE
-    pb = packed.reshape(b, n, k, LANE)
-    qm = qmax.to(torch.float32).reshape(b, 1, 1)
-    amax = pb.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / qm, torch.ones_like(amax))
-    lv = torch.round(pb / scale[..., None])
-    lv = torch.minimum(torch.maximum(lv, -qm[..., None]), qm[..., None])
-    return pack_bits_plain(lv.to(torch.int8).reshape(b, n, kf), width), scale
+    return _pack_quant_plain(x, kept, qmax, width, None)
+
+
+def varco_pack_quant_stochastic_plain(x: torch.Tensor, kept: torch.Tensor,
+                                      qmax: torch.Tensor, keys: torch.Tensor,
+                                      width: int
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`varco_pack_quant_plain` with stochastic rounding: levels
+    ``clamp(floor(x / scale + u), ±qmax)``, ``u[b] = uniform(keys[b],
+    [N, K, 128])`` (keys int32 ``[B, 2]``, uint32 bits)."""
+    return _pack_quant_plain(x, kept, qmax, width, keys)
 
 
 def varco_unpack_quant_plain(payload: torch.Tensor, scales: torch.Tensor,
@@ -294,24 +325,28 @@ def varco_unpack(packed: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def varco_pack_quant(x: torch.Tensor, kept: torch.Tensor, qmax: torch.Tensor,
-                     width: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA fused pack + quantise + bit-pack: x ``[B, N, F]`` f32, kept
-    ``[B, K]`` int32, qmax ``[B]`` f32 -> ``(payload uint8 [B, N,
-    K·128·width/8], scales f32 [B, N, K])``, ``width`` in {2, 4, 8}."""
+def _launch_pack_quant(name: str, x: torch.Tensor, kept: torch.Tensor,
+                       qmax: torch.Tensor, keys: torch.Tensor | None,
+                       width: int) -> tuple[torch.Tensor, torch.Tensor]:
     if x.dtype != torch.float32 or kept.dtype != torch.int32 or \
             qmax.dtype != torch.float32:
-        raise TypeError(f"varco_pack_quant needs f32 x/qmax and int32 kept, "
-                        f"got {x.dtype}, {qmax.dtype}, {kept.dtype}")
+        raise TypeError(f"{name} needs f32 x/qmax and int32 kept, got "
+                        f"{x.dtype}, {qmax.dtype}, {kept.dtype}")
     if width not in STORE_WIDTHS:
-        raise ValueError(f"varco_pack_quant width must be 2, 4 or 8, got "
-                         f"{width}")
+        raise ValueError(f"{name} width must be 2, 4 or 8, got {width}")
     if x.dim() != 3 or kept.dim() != 2 or kept.shape[0] != x.shape[0] or \
             qmax.shape != (x.shape[0],) or x.shape[2] % LANE:
-        raise ValueError(f"varco_pack_quant needs x [B, N, F·128], kept "
-                         f"[B, K] and qmax [B], got {tuple(x.shape)}, "
+        raise ValueError(f"{name} needs x [B, N, F·128], kept [B, K] and "
+                         f"qmax [B], got {tuple(x.shape)}, "
                          f"{tuple(kept.shape)}, {tuple(qmax.shape)}")
-    dev = _check_cuda("varco_pack_quant", x=x, kept=kept, qmax=qmax)
+    tensors = {"x": x, "kept": kept, "qmax": qmax}
+    if keys is not None:
+        if keys.dtype != torch.int32 or tuple(keys.shape) != (x.shape[0],
+                                                              2):
+            raise ValueError(f"{name} needs int32 keys [B, 2], got "
+                             f"{keys.dtype} {tuple(keys.shape)}")
+        tensors["keys"] = keys
+    dev = _check_cuda(name, **tensors)
     b, n, f = x.shape
     k = kept.shape[1]
     payload = torch.empty((b, n, k * LANE * width // 8), dtype=torch.uint8,
@@ -319,11 +354,34 @@ def varco_pack_quant(x: torch.Tensor, kept: torch.Tensor, qmax: torch.Tensor,
     scales = torch.empty((b, n, k), dtype=torch.float32, device=dev)
     lib = _build.library("varco_pack_quant", _QUANT_FUNCS)
     _build.check(lib.varco_pack_quant_f32(
-        x.data_ptr(), kept.data_ptr(), qmax.data_ptr(), payload.data_ptr(),
+        x.data_ptr(), kept.data_ptr(), qmax.data_ptr(),
+        None if keys is None else keys.data_ptr(), payload.data_ptr(),
         scales.data_ptr(), b, n, f // LANE, k, width, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream), "varco_pack_quant")
-    varco_pack_quant.launches += 1
+        torch.cuda.current_stream(dev).cuda_stream), name)
     return payload, scales
+
+
+def varco_pack_quant(x: torch.Tensor, kept: torch.Tensor, qmax: torch.Tensor,
+                     width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA fused pack + quantise + bit-pack: x ``[B, N, F]`` f32, kept
+    ``[B, K]`` int32, qmax ``[B]`` f32 -> ``(payload uint8 [B, N,
+    K·128·width/8], scales f32 [B, N, K])``, ``width`` in {2, 4, 8}."""
+    out = _launch_pack_quant("varco_pack_quant", x, kept, qmax, None, width)
+    varco_pack_quant.launches += 1
+    return out
+
+
+def varco_pack_quant_stochastic(x: torch.Tensor, kept: torch.Tensor,
+                                qmax: torch.Tensor, keys: torch.Tensor,
+                                width: int
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA fused pack + quantise + bit-pack with stochastic rounding:
+    :func:`varco_pack_quant` plus keys int32 ``[B, 2]`` (uint32 bits, one
+    Threefry key per batch row) on the same card."""
+    out = _launch_pack_quant("varco_pack_quant_stochastic", x, kept, qmax,
+                             keys, width)
+    varco_pack_quant_stochastic.launches += 1
+    return out
 
 
 def varco_unpack_quant(payload: torch.Tensor, scales: torch.Tensor,
@@ -364,4 +422,5 @@ def varco_unpack_quant(payload: torch.Tensor, scales: torch.Tensor,
 varco_pack.launches = 0
 varco_unpack.launches = 0
 varco_pack_quant.launches = 0
+varco_pack_quant_stochastic.launches = 0
 varco_unpack_quant.launches = 0

@@ -145,7 +145,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     blocks (feature widths multiples of 128, compressing policies with
     the ``blockmask`` compressor); ``wire="p2p"`` the neighbour-only halo
     wire with the ELL local aggregation (same constraints under
-    compression), to which auto policies default.  ``params`` (a
+    compression), to which auto policies default from ``"dense"``.  ``params`` (a
     parameter tree, e.g. ``params_from_jax`` of the JAX package's
     ``init_gnn``) replaces the seeded initialisation, which draws from a
     CPU ``torch.Generator(seed)``.
@@ -156,15 +156,18 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             res = train_gnn(g, q=4, policy=pol, epochs=300, device="cpu")
 
     ``auto:<controller>:<budget-bits>[:w<width>][:per-layer]`` closes the
-    loop: the controller (``budget`` or ``qos``) plans a per-pair rate
-    map, and widths under ``:w<width>``, each epoch from measured
-    transport; a quantising policy carries error-feedback residuals.
+    loop on the p2p or packed wire: the controller (``budget``,
+    ``error``, ``stale`` or ``qos``) plans a per-pair rate map, widths
+    under ``:w<width>`` and, under ``stale``, the pairs served from the
+    halo cache, each epoch from measured transport; a quantising policy
+    on the p2p wire carries error-feedback residuals (never under
+    ``stale``, whose cache channel holds the halos).
 
     Not ported (raise ``NotImplementedError``): ``use_shard_map``,
     ``faults``, checkpointing (``checkpoint_dir``/``resume``/
-    ``stop_after``), shard directories, the ``error``/``stale``
-    controllers, auto policies on the packed wire.  The quantised wire
-    rounds half to even (the JAX package's default off the TPU).
+    ``stop_after``), shard directories.  The quantised wire rounds half
+    to even (the JAX package's default off the TPU;
+    ``make_auto_train_step(rounding="stochastic")`` rounds unbiased).
     """
     _not_ported(use_shard_map=(use_shard_map, "queue 1: shard_map backend"),
                 faults=(faults is not None, "queue 1: fault channels"),
@@ -194,7 +197,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
         partition_graph(g, q, scheme=scheme, seed=seed)
     q = pg.q
     graph = pg.device_arrays(device)
-    if wire == "p2p":
+    if wire == "p2p" or auto:          # auto's per-pair stats need them
         from repro_torch.dist.halo import attach_p2p
         graph = attach_p2p(graph, pg, device)
     meta = DistMeta.build(pg, params, wire=wire)
@@ -203,13 +206,17 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
 
     cache: tuple = ()
     if auto:
-        from repro_torch.dist.ratectl import (init_wire_residuals,
+        from repro_torch.dist.ratectl import (init_halo_cache,
+                                              init_wire_residuals,
                                               make_auto_train_step,
                                               make_controller)
         ctl = make_controller(policy, meta, cfg, total_steps=epochs)
         ctl_state = ctl.init()
         step = make_auto_train_step(cfg, policy, opt, meta, sync=sync)
-        if policy.max_width < 32:
+        if policy.controller == "stale":
+            cache = init_halo_cache(meta, cfg, device)
+        elif policy.max_width < 32 and wire == "p2p":
+            # the cache channel carries error-feedback residuals instead
             cache = init_wire_residuals(meta, cfg, device)
     else:
         step = make_train_step(cfg, policy, opt, meta, sync=sync)

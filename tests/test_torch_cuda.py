@@ -18,7 +18,9 @@ more ulp of the output), with a check of which of its two kernels ran;
 the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
 to Q·N products in another order).  The dense wire's random mask
 bitwise (a hash and one multiply per element), its VJP bitwise, and one
-dense ``varco`` step on the card against the CPU within 1e-4.  Flash
+dense ``varco`` step on the card against the CPU within 1e-4.  The
+stochastic fused codec and ``random_uniform`` bitwise (the same Threefry
+stream, ``floor(v + u)`` with an IEEE add and division).  Flash
 attention with explicit positions (shifted and left-padded prompts) on
 both kernels, under the same tolerances.
 """
@@ -315,6 +317,87 @@ def test_cuda_quant_hop_forward_and_backward(cuda_device):
         lambda a, k, i, qm: tops.quant_hop(a, k, i, qm, 8),
         [torch.from_numpy(a) for a in (x, kept, inv, qmax)], cuda_device, 4)
     assert torch.equal(y, y_ref) and torch.equal(gx, gx_ref)
+
+
+def _round_keys(b, seed):
+    from repro_torch import prng
+    from repro_torch.kernels.ops import round_key
+    from repro_torch.kernels.randmask import keys_tensor
+
+    k = prng.fold_in(prng.key(seed), 2)
+    return keys_tensor(np.stack([round_key(k, r) for r in range(b)]), "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 4, 8])
+@pytest.mark.parametrize("b,n,nb,k", [(12, 1000, 2, 2), (12, 333, 2, 1),
+                                      (3, 77, 3, 2), (1, 1, 1, 1)])
+def test_cuda_stochastic_codec_matches_plain_bitwise(cuda_device, width, b,
+                                                     n, nb, k):
+    """The stochastic instantiation of the fused codec: payload and
+    scales bitwise the plain version's (Threefry uniforms, ``floor(v +
+    u)``), at a per-row qmax, ragged row counts; its counter moves, the
+    round-half-even counter does not; ``quant_hop`` with keys decodes
+    the same bytes."""
+    rng = np.random.default_rng(width * 100 + n + k)
+    x, kept, inv = _quant_inputs(rng, b, n, nb, k)
+    qmax = np.asarray([2.0 ** (rng.choice([w for w in (2, 4, 8)
+                                            if w <= width]) - 1) - 1
+                       for _ in range(b)], np.float32)
+    keys = _round_keys(b, n)
+    xt, kt, it, qt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (x, kept, inv, qmax))
+    before = (tvp.varco_pack_quant.launches,
+              tvp.varco_pack_quant_stochastic.launches)
+    payload, scales = tops.pack_quant(xt, kt, width, qt,
+                                      keys=keys.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (tvp.varco_pack_quant.launches,
+            tvp.varco_pack_quant_stochastic.launches) == (before[0],
+                                                          before[1] + 1)
+    p_ref, s_ref = tvp.varco_pack_quant_stochastic_plain(
+        torch.from_numpy(x), torch.from_numpy(kept), torch.from_numpy(qmax),
+        keys, width)
+    assert torch.equal(payload.cpu(), p_ref)
+    assert torch.equal(scales.cpu(), s_ref)
+    out = tops.quant_hop(xt, kt, it, qt, width, keys=keys)
+    assert torch.equal(out, tops.unpack_quant(payload, scales, it, width))
+    rint, _ = tops.pack_quant(xt, kt, width, qt)
+    assert b * n == 1 or not torch.equal(rint, payload)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,offset", [(12, 40960, 0), (3, 1001, 0),
+                                        (2, 4096, 2 ** 32 - 2048), (1, 1, 0)])
+def test_cuda_random_uniform_matches_plain(cuda_device, b, n, offset):
+    """``random_uniform`` bitwise ``prng.random_bits_torch``'s floats, on
+    the float4 path and the scalar one, across the 2^32 counter edge."""
+    from repro_torch.kernels import randmask as trm
+
+    keys = _round_keys(b, n)
+    before = trm.random_uniform.launches
+    out = trm.random_uniform(keys.to(cuda_device), n, offset)
+    torch.cuda.synchronize()
+    assert trm.random_uniform.launches == before + 1
+    assert torch.equal(out.cpu(), trm.random_uniform_plain(keys, n, offset))
+    assert float(out.min()) >= 0.0 and float(out.max()) < 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_wire_quant_draws_through_the_kernel(cuda_device):
+    """The mixed-width wire's ``wire_quant(x, w, key=keys)`` on the card:
+    one ``random_uniform`` launch for all hops, bitwise the CPU's."""
+    from repro_torch.kernels import randmask as trm
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(4, 3, 50, 256)).astype(np.float32))
+    w = torch.tensor([8.0, 4.0, 32.0])[None, :, None, None].expand(4, 3, 1, 1)
+    keys = _round_keys(12, 7).reshape(4, 3, 2)
+    before = trm.random_uniform.launches
+    got = tops.wire_quant(x.to(cuda_device), w.to(cuda_device), key=keys)
+    torch.cuda.synchronize()
+    assert trm.random_uniform.launches == before + 1
+    assert torch.equal(got.cpu(), tops.wire_quant(x, w, key=keys))
 
 
 # ---------------------------------------------------------------------------

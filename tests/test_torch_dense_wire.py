@@ -272,10 +272,20 @@ def test_wire_options_and_refusals(world):
     with pytest.raises(ValueError, match="blockmask"):
         tgp.make_train_step(w["ct"], CommPolicy.parse("fixed:2", 4),
                             toptim.sgd(0.1), packed)
-    with pytest.raises(NotImplementedError, match="packed wire"):
-        trc.make_auto_train_step(w["ct"], CommPolicy.parse(
-            "auto:budget:1e9", 4), toptim.sgd(0.1), packed)
-    with pytest.raises(NotImplementedError, match="packed wire"):
-        train_gnn(w["g"], q=4, policy=CommPolicy.parse("auto:budget:1e9",
-                                                       2),
-                  epochs=2, wire="packed", device="cpu")
+    # auto policies on the packed wire are ported now: the same calls
+    # build a step and train (their parity with the JAX package:
+    # tests/test_torch_auto_wires.py)
+    ot = toptim.sgd(0.1)
+    step = trc.make_auto_train_step(w["ct"], CommPolicy.parse(
+        "auto:budget:1e9", 4), ot, packed)
+    eye = np.eye(4, dtype=bool)
+    plan = trc.RatePlan(np.where(eye, 1.0, 2.0).astype(np.float32),
+                        np.zeros((4, 4), np.float32))
+    _, _, m, cache = step(p, ot.init(p), attach_p2p(
+        pgt.device_arrays("cpu"), pgt, "cpu"), prng.key(0), plan)
+    assert cache == () and float(m["transport_bits"]) > 0
+    res = train_gnn(w["g"], q=4, policy=CommPolicy.parse("auto:budget:1e9",
+                                                         2),
+                    epochs=2, wire="packed", device="cpu", hidden=128,
+                    layers=2)
+    assert res.meta.wire == "packed" and np.isfinite(res.history.loss).all()

@@ -241,6 +241,10 @@ def test_hand_made_mixed_width_plan_matches_jax(setup, fp32_pair):
 
 
 def test_port_steps_refuse_unported_options(setup):
+    """The shard_map backend still raises; stochastic rounding and the
+    ``error``/``stale`` controllers are ported now, so the same calls
+    build a step or controller and run it once (their parity with the
+    JAX package: tests/test_torch_ratectl.py, test_torch_auto_wires.py)."""
     s = setup
     with pytest.raises(NotImplementedError):
         tgp.make_train_step(s["ct"], CommPolicy.parse("full", 1),
@@ -248,11 +252,31 @@ def test_port_steps_refuse_unported_options(setup):
     with pytest.raises(NotImplementedError):
         trc.make_auto_train_step(s["ct"], CommPolicy.parse(
             "auto:budget:1e9:w8", 1), toptim.sgd(0.1), s["meta_t"],
-            rounding="stochastic")
+            mesh=object())
+    p0 = _port(s["pj"])
+    ot = toptim.sgd(0.1)
+    step = trc.make_auto_train_step(s["ct"], CommPolicy.parse(
+        "auto:budget:1e9:w8", 1), ot, s["meta_t"], rounding="stochastic")
+    eye = np.eye(Q, dtype=bool)
+    plan = RatePlan(np.where(eye, 1.0, 2.0).astype(np.float32),
+                    np.zeros((Q, Q), np.float32),
+                    np.where(eye, 32.0, 8.0).astype(np.float32))
+    _, _, m, cache = step(p0, ot.init(p0), s["graph_t"], prng.key(0), plan,
+                          trc.init_wire_residuals(s["meta_t"], s["ct"],
+                                                  "cpu"))
+    assert np.isfinite(float(m["loss"])) and len(cache) == LAYERS
     for ctl in ("error", "stale"):
-        with pytest.raises(NotImplementedError):
-            trc.make_controller(CommPolicy.parse(f"auto:{ctl}:1e9", 4),
-                                s["meta_t"], s["ct"], 4)
+        pol = CommPolicy.parse(f"auto:{ctl}:1e9", 4)
+        c = trc.make_controller(pol, s["meta_t"], s["ct"], 4)
+        plan, state = c.plan(c.init(), 0)
+        cache = trc.init_halo_cache(s["meta_t"], s["ct"], "cpu") \
+            if ctl == "stale" else ()
+        _, _, m, cache = trc.make_auto_train_step(
+            s["ct"], pol, ot, s["meta_t"])(p0, ot.init(p0), s["graph_t"],
+                                           prng.key(0), plan, cache)
+        state = c.observe(state, m)
+        assert float(m["transport_bits"]) > 0 and float(state["spent"]) > 0
+        assert len(cache) == (LAYERS if ctl == "stale" else 0)
     # the dense compressing wire is ported now: the same call builds a
     # step (its parity with the JAX package: tests/test_torch_dense_wire.py)
     dense = tgp.DistMeta.build(partition_graph(tiny_graph(n=64, feat_dim=F),

@@ -120,6 +120,8 @@ def test_train_gnn_reuses_a_partitioned_graph_and_refuses_unported():
             train_gnn(pg, **{**kw, **bad})
     with pytest.raises(NotImplementedError):
         train_gnn("shards/", **kw)
-    with pytest.raises(NotImplementedError):
-        train_gnn(pg, **{**kw, "policy": CommPolicy.parse("auto:stale:1e9",
-                                                          2)})
+    # the stale controller is ported now: the same call trains (its
+    # parity with the JAX package: tests/test_torch_auto_wires.py)
+    stale = train_gnn(pg, **{**kw, "policy": CommPolicy.parse(
+        "auto:stale:1e9", 2)}).history
+    assert np.isfinite(stale.loss).all() and stale.transport_gfloats[-1] > 0
