@@ -83,6 +83,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    pair skipped must charge 0 bits and deliver the cache bitwise; one w4
    packed and one w8 p2p exchange must ship exactly ``ceil(ledger bits /
    8)`` bytes (``wire_out`` capture).
+6c. resilience — the rest of ``train_gnn`` on the setup's graph, model
+   and parameters, under a temporary directory removed at the end; launch
+   counts set to 0 before each part and read after (``ell_spmm``,
+   ``varco_pack`` and ``varco_unpack`` must run in each).  R1, the
+   out-of-core boot: ``write_graph_store``, ``stream_partition(store, 4,
+   "metis-like")`` (its exact path: the owner vector must equal the setup
+   phase's), ``write_shards`` and ``load_shards``; the shard set's
+   ``device_arrays("cuda")`` must equal the in-memory ``device_arrays`` +
+   ``attach_p2p`` bitwise, key by key, and ``train_gnn(<shard dir>)``
+   under ``varco:linear:5`` on the p2p wire must give the train phase's
+   in-memory losses within 1e-4 (atomic scatters); seconds and bytes on
+   disk of each step are printed.  R2, faults: 6 epochs each of
+   ``varco:linear:5`` and ``auto:budget:<half>:w8`` under
+   ``FaultSchedule(q=4, seed=0, drop_rate=0.25, spike_rate=0.05,
+   crash_at=((3, 1),))`` with ``fault_max_stale=2``, and ``varco`` again
+   at ``fault_max_stale=1`` (where pairs go DEAD: at 2 none does within
+   6 epochs); every loss finite, Q = 3 from epoch 3 on with ``[3, 3]``
+   pair ledgers, the fused codecs launched in the w8 run, the ladder's
+   CACHED/DEAD counts printed per epoch; one fault step with pair (2 ← 0)
+   CACHED from the fresh step's ``fcache_out`` gives the fresh loss
+   within 1e-4, charges that pair 0 bits and serves its hop rows bitwise
+   from the cache, and a forward with every off-diagonal pair DEAD equals
+   the No-Comm forward within 1e-4.  R3, resume: R2's faulted ``varco``
+   run checkpointed after epoch 4 (after the crash) and resumed must end
+   within 1e-4 of the uninterrupted run, and a ``save`` → ``restore`` of
+   a state tree of card tensors must be bitwise; save/restore ms and the
+   file's bytes are printed, and the phase's peak device memory.
 
 7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
    ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
@@ -94,7 +121,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
    output), at a two-group ragged shape and at G = 2, H/G = 3, Q = 100.
    Flash attention also runs with explicit positions (a shifted and a
-   left-padded batch, the JAX package's prefill mask) on both kernels.
+   left-padded batch, the JAX package's prefill mask) on both kernels,
+   its bound from the (query, key) pairs the positions leave unmasked
+   (counted on the host) and its library time that of
+   ``scaled_dot_product_attention`` with the boolean position mask,
+   built outside the timing.
    Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
    bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
    absolute), with kernel, plain and library times (flash: ``scaled_dot_
@@ -136,6 +167,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1124,7 +1156,7 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     for name in ("full", "dense_full"):
         check(runs[name].loss[-1] < runs[name].loss[0],
               f"{name}: loss did not fall ({runs[name].loss})")
-    return launches
+    return launches, runs
 
 
 # ---------------------------------------------------------------------------
@@ -1334,6 +1366,318 @@ def auto_phase(eng, params, cfg, seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: resilience — the out-of-core boot, faults, checkpoint/resume
+# ---------------------------------------------------------------------------
+
+RES_EPOCHS = 6
+#: R2's schedule: drops, latency spikes, worker 1 crashing at epoch 3
+RES_SCHED = dict(q=4, seed=0, drop_rate=0.25, spike_rate=0.05,
+                 crash_at=((3, 1),))
+RES_MAX_STALE = 2
+RES_TOL = 1e-4
+RES_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack")
+QUANT_KERNELS = ("varco_pack_quant", "varco_unpack_quant")
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _fault_identities(cfg, params, shards, dev, seed: int = 0) -> dict:
+    """On the Q = 4 shard set: a fresh fault step, then the same step with
+    pair (2 ← 0) CACHED from the fresh step's ``fcache_out`` (loss,
+    charged bits, served hop rows), and a forward with every off-diagonal
+    pair DEAD against the No-Comm forward."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.faults import make_fault_train_step
+    from repro_torch.dist.ratectl import init_halo_cache, uniform_plan
+    from repro_torch.nn.gnn import gnn_forward
+    from repro_torch.train.optim import adamw
+
+    meta = gp.DistMeta.build(shards, params, wire="p2p")
+    graph = shards.device_arrays(dev)
+    q = meta.q
+    pol = CommPolicy.parse("varco:linear:5", RES_EPOCHS,
+                           compressor="blockmask")
+    opt = adamw(5e-3)
+    step = make_fault_train_step(cfg, pol, opt, meta)
+    plan = uniform_plan(q, float(pol.rate(0)))
+    zeros = np.zeros((q, q), np.float32)
+    key = prng.key(seed)
+    _, _, m0, _, fresh = step(params, opt.init(params), graph, key, plan,
+                              zeros, zeros, (),
+                              init_halo_cache(meta, cfg, dev))
+    fskip = zeros.copy()
+    fskip[2, 0] = 1.0
+    _, _, m1, _, served = step(params, opt.init(params), graph, key, plan,
+                               fskip, zeros, (), fresh)
+    hop = (2 - 0) % q - 1               # sender 0's ring hop to receiver 2
+    rows_equal = all(torch.equal(a[0, hop], b[0, hop])
+                     for a, b in zip(served, fresh))
+    dead = 1.0 - np.eye(q, dtype=np.float32)
+    rm = np.ones((q, q), np.float32)
+    full = CommPolicy.parse("full", 1)
+    with torch.no_grad():
+        agg = gp._make_aggregate_emulated(
+            graph, meta, full, torch.ones(()), key,
+            packed_k=dict(gp._packed_pair_k_for(meta, rm)), rate_map=rm,
+            fskip=zeros, fcache=init_halo_cache(meta, cfg, dev),
+            dead=dead)
+        dark, dark_bits = gnn_forward(params, cfg, graph["features"], agg)
+        agg = gp._make_aggregate_emulated(
+            graph, meta, CommPolicy.parse("none", 1), torch.ones(()), key)
+        iso, _ = gnn_forward(params, cfg, graph["features"], agg)
+    return {"fresh_loss": float(m0["loss"]),
+            "cached_loss": float(m1["loss"]),
+            "fresh_pair_bits": float(m0["pair_transport"][2, 0]),
+            "cached_pair_bits": float(m1["pair_transport"][2, 0]),
+            "cached_rows_equal_cache": rows_equal,
+            "all_dead_vs_none_max_abs": float((dark - iso).abs().max()),
+            "all_dead_transport_bits": float(dark_bits[1])}
+
+
+def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
+    """R1: the graph written to a chunked store, cut by the streaming
+    partitioner (the exact path: it must give the setup's owner vector),
+    sharded, loaded (``device_arrays`` bitwise equal to the in-memory
+    ones) and trained from the shard directory (``varco:linear:5`` on the
+    p2p wire, losses within 1e-4 of the train phase's in-memory run).
+    R2: 6 epochs each of ``varco:linear:5`` and ``auto:budget:<half>:w8``
+    under a schedule that drops, spikes and crashes worker 1 at epoch 3
+    (and ``varco`` once more at a staleness cap of 1, where pairs go
+    DEAD), with the cached-pair and all-dead identities.  R3: the faulted
+    ``varco`` run checkpointed after the crash and resumed, against the
+    uninterrupted one, and a save→restore round trip of card tensors.
+    Launch counts are set to 0 before each part and read after."""
+    import tempfile
+
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import faults as fl
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.dist.ratectl import exchange_widths, init_halo_cache
+    from repro_torch.graph import stream as st
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import adamw, tree_leaves
+    from repro_torch.train.trainer import train_gnn
+
+    counters = launch_counters()
+    dev = eng.device
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    common = dict(hidden=cfg.hidden, layers=cfg.layers, wire="p2p",
+                  seed=seed, eval_every=1, device=dev, params=params)
+    full_bits = 2.0 * 32.0 * eng.pg.halo_demand * \
+        sum(exchange_widths(cfg)) * RES_EPOCHS
+    specs = {"varco": "varco:linear:5",
+             "auto_w8": f"auto:budget:{0.5 * full_bits:g}:w8"}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def read():
+        sync()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def policy(spec, epochs):
+        return CommPolicy.parse(spec, epochs, compressor="blockmask")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_res_") as tmp:
+        tmp = Path(tmp)
+        # ---- R1: the out-of-core boot ----------------------------------
+        t = time.perf_counter()
+        store = st.write_graph_store(g, tmp / "store")
+        t_store = time.perf_counter() - t
+        t = time.perf_counter()
+        owner = st.stream_partition(store, eng.pg.q, "metis-like",
+                                    seed=seed)
+        t_part = time.perf_counter() - t
+        check(np.array_equal(owner, eng.pg.owner),
+              "stream_partition's owner vector differs from the setup "
+              "phase's partition_graph")
+        t = time.perf_counter()
+        st.write_shards(store, owner, tmp / "shards")
+        t_write = time.perf_counter() - t
+        t = time.perf_counter()
+        shards = st.load_shards(tmp / "shards")
+        t_load = time.perf_counter() - t
+        t = time.perf_counter()
+        got = shards.device_arrays(dev)
+        sync()
+        t_h2d = time.perf_counter() - t
+        want = attach_p2p(eng.pg.device_arrays(dev), eng.pg, dev)
+        bad = [k for k in want if k not in got or got[k].dtype !=
+               want[k].dtype or not torch.equal(got[k], want[k])]
+        check(list(got) == list(want) and not bad,
+              f"shard arrays differ from the in-memory ones at {bad}")
+        del got, want
+        zero()
+        boot = train_gnn(str(tmp / "shards"),
+                         policy=policy(specs["varco"], TRAIN_EPOCHS),
+                         epochs=TRAIN_EPOCHS, **common)
+        r1_launches = read()
+        r1_err = float(np.abs(np.asarray(boot.history.loss) -
+                              np.asarray(varco_in_memory.loss)).max())
+        r1 = {"part": "R1", "store_write_s": t_store,
+              "stream_partition_s": t_part, "shard_write_s": t_write,
+              "shard_load_s": t_load, "device_arrays_s": t_h2d,
+              "store_bytes": _dir_bytes(tmp / "store"),
+              "shard_bytes": _dir_bytes(tmp / "shards"),
+              "owner_equal": True, "arrays_bitwise": True,
+              "loss": boot.history.loss,
+              "loss_vs_in_memory_max_abs": r1_err,
+              "step_ms": [x * 1e3 for x in boot.history.step_s],
+              "launches": r1_launches}
+        emit({"phase": "resilience", **r1})
+        check(r1_err <= RES_TOL, f"shard-backed losses differ from the "
+              f"in-memory run by {r1_err}")
+        for name in RES_KERNELS:
+            check(r1_launches[name] > 0, f"R1: {name} never launched")
+
+        # ---- R2: faults ------------------------------------------------
+        # at max_stale 2 this schedule leaves no pair DEAD within the 6
+        # epochs; the third run, at max_stale 1, trains through DEAD pairs
+        r2_runs = {name: (spec, RES_MAX_STALE)
+                   for name, spec in specs.items()}
+        r2_runs["varco_stale1"] = (specs["varco"], 1)
+        runs, r2_launches = {}, {}
+        for name, (spec, max_stale) in r2_runs.items():
+            zero()
+            runs[name] = train_gnn(
+                shards, policy=policy(spec, RES_EPOCHS), epochs=RES_EPOCHS,
+                faults=fl.FaultSchedule(**RES_SCHED),
+                fault_max_stale=max_stale, **common)
+            r2_launches[name] = read()
+        t = time.perf_counter()
+        sched, dstate = fl.FaultSchedule(**RES_SCHED), fl.init_degrade(4)
+        for ep in range(RES_EPOCHS):
+            crash = sched.crash_at_step(ep)
+            if crash is not None:
+                sched = sched.shrink(crash)
+                dstate = fl.migrate_degrade_state(dstate, crash)
+            serve, dstate = fl.degrade_plan(
+                dstate, sched.effective_drops(ep), ep,
+                max_stale=RES_MAX_STALE)
+            fl.serve_masks(serve)
+        t_ladder = time.perf_counter() - t
+        t = time.perf_counter()
+        shrunk = fl.shrink_shards(shards, 1)
+        t_shrink = time.perf_counter() - t
+        del shrunk
+        ident = _fault_identities(cfg, params, shards, dev, seed)
+        r2 = {"part": "R2", "ladder_s": t_ladder, "shrink_shards_s": t_shrink,
+              "identities": ident, "launches": r2_launches}
+        for name, res in runs.items():
+            h = res.history
+            r2[name] = {"loss": h.loss, "cached": h.cached_pairs,
+                        "dead": h.dead_pairs, "width": h.width,
+                        "step_ms": [x * 1e3 for x in h.step_s],
+                        "pairs": [len(p) for p in h.pair_transport_gf],
+                        "transport_gfloats": h.transport_gfloats,
+                        "q": res.meta.q}
+        emit({"phase": "resilience", **r2})
+        for name, res in runs.items():
+            h = res.history
+            check(bool(np.isfinite(h.loss).all()), f"R2 {name}: non-finite "
+                  f"loss {h.loss}")
+            check(res.meta.q == 3 and all(
+                len(p) == (16 if ep < 3 else 9)
+                for ep, p in zip(h.epoch, h.pair_transport_gf)),
+                f"R2 {name}: Q is not 3 from epoch 3 on")
+            for k in RES_KERNELS:
+                check(r2_launches[name][k] > 0, f"R2 {name}: {k} never "
+                      f"launched")
+        check(sum(runs["varco_stale1"].history.dead_pairs) > 0,
+              "R2: no pair reached DEAD at max_stale 1")
+        for k in QUANT_KERNELS:
+            check(r2_launches["auto_w8"][k] > 0,
+                  f"R2 auto_w8: {k} never launched")
+        check(abs(ident["cached_loss"] - ident["fresh_loss"]) <= RES_TOL,
+              f"R2: a CACHED pair changed the loss: {ident}")
+        check(ident["fresh_pair_bits"] > 0 and
+              ident["cached_pair_bits"] == 0.0,
+              f"R2: the CACHED pair was charged: {ident}")
+        check(ident["cached_rows_equal_cache"],
+              "R2: the CACHED pair's hop rows differ from the cache")
+        check(ident["all_dead_vs_none_max_abs"] <= RES_TOL and
+              ident["all_dead_transport_bits"] == 0.0,
+              f"R2: an all-DEAD forward differs from No-Comm: {ident}")
+
+        # ---- R3: checkpoint and resume ---------------------------------
+        ck = tmp / "ck"
+        kw = dict(policy=policy(specs["varco"], RES_EPOCHS),
+                  epochs=RES_EPOCHS, faults=fl.FaultSchedule(**RES_SCHED),
+                  fault_max_stale=RES_MAX_STALE, checkpoint_dir=str(ck),
+                  **common)
+        zero()
+        part = train_gnn(shards, stop_after=4, **kw)
+        ck_extra = ckpt.peek(ckpt.latest_checkpoint(str(ck)))
+        resumed = train_gnn(str(tmp / "shards"), resume=True, **kw)
+        r3_launches = read()
+        whole = runs["varco"].history.loss
+        r3_err = float(np.abs(np.asarray(resumed.history.loss) -
+                              np.asarray(whole[4:])).max())
+        meta = resumed.meta
+        gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        fcache = tuple(torch.randn(c.shape, generator=gen, device=dev)
+                       for c in init_halo_cache(meta, cfg, dev))
+        opt = adamw(5e-3)
+        tree = {"params": resumed.params,
+                "opt": opt.init(resumed.params), "fcache": fcache}
+        path = str(tmp / "roundtrip.ckpt")
+        sync()
+        t = time.perf_counter()
+        ckpt.save(path, tree, extra={"q": meta.q})
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        back, _ = ckpt.restore(path, tree)
+        sync()
+        t_restore = time.perf_counter() - t
+        bitwise = all(a.device == b.device and a.dtype == b.dtype and
+                      torch.equal(a, b) for a, b in
+                      zip(tree_leaves(back), tree_leaves(tree)))
+        r3 = {"part": "R3", "stopped_at": len(part.history.loss),
+              "checkpoint_step": ck_extra["step"],
+              "checkpoint_alive": ck_extra["alive"],
+              "resumed_loss": resumed.history.loss,
+              "uninterrupted_loss": whole[4:],
+              "resume_vs_uninterrupted_max_abs": r3_err,
+              "train_state_bytes": os.path.getsize(
+                  ckpt.latest_checkpoint(str(ck))),
+              "roundtrip_bytes": os.path.getsize(path),
+              "save_ms": t_save * 1e3, "restore_ms": t_restore * 1e3,
+              "roundtrip_bitwise": bitwise, "launches": r3_launches}
+        emit({"phase": "resilience", **r3})
+        check(ck_extra["step"] == 4 and ck_extra["alive"] == [0, 2, 3],
+              f"R3: the checkpoint is not the shrunk run's after epoch 4: "
+              f"{ck_extra}")
+        check(r3_err <= RES_TOL, f"R3: resumed losses differ from the "
+              f"uninterrupted run by {r3_err}")
+        check(bitwise, "R3: save -> restore of card tensors is not bitwise")
+        for k in RES_KERNELS:
+            check(r3_launches[k] > 0, f"R3: {k} never launched")
+    summary = {"phase": "resilience", "wall_s": time.perf_counter() -
+               t_phase, "peak_mem_gb": torch.cuda.max_memory_allocated() /
+               1e9 if on_card else None,
+               "launches": {"R1": {k: r1_launches[k] for k in RES_KERNELS},
+                            "R2": {n: {k: v[k] for k in RES_KERNELS +
+                                       QUANT_KERNELS}
+                                   for n, v in r2_launches.items()},
+                            "R3": {k: r3_launches[k] for k in RES_KERNELS}}}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1446,8 +1790,14 @@ def prompt_positions(kind: str, b: int, s: int, device) -> torch.Tensor:
 def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
     """Flash attention with explicit positions (the JAX package's prefill
     mask) against the plain version, on the kernel ``kernel_for`` names;
-    kernel and plain times."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    kernel, plain and library times (``scaled_dot_product_attention``
+    with the boolean position mask, built outside the timing) and the
+    bound over the (query, key) pairs the positions leave unmasked,
+    counted on the host."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_mask,
+                                                     flash_attention,
                                                      flash_attention_plain,
                                                      kernel_for)
 
@@ -1469,6 +1819,19 @@ def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
     tol = FLASH_TOL[dtype]
     check(_within(out, ref, tol, tol),
           f"flash_attention {name}: max abs err {err} (tol {tol})")
+    mask = attention_mask(s, True, window, dev, pos, pos)     # [B, S, S]
+    pairs = int(mask.sum().cpu()) * h
+    n_bytes = q.element_size() * d * s * b * (2 * h + 2 * kv)
+    flops = 4.0 * d * pairs
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
+                          if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    attn_mask = mask[:, None]                                 # [B, 1, S, S]
+    lib = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                         enable_gqa=True)
+    lib_err = float((lib.float() - ref).abs().max())
+    check(dtype != torch.bfloat16 or _within(lib, ref, tol, tol),
+          f"scaled_dot_product_attention disagrees with the plain version "
+          f"at {name} (max abs err {lib_err})")
     rec = {"kernel": kernel, "path": path, "case": name,
            "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
                      "dtype": str(dtype), "window": window,
@@ -1477,7 +1840,12 @@ def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
            "kernel_ms": cuda_ms(lambda: flash_attention(
                q, k, v, True, window, pos, pos), reps),
            "plain_ms": cuda_ms(lambda: flash_attention_plain(
-               q, k, v, True, window, pos, pos), max(reps // 5, 1))}
+               q, k, v, True, window, pos, pos), max(reps // 5, 1)),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=attn_mask, enable_gqa=True), reps),
+           "library_max_abs_err": lib_err,
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": n_bytes, "pairs": pairs}
     emit(rec)
     return rec
 
@@ -1756,8 +2124,10 @@ def main(argv=None) -> int:
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
         main_recs = kernels_phase(eng)
         slice_phase(g, cfg, params, eng)
-        launches = train_phase(g, cfg, params, eng)
+        launches, runs = train_phase(g, cfg, params, eng)
         launches.update(auto_phase(eng, params, cfg))
+        resilience_phase(g, cfg, params, eng, runs["varco"])
+        del runs
         del eng
         torch.cuda.empty_cache()
         main_recs.update(lm_kernels_phase())

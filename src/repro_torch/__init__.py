@@ -22,6 +22,14 @@ Ported so far:
   hop reuse, ``qos``), with the kernels' backward passes and the
   quantised wire's stochastic rounding (:func:`round_key`);
 
+* the rest of ``train_gnn`` on one card — shard directories and loaded
+  ``ShardSet`` objects as input (the out-of-core pipeline:
+  :func:`open_store`, :func:`stream_partition`, :func:`write_shards`,
+  :func:`load_shards`),
+  the fault channel with degraded halo service and elastic shrink
+  (:class:`FaultSchedule`), and crash-consistent checkpoint/resume
+  (:mod:`repro_torch.train.checkpoint`, exported as ``checkpoint``);
+
 over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
 ``varco_pack_quant`` and ``varco_unpack_quant`` kernels; and
 
@@ -33,9 +41,11 @@ over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
 """
 
 __version__ = "0.2.0"
-__all__ = ["CommPolicy", "ServingEngine", "decode_step", "error_controller",
-           "init_lm", "prefill", "round_key", "serve_lm",
-           "stale_controller", "train_gnn"]
+__all__ = ["CommPolicy", "FaultSchedule", "ServingEngine", "checkpoint",
+           "decode_step", "error_controller", "init_lm", "load_shards",
+           "open_store", "prefill", "round_key", "serve_lm",
+           "stale_controller", "stream_partition", "train_gnn",
+           "write_shards"]
 
 
 def __getattr__(name):
@@ -58,6 +68,16 @@ def __getattr__(name):
     if name == "round_key":
         from repro_torch.kernels.ops import round_key
         return round_key
+    if name == "FaultSchedule":
+        from repro_torch.dist.faults import FaultSchedule
+        return FaultSchedule
+    if name in ("open_store", "write_shards", "load_shards",
+                "stream_partition"):
+        from repro_torch.graph import stream
+        return getattr(stream, name)
+    if name == "checkpoint":
+        import importlib
+        return importlib.import_module("repro_torch.train.checkpoint")
     if name == "train_gnn":
         from repro_torch.train.trainer import train_gnn
         return train_gnn

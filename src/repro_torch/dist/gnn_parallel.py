@@ -126,21 +126,32 @@ class DistMeta:
                 dims.append(int(layer["self"]["w"].shape[0]))
             else:                                     # poly taps
                 dims.append(int(layer["taps"][0]["w"].shape[0]))
+        # the per-pair facts, as JAX keeps them; a shard set
+        # (repro_torch.graph.stream.ShardSet) carries its spec from the
+        # manifest — after a shrink a deliberately patched one — so it is
+        # taken as is, never rebuilt from the arrays
         hop_w = compact = 0
         pair_rows: tuple = ()
-        if wire != "dense":            # the per-pair facts, as JAX keeps
-            from repro_torch.dist.halo import build_halo_spec
-            spec = build_halo_spec(pg)
+        if wire != "dense":
+            spec = getattr(pg, "halo_spec", None)
+            if spec is None:
+                from repro_torch.dist.halo import build_halo_spec
+                spec = build_halo_spec(pg)
             pair_rows = spec.pair_rows
             if wire == "p2p":
                 hop_w, compact = spec.hop_width, spec.compact_rows
+        n_train = getattr(pg, "n_train", None)
         return DistMeta(
             q=pg.q, part_size=pg.part_size, halo_size=pg.halo_size,
             num_nodes=pg.num_nodes, feat_dim=pg.feat_dim,
             num_classes=pg.num_classes, halo_demand=pg.halo_demand,
             cross_edges=pg.cross_edges,
-            n_train=int(pg.train_mask.sum()), n_val=int(pg.val_mask.sum()),
-            n_test=int(pg.test_mask.sum()),
+            n_train=int(pg.train_mask.sum()) if n_train is None
+            else int(n_train),
+            n_val=int(pg.val_mask.sum()) if n_train is None
+            else int(pg.n_val),
+            n_test=int(pg.test_mask.sum()) if n_train is None
+            else int(pg.n_test),
             layer_dims=tuple(dims), wire=wire,
             p2p_hop_width=hop_w, p2p_compact=compact, pair_rows=pair_rows)
 
@@ -402,6 +413,32 @@ def _pair_ledger(meta: DistMeta, f: int, rate_map, row_bits, pair_err,
                       embed(pair_delta.to(f32))])
 
 
+def _dead_mix(meta: DistMeta, dead) -> np.ndarray:
+    """Per-receiver fraction of remote halo rows served by DEAD pairs
+    (``[Q]`` float32 on the host): the blend weight of the local-only
+    renormalisation.  A fully dark receiver (every remote pair dead)
+    lands exactly on the isolated (No-Comm) aggregation weights — the
+    paper's rate→0 limit."""
+    rows = meta.pair_table().astype(np.float32)
+    dark = (rows * np.asarray(dead, np.float32)).sum(axis=1)
+    return dark / np.maximum(rows.sum(axis=1), np.float32(1.0))
+
+
+def _fault_live(q: int, fskip, dead, live):
+    """Fold the fault masks into the ledger's live matrix: CACHED
+    (``fskip``) and DEAD pairs ship nothing, forward or backward — both
+    their analytic and transport charges go to zero."""
+    if fskip is None and dead is None:
+        return live
+    lv = np.ones((q, q), np.float32) if live is None else \
+        np.asarray(live, np.float32)
+    if fskip is not None:
+        lv = lv * (np.float32(1.0) - np.asarray(fskip, np.float32))
+    if dead is not None:
+        lv = lv * (np.float32(1.0) - np.asarray(dead, np.float32))
+    return lv
+
+
 # ---------------------------------------------------------------------------
 # The aggregation oracle
 # ---------------------------------------------------------------------------
@@ -428,7 +465,9 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                              width_map=None, resid=None,
                              resid_out: list | None = None,
                              store_w: int = 0, rounding: str = "rint",
-                             wire_out: list | None = None):
+                             wire_out: list | None = None,
+                             fskip=None, fcache=None,
+                             fcache_out: list | None = None, dead=None):
     """AggregateFn over stacked ``[Q, P, F]`` tensors on one device — the
     JAX package's ``_make_aggregate_emulated``.
 
@@ -471,6 +510,18 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     ·]`` hop stacks on the p2p wire, ``[Q, B, ·]`` payloads on the packed
     wire (the ledger-vs-bytes conservation hook).
 
+    ``fskip``/``fcache``/``fcache_out``/``dead`` are the FAULT channel
+    (``repro_torch.dist.faults``), separate from the ``stale`` cache so
+    degraded halo service works under every policy, on the p2p rate-map
+    wire: a pair with ``fskip[i, j] == 1`` (link dropped, cache fresh
+    enough) is served ``fcache[call]``'s rows and charges zero wire bits;
+    ``dead[i, j] == 1`` (past the staleness cap) zeroes the pair's rows,
+    charges nothing, and blends the receiver's ELL weights toward the
+    isolated ones by its dark row fraction (:func:`_dead_mix`).  The
+    served buffers, before the dead pairs are zeroed, land in
+    ``fcache_out`` (one ``[Q, D, H, F]`` sender-major entry per exchange
+    call, detached).
+
     The oracle carries the split-phase API: ``start(li, x) -> (token,
     bits)`` packs and ships, ``complete(li, x, token)`` runs the local
     aggregation and folds in the delivered halo.
@@ -502,6 +553,12 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                          "pass width_map alongside it")
     if width_map is not None:
         _rate_tensor_layers(meta, width_map)
+    fault = fskip is not None or dead is not None or fcache is not None
+    if fault and not (p2p and rate_map is not None):
+        raise ValueError("the fault channel rides the p2p rate-map wire; "
+                         "pass rate_map with wire='p2p'")
+    if fcache is not None and fskip is None:
+        raise ValueError("fcache is served through fskip; pass both")
     q, p_sz, b_sz = meta.q, meta.part_size, meta.halo_size
     n_layers = _rate_tensor_layers(meta, rate_map)
     if rate_map is not None:
@@ -509,6 +566,8 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     width_map = None if width_map is None else \
         np.asarray(width_map, np.float32)
     skip = None if skip is None else np.asarray(skip, np.float32)
+    fskip = None if fskip is None else np.asarray(fskip, np.float32)
+    dead = None if dead is None else np.asarray(dead, np.float32)
     dev = graph["features"].device
     rate = torch.as_tensor(rate, dtype=_F32)
     jj, rv = _ring_targets(q)
@@ -627,8 +686,26 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                 sent = torch.where(to_dev(sk[..., None, None] > 0.0), c,
                                    sent)
             live = 1.0 - skip
+        if fcache is not None:
+            # fault channel: dropped-but-fresh pairs serve the receiver's
+            # cached hop rows (zero wire bits, no cotangent)
+            fsk = fskip[rv, jj]                                  # [Q, D]
+            if fsk.any():
+                sent = torch.where(to_dev(fsk[..., None, None] > 0.0),
+                                   fcache[call], sent)
+        if fcache_out is not None:
+            fcache_out.append(sent.detach())
         if cache_out is not None:
             cache_out.append(sent.detach())
+        if dead is not None:
+            # past the staleness cap the pair ships nothing: its rows
+            # zero out and `complete` renormalises toward w_iso
+            dd = dead[rv, jj]                                    # [Q, D]
+            if dd.any():
+                sent = torch.where(to_dev(dd[..., None, None] > 0.0),
+                                   torch.zeros((), dtype=sent.dtype,
+                                               device=dev), sent)
+        live = _fault_live(q, fskip, dead, live)
         row_bits = k_pairs.astype(np.float32) * (
             per_block_wire_bits(wm).numpy() if wm is not None
             else np.float32(LANE * 32.0))
@@ -760,8 +837,14 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                 0, (graph["remote_dst"].long() + off).reshape(-1),
                 vals.reshape(-1, f))
             return local + rem.reshape(q, p_sz + 1, f)[:, :p_sz]
-        loc = ell_aggregate(x, graph["ell_nbr"],
-                            _ell_w_for(graph, policy, rate),
+        ell_w = _ell_w_for(graph, policy, rate)
+        if dead is not None:
+            # local-only fallback: blend each receiver's weights toward
+            # the isolated normalisation by its dark remote-row fraction
+            # (every pair dead → exactly No-Comm), still on ell_spmm
+            mix = to_dev(_dead_mix(meta, dead))[:, None, None]
+            ell_w = ell_w + mix * (graph["ell_w_iso"] - ell_w)
+        loc = ell_aggregate(x, graph["ell_nbr"], ell_w,
                             graph["ell_rnbr"], graph["ell_rslot"])
         vals = graph["remote_w"][..., None] * \
             _rows_of(token, graph["remote_src_p2p"], token.shape[1])

@@ -46,6 +46,25 @@ class HaloSpec:
         """``[Q, Q]`` per-pair row counts (receiver × sender)."""
         return np.asarray(self.pair_rows, np.int64).reshape(self.q, self.q)
 
+    def to_dict(self) -> dict:
+        """JSON-ready form — the shard manifests
+        (``repro_torch.graph.stream``) persist the spec so shard-backed
+        runs never rebuild it from the global graph."""
+        return {"q": self.q, "hop_width": self.hop_width,
+                "compact_rows": self.compact_rows,
+                "ell_degree": self.ell_degree,
+                "rev_degree": self.rev_degree,
+                "pair_rows": list(self.pair_rows)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "HaloSpec":
+        """Inverse of :meth:`to_dict` (round-trips exactly)."""
+        return HaloSpec(q=int(d["q"]), hop_width=int(d["hop_width"]),
+                        compact_rows=int(d["compact_rows"]),
+                        ell_degree=int(d["ell_degree"]),
+                        rev_degree=int(d["rev_degree"]),
+                        pair_rows=tuple(int(v) for v in d["pair_rows"]))
+
 
 def _pair_slot_sets(pg) -> list[list[np.ndarray]]:
     """``sets[i][j]``: sorted unique boundary slots of ``j`` that ``i``'s

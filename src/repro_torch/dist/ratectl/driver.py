@@ -125,6 +125,16 @@ def init_wire_residuals(meta, cfg, device="cuda") -> tuple:
     return init_halo_cache(meta, cfg, device)
 
 
+def plan_widths(meta, plan: RatePlan):
+    """A plan's widths snapped to the storage grid (host ``[Q, Q]`` or
+    ``[L, Q, Q]`` float32); ``None`` when no pair quantises."""
+    if plan.widths is None:
+        return None
+    wm = np.vectorize(_snap_width)(
+        np.asarray(plan.widths, np.float32)).astype(np.float32)
+    return wm if _packed_pair_w_for(meta, wm) else None
+
+
 def _auto_metrics(loss, rate_map: np.ndarray, bits: torch.Tensor, q: int,
                   n_exchanges: int) -> dict:
     """Step metrics of the per-pair ledger vector (``2 + 3·L·Q²``);
@@ -203,19 +213,10 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     # error feedback and hop reuse share the cache channel: stale XOR EF
     use_ef = policy.max_width < 32 and meta.wire == "p2p" and not stale
 
-    def plan_widths(plan: RatePlan):
-        """Snap the planned widths to the storage grid; ``None`` when no
-        pair quantises."""
-        if plan.widths is None:
-            return None
-        wm = np.vectorize(_snap_width)(
-            np.asarray(plan.widths, np.float32)).astype(np.float32)
-        return wm if _packed_pair_w_for(meta, wm) else None
-
     def step(params, opt_state, graph, key, plan: RatePlan, cache=()):
         rm = np.asarray(plan.rates, np.float32)
         kb = dict(_packed_pair_k_for(meta, rm))
-        wm = plan_widths(plan)
+        wm = plan_widths(meta, plan)
         ef = use_ef and wm is not None and bool(cache)
         cache_out: list = []
 

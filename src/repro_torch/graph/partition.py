@@ -94,26 +94,39 @@ def greedy_partition(g: GraphData, q: int, seed: int = 0,
 
 
 def refine_partition(g: GraphData, owner: np.ndarray, q: int,
-                     passes: int = 4, slack: float = 1.05,
-                     seed: int = 0) -> np.ndarray:
+                     passes: int = 4, slack: float = 1.05, seed: int = 0,
+                     node_weight: np.ndarray | None = None,
+                     edge_weight: np.ndarray | None = None) -> np.ndarray:
     """Kernighan-Lin-style local refinement: greedily move nodes to the
-    partition holding most of their neighbours, subject to balance
-    (unweighted form of ``repro.graph.partition.refine_partition``)."""
+    partition holding most of their neighbours, subject to balance.
+
+    ``node_weight``/``edge_weight`` (per node / per directed edge, in
+    ``g.edge_list()`` order) weight the balance constraint and the
+    neighbour affinity — the coarse levels of the multilevel streaming
+    partitioner (``repro_torch.graph.stream``); ``None`` (the default)
+    is the unweighted refinement."""
     n = g.num_nodes
     rng = np.random.default_rng(seed)
     owner = owner.copy()
-    indptr, indices, _ = _canonical_rows(g)
-    capacity = slack * n / q
-    sizes = np.bincount(owner, minlength=q).astype(np.float64)
+    indptr, indices, ew = _canonical_rows(g, edge_weight)
+    if node_weight is None:
+        capacity = slack * n / q
+        sizes = np.bincount(owner, minlength=q).astype(np.float64)
+    else:
+        node_weight = np.asarray(node_weight, np.float64)
+        capacity = slack * float(node_weight.sum()) / q
+        sizes = np.bincount(owner, weights=node_weight, minlength=q)
     counts = np.zeros(q, np.float64)
     for _ in range(passes):
         moved = 0
         for u in rng.permutation(n):
-            neigh = indices[indptr[u]:indptr[u + 1]]
+            row = slice(indptr[u], indptr[u + 1])
+            neigh = indices[row]
             if len(neigh) == 0:
                 continue
             counts[:] = 0.0
-            np.add.at(counts, owner[neigh], 1.0)
+            np.add.at(counts, owner[neigh],
+                      1.0 if ew is None else ew[row])
             cur = owner[u]
             cur_count = counts[cur]
             counts[sizes >= capacity] = -np.inf
@@ -121,9 +134,10 @@ def refine_partition(g: GraphData, owner: np.ndarray, q: int,
             counts[cur] = cur_count
             best = int(np.argmax(counts))
             if best != cur and counts[best] > counts[cur]:
+                w_u = 1.0 if node_weight is None else node_weight[u]
                 owner[u] = best
-                sizes[cur] -= 1.0
-                sizes[best] += 1.0
+                sizes[cur] -= w_u
+                sizes[best] += w_u
                 moved += 1
         if moved == 0:
             break

@@ -1,6 +1,6 @@
 """Training: plain-function optimisers and LR schedules (``optim``), the
-full-batch distributed trainer (``trainer``) and CSV helpers
-(``metrics``)."""
+full-batch distributed trainer (``trainer``), crash-consistent
+checkpoints (``checkpoint``) and CSV helpers (``metrics``)."""
 
 from .optim import (Optimizer, adamw, apply_updates, clip_by_global_norm,
                     constant_lr, cosine_lr, global_norm, linear_decay_lr,
@@ -9,7 +9,7 @@ from .optim import (Optimizer, adamw, apply_updates, clip_by_global_norm,
 __all__ = [
     "Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
     "constant_lr", "cosine_lr", "global_norm", "linear_decay_lr", "sgd",
-    "History", "TrainResult", "train_gnn",
+    "History", "TrainResult", "checkpoint", "train_gnn",
 ]
 
 
@@ -19,4 +19,7 @@ def __getattr__(name):
     if name in ("History", "TrainResult", "train_gnn"):
         from . import trainer
         return getattr(trainer, name)
+    if name == "checkpoint":           # the submodule, imported on demand
+        import importlib
+        return importlib.import_module(f"{__name__}.checkpoint")
     raise AttributeError(name)

@@ -34,9 +34,11 @@ class History:
     policies), ``layer_transport_gf`` its per-layer refinement (per-layer
     auto policies) and ``comp_err`` the cumulative measured compression
     error.  ``width`` (the step's mean planned off-diagonal wire width,
-    32 when exact) and ``step_s`` (host seconds of the step, ending in the
-    metrics' device sync) are the port's additions; ``row()`` keeps the
-    JAX package's CSV columns.
+    32 when exact), ``step_s`` (host seconds of the step, ending in the
+    metrics' device sync; a crash's shrink and rebuild count in its
+    epoch) and, under faults, ``cached_pairs``/``dead_pairs`` (the
+    ladder's CACHED and DEAD pair counts of the step) are the port's
+    additions; ``row()`` keeps the JAX package's CSV columns.
     """
     epoch: list = dataclasses.field(default_factory=list)
     loss: list = dataclasses.field(default_factory=list)
@@ -52,6 +54,8 @@ class History:
     comp_err: list = dataclasses.field(default_factory=list)  # cumulative
     width: list = dataclasses.field(default_factory=list)
     step_s: list = dataclasses.field(default_factory=list)
+    cached_pairs: list = dataclasses.field(default_factory=list)
+    dead_pairs: list = dataclasses.field(default_factory=list)
 
     def row(self, i: int) -> dict:
         out = {k: getattr(self, k)[i] for k in
@@ -106,13 +110,6 @@ class TrainResult:
     policy_desc: str
 
 
-def _not_ported(**knobs) -> None:
-    for name, (value, item) in knobs.items():
-        if value:
-            raise NotImplementedError(
-                f"train_gnn({name}=...) is not ported yet (ROADMAP {item})")
-
-
 def _plan_width(plan, q: int) -> float:
     if plan.widths is None:
         return 32.0
@@ -128,6 +125,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
               optimizer: Optimizer | None = None, sync: str = "grad",
               wire: str = "dense", device="cuda", params=None,
               use_shard_map: bool = False, faults=None,
+              fault_max_stale: int = 5, fault_backoff_cap: int = 16,
               checkpoint_dir: str | None = None, checkpoint_every: int = 0,
               resume: bool = False, stop_after: int | None = None,
               log_fn=None) -> TrainResult:
@@ -135,9 +133,12 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     ``device`` (every partition stacked on one card; ``device="cpu"``
     runs the kernels' plain versions).
 
-    ``g`` is a host ``GraphData``, or a ``PartitionedGraph`` already cut
+    ``g`` is a host ``GraphData``, a ``PartitionedGraph`` already cut
     (then ``q`` and ``scheme`` come with it and the partitioner does not
-    run again).  Mirrors the paper's §V setup by default: 3-layer SAGE,
+    run again), or the out-of-core input: a shard directory written by
+    ``repro_torch.graph.stream.write_shards`` (or the JAX package's) or a
+    loaded ``ShardSet``, whose halo/ELL arrays and halo spec ship in the
+    shards.  Mirrors the paper's §V setup by default: 3-layer SAGE,
     256 hidden, full batch, and the JAX package's default wire,
     ``"dense"``: each worker's boundary block compressed by the policy's
     compressor (the paper's ``randmask`` unless the policy names another)
@@ -145,10 +146,10 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     blocks (feature widths multiples of 128, compressing policies with
     the ``blockmask`` compressor); ``wire="p2p"`` the neighbour-only halo
     wire with the ELL local aggregation (same constraints under
-    compression), to which auto policies default from ``"dense"``.  ``params`` (a
-    parameter tree, e.g. ``params_from_jax`` of the JAX package's
-    ``init_gnn``) replaces the seeded initialisation, which draws from a
-    CPU ``torch.Generator(seed)``.
+    compression), to which auto policies and ``faults`` default from
+    ``"dense"``.  ``params`` (a parameter tree, e.g. ``params_from_jax``
+    of the JAX package's ``init_gnn``) replaces the seeded
+    initialisation, which draws from a CPU ``torch.Generator(seed)``.
 
     The paper's comparison (the JAX package's quickstart) on the CPU::
 
@@ -163,21 +164,40 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     on the p2p wire carries error-feedback residuals (never under
     ``stale``, whose cache channel holds the halos).
 
-    Not ported (raise ``NotImplementedError``): ``use_shard_map``,
-    ``faults``, checkpointing (``checkpoint_dir``/``resume``/
-    ``stop_after``), shard directories.  The quantised wire rounds half
-    to even (the JAX package's default off the TPU;
-    ``make_auto_train_step(rounding="stochastic")`` rounds unbiased).
+    ``faults`` (a :class:`repro_torch.dist.faults.FaultSchedule`) turns
+    on the degraded-mode loop: each epoch the schedule's seeded link
+    drops feed the *exchange → cached → backoff-probe → local-only*
+    ladder (``fault_max_stale`` staleness cap, ``fault_backoff_cap``
+    probe backoff) and every policy's step runs through the fault
+    channel (scalar policies on a uniform rate map); a ``crash_at`` event
+    shrinks the run to Q − 1 (shard-backed input only), migrating the
+    controller and ladder state.  ``checkpoint_dir`` + ``checkpoint_every``
+    persist the full train state atomically every N epochs
+    (``stop_after`` also saves, then stops after that many epochs);
+    ``resume=True`` restores it and continues at the saved epoch —
+    bitwise on the CPU; on the card the remote scatter's atomics reorder
+    f32 sums — replaying any recorded worker shrink.  On the CPU::
+
+        train_gnn(shard_dir, policy=CommPolicy.parse("varco:linear:5", 6),
+                  epochs=6, wire="p2p", device="cpu",
+                  faults=FaultSchedule(q=4, drop_rate=0.25,
+                                       crash_at=((3, 1),)),
+                  checkpoint_dir="ck", stop_after=4)
+        train_gnn(shard_dir, ..., checkpoint_dir="ck", resume=True)
+
+    Not ported (raises ``NotImplementedError``): ``use_shard_map``.  The
+    quantised wire rounds half to even (the JAX package's default off the
+    TPU; ``make_auto_train_step(rounding="stochastic")`` rounds
+    unbiased).
     """
-    _not_ported(use_shard_map=(use_shard_map, "queue 1: shard_map backend"),
-                faults=(faults is not None, "queue 1: fault channels"),
-                checkpoint_dir=(checkpoint_dir or checkpoint_every,
-                                "queue 1: checkpoints"),
-                resume=(resume, "queue 1: checkpoints"),
-                stop_after=(stop_after is not None, "queue 1: checkpoints"))
-    if isinstance(g, (str, bytes)):
-        raise NotImplementedError("shard directories are not ported yet "
-                                  "(ROADMAP queue 1: out-of-core graphs)")
+    from repro_torch.dist import faults as faultlib
+    from repro_torch.graph.stream import ShardSet, is_shard_dir, load_shards
+    from repro_torch.train import checkpoint as ckpt
+
+    if use_shard_map:
+        raise NotImplementedError(
+            "train_gnn(use_shard_map=...) is not ported yet (ROADMAP "
+            "queue 1: the multi-GPU backend)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -185,56 +205,218 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain versions on the CPU")
     auto = policy.mode == "auto"
-    if auto and wire == "dense":
+    fault = faults is not None
+    if (auto or fault) and wire == "dense":
         wire = "p2p"                   # per-pair rates need a per-pair wire
+    sched = faults
+    if is_shard_dir(g):
+        g = load_shards(g)
+    elif isinstance(g, (str, bytes)):
+        raise FileNotFoundError(f"{g!r} is no shard directory (no "
+                                f"shards.json)")
     cfg = GNNConfig(conv=conv, in_dim=g.feat_dim, hidden=hidden,
                     out_dim=g.num_classes, layers=layers)
     if params is None:
         params = init_gnn(cfg, torch.Generator().manual_seed(seed),
                           device=device)
     params = params_to(params, device)
-    pg = g if isinstance(g, PartitionedGraph) else \
-        partition_graph(g, q, scheme=scheme, seed=seed)
+    if isinstance(g, ShardSet):
+        pg = g                         # partitioned offline; q comes with it
+        graph = pg.device_arrays(device)
+    else:
+        pg = g if isinstance(g, PartitionedGraph) else \
+            partition_graph(g, q, scheme=scheme, seed=seed)
+        graph = pg.device_arrays(device)
+        if wire == "p2p" or auto:      # auto's per-pair stats need them
+            from repro_torch.dist.halo import attach_p2p
+            graph = attach_p2p(graph, pg, device)
     q = pg.q
-    graph = pg.device_arrays(device)
-    if wire == "p2p" or auto:          # auto's per-pair stats need them
-        from repro_torch.dist.halo import attach_p2p
-        graph = attach_p2p(graph, pg, device)
+    if resume:
+        if not checkpoint_dir:
+            raise ValueError("resume=True needs checkpoint_dir")
+        path = ckpt.latest_checkpoint(checkpoint_dir)
+        if path is None:
+            raise FileNotFoundError(
+                f"resume=True but no checkpoint under {checkpoint_dir!r}")
+        peeked = ckpt.peek(path)
+        alive = peeked.get("alive")
+        if alive is not None and len(alive) < q:
+            # the checkpointed run had already shrunk: replay the shrinks
+            # so the like-tree (and every step closure) matches its world
+            if not isinstance(pg, ShardSet):
+                raise ValueError("resuming a shrunk run needs shard-backed "
+                                 "input (a ShardSet / shard dir)")
+            cur = list(range(q))
+            for w in sorted(set(cur) - set(int(a) for a in alive)):
+                pg = faultlib.shrink_shards(pg, cur.index(w))
+                cur.remove(w)
+            q = pg.q
+            graph = pg.device_arrays(device)
+            if sched is not None:
+                sched = dataclasses.replace(
+                    sched, alive=tuple(int(a) for a in alive))
+        if int(peeked.get("q", q)) != q:
+            raise ValueError(f"checkpoint world size {peeked['q']} does "
+                             f"not match this run's q={q}")
     meta = DistMeta.build(pg, params, wire=wire)
     opt = optimizer or adamw(lr, weight_decay=weight_decay)
     opt_state = opt.init(params)
-
-    cache: tuple = ()
-    if auto:
+    if auto or fault:
         from repro_torch.dist.ratectl import (init_halo_cache,
                                               init_wire_residuals,
                                               make_auto_train_step,
-                                              make_controller)
+                                              make_controller, uniform_plan)
+
+    def _init_cache(meta_):
+        if not auto:
+            return ()
+        if policy.controller == "stale":
+            return init_halo_cache(meta_, cfg, device)
+        if policy.max_width < 32 and meta_.wire == "p2p":
+            # the cache channel carries error-feedback residuals instead
+            return init_wire_residuals(meta_, cfg, device)
+        return ()
+
+    def _make_step(meta_):
+        if fault:
+            return faultlib.make_fault_train_step(cfg, policy, opt, meta_,
+                                                  sync=sync)
+        if auto:
+            return make_auto_train_step(cfg, policy, opt, meta_, sync=sync)
+        return make_train_step(cfg, policy, opt, meta_, sync=sync)
+
+    ctl = ctl_state = None
+    if auto:
         ctl = make_controller(policy, meta, cfg, total_steps=epochs)
         ctl_state = ctl.init()
-        step = make_auto_train_step(cfg, policy, opt, meta, sync=sync)
-        if policy.controller == "stale":
-            cache = init_halo_cache(meta, cfg, device)
-        elif policy.max_width < 32 and wire == "p2p":
-            # the cache channel carries error-feedback residuals instead
-            cache = init_wire_residuals(meta, cfg, device)
-    else:
-        step = make_train_step(cfg, policy, opt, meta, sync=sync)
+    cache = _init_cache(meta)
+    fcache = init_halo_cache(meta, cfg, device) if fault else ()
+    dstate = faultlib.init_degrade(q) if fault else None
+    step = _make_step(meta)
     evaluate = make_eval_step(cfg, meta)
 
     hist = History()
     halo_bits_cum = transport_bits_cum = err_cum = 0.0
     pair_bits_cum = layer_bits_cum = None
+    start_epoch = 0
+
+    def _state_tree():
+        tree = {"params": params, "opt": opt_state}
+        if auto:
+            tree["ctl"] = ctl_state
+        if cache:
+            tree["cache"] = tuple(cache)
+        if fault:
+            tree["fcache"] = tuple(fcache)
+        return tree
+
+    def _ck_extra():
+        return {
+            "q": int(q),
+            "alive": [int(w) for w in sched.alive_workers] if fault
+            else None,
+            "halo": float(halo_bits_cum),
+            "transport": float(transport_bits_cum),
+            "err": float(err_cum),
+            "pair": None if pair_bits_cum is None else pair_bits_cum.tolist(),
+            "layer": None if layer_bits_cum is None
+            else layer_bits_cum.tolist(),
+            "degrade": None if dstate is None else {
+                "age": dstate.age.tolist(),
+                "backoff": dstate.backoff.tolist(),
+                "next_try": dstate.next_try.tolist()},
+            "policy": policy.describe(),
+        }
+
+    if resume:
+        tree, start_epoch, ext = ckpt.restore_train_state(checkpoint_dir,
+                                                          _state_tree())
+        params, opt_state = tree["params"], tree["opt"]
+        if auto:
+            ctl_state = tree["ctl"]
+        if "cache" in tree:
+            cache = tree["cache"]
+        if fault:
+            fcache = tree["fcache"]
+            dg = ext.get("degrade")
+            if dg is not None:
+                dstate = faultlib.DegradeState(
+                    age=np.asarray(dg["age"], np.int64),
+                    backoff=np.asarray(dg["backoff"], np.int64),
+                    next_try=np.asarray(dg["next_try"], np.int64))
+        halo_bits_cum = float(ext.get("halo", 0.0))
+        transport_bits_cum = float(ext.get("transport", 0.0))
+        err_cum = float(ext.get("err", 0.0))
+        if ext.get("pair") is not None:
+            pair_bits_cum = np.asarray(ext["pair"], np.float64)
+        if ext.get("layer") is not None:
+            layer_bits_cum = np.asarray(ext["layer"], np.float64)
+
     t0 = time.time()
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         t_step = time.perf_counter()
         width = 32.0
-        if auto:
+        if fault:
+            crash = sched.crash_at_step(epoch)
+            if crash is not None:
+                if not isinstance(pg, ShardSet):
+                    raise ValueError(
+                        "elastic worker-crash recovery needs shard-backed "
+                        "input (a ShardSet / shard dir) — in-memory "
+                        "partitions cannot be renumbered at Q - 1")
+                if q <= 2:
+                    raise ValueError("cannot shrink below Q = 2 — the "
+                                     "fault plane needs at least one link")
+                q_old = q
+                pg = faultlib.shrink_shards(pg, crash)
+                q = pg.q
+                graph = pg.device_arrays(device)
+                meta = DistMeta.build(pg, params, wire=wire)
+                sched = sched.shrink(crash)
+                dstate = faultlib.migrate_degrade_state(dstate, crash)
+                if auto:
+                    ctl = make_controller(policy, meta, cfg,
+                                          total_steps=epochs)
+                    ctl_state = faultlib.migrate_controller_state(
+                        ctl_state, crash, q_old)
+                cache = _init_cache(meta)   # stale/EF buffers restart cold
+                fcache = init_halo_cache(meta, cfg, device)
+                step = _make_step(meta)
+                evaluate = make_eval_step(cfg, meta)
+                # keep cumulative pair splits shaped [..., Q, Q]: the dead
+                # worker's history leaves the ledger with it
+                if pair_bits_cum is not None:
+                    pair_bits_cum = np.delete(
+                        np.delete(pair_bits_cum, crash, 0), crash, 1)
+                if layer_bits_cum is not None:
+                    layer_bits_cum = np.delete(
+                        np.delete(layer_bits_cum, crash, 1), crash, 2)
+            serve, dstate = faultlib.degrade_plan(
+                dstate, sched.effective_drops(epoch), epoch,
+                max_stale=fault_max_stale, backoff_cap=fault_backoff_cap)
+            fskip, dead = faultlib.serve_masks(serve)
+            ladder = (int(fskip.sum()), int(dead.sum()))
+            if auto:
+                plan, ctl_state = ctl.plan(ctl_state, epoch)
+                width = _plan_width(plan, q)
+            else:
+                r = float(policy.rate(epoch)) if policy.compresses else 1.0
+                plan = uniform_plan(q, r)
+            params, opt_state, m, cache, fcache = step(
+                params, opt_state, graph, prng.key(epoch), plan, fskip,
+                dead, cache, fcache)
+            if auto:
+                ctl_state = ctl.observe(ctl_state, m)
+        elif auto:
             plan, ctl_state = ctl.plan(ctl_state, epoch)
             width = _plan_width(plan, q)
             params, opt_state, m, cache = step(params, opt_state, graph,
                                                prng.key(epoch), plan, cache)
             ctl_state = ctl.observe(ctl_state, m)
+        else:
+            params, opt_state, m = step(params, opt_state, graph, epoch,
+                                        prng.key(epoch))
+        if auto or fault:
             pair_t = np.asarray(m["pair_transport"], np.float64)
             pair_bits_cum = pair_t if pair_bits_cum is None \
                 else pair_bits_cum + pair_t
@@ -243,9 +425,6 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                 layer_t = np.asarray(m["layer_transport"], np.float64)
                 layer_bits_cum = layer_t if layer_bits_cum is None \
                     else layer_bits_cum + layer_t
-        else:
-            params, opt_state, m = step(params, opt_state, graph, epoch,
-                                        prng.key(epoch))
         loss = float(m["loss"])                 # the step's device sync
         step_s = time.perf_counter() - t_step
         halo_bits_cum += float(m["halo_bits"])
@@ -263,6 +442,9 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             hist.wall_s.append(time.time() - t0)
             hist.width.append(width)
             hist.step_s.append(step_s)
+            if fault:
+                hist.cached_pairs.append(ladder[0])
+                hist.dead_pairs.append(ladder[1])
             if pair_bits_cum is not None:
                 hist.pair_transport_gf.append(tuple(
                     pair_bits_cum.ravel() / 32.0 / 1e9))
@@ -272,4 +454,12 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                     layer_bits_cum.ravel() / 32.0 / 1e9))
             if log_fn:
                 log_fn(hist.row(len(hist.epoch) - 1))
+        done = epoch + 1
+        if checkpoint_dir and (
+                (checkpoint_every and done % checkpoint_every == 0)
+                or done == stop_after):
+            ckpt.save_train_state(checkpoint_dir, _state_tree(), done,
+                                  extra=_ck_extra())
+        if stop_after is not None and done >= stop_after:
+            break
     return TrainResult(hist, params, meta, policy.describe())

@@ -800,3 +800,53 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["varco:linear:5", "auto:budget:3e7:w8"])
+def test_cuda_shard_fault_run_matches_cpu(cuda_device, spec, tmp_path):
+    """A shard-backed ``train_gnn`` under faults (drops, DEAD pairs, a
+    crash of worker 1 at epoch 3) and a checkpoint/resume on the card:
+    the kernels' launch counters move (the fused codecs under w8), and
+    every epoch's loss matches the CPU run's within 1e-4 (atomic scatters
+    reorder f32 sums)."""
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist.faults import FaultSchedule
+    from repro_torch.graph import stream as ts
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.train.trainer import train_gnn
+
+    st = ts.write_graph_store(tiny_graph(n=512, feat_dim=128),
+                              tmp_path / "store")
+    shards = ts.write_shards(st, ts.stream_partition(st, 4, "metis-like"),
+                             tmp_path / "shards")
+    ep = 6
+
+    def run(device, **kw):
+        return train_gnn(shards, policy=CommPolicy.parse(
+            spec, ep, compressor="blockmask"), epochs=ep, hidden=256,
+            layers=2, eval_every=1, wire="p2p", device=device,
+            faults=FaultSchedule(q=4, seed=0, drop_rate=0.25,
+                                 spike_rate=0.05, crash_at=((3, 1),)),
+            fault_max_stale=2, **kw)
+
+    names = ["ell_spmm", "varco_pack", "varco_unpack"]
+    if spec.endswith("w8"):
+        names += ["varco_pack_quant", "varco_unpack_quant"]
+    fns = {"ell_spmm": tell.ell_spmm, "varco_pack": tvp.varco_pack,
+           "varco_unpack": tvp.varco_unpack,
+           "varco_pack_quant": tvp.varco_pack_quant,
+           "varco_unpack_quant": tvp.varco_unpack_quant}
+    before = {n: fns[n].launches for n in names}
+    got = run("cuda")
+    for n in names:
+        assert fns[n].launches > before[n], n
+    want = run("cpu")
+    assert got.meta.q == want.meta.q == 3
+    np.testing.assert_allclose(got.history.loss, want.history.loss,
+                               rtol=0, atol=1e-4)
+    ck = str(tmp_path / "ck")
+    run("cuda", checkpoint_dir=ck, stop_after=4)
+    resumed = run("cuda", checkpoint_dir=ck, resume=True)
+    np.testing.assert_allclose(resumed.history.loss, got.history.loss[4:],
+                               rtol=0, atol=1e-4)

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports neither ``jax`` nor the JAX
-package (nor ``ml_dtypes``, which the GPU machine lacks), and its entry
-points default to the card instead of quietly running on the CPU."""
+package (nor ``ml_dtypes`` or ``msgpack``, which the GPU machine lacks),
+and its entry points default to the card instead of quietly running on
+the CPU."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def _port_files():
     return files
 
 
-FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes", "msgpack")
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -53,12 +54,15 @@ def test_import_scan_sees_relative_and_nested_imports(tmp_path):
     assert _imported_modules(src) == {"jax.numpy", "repro.graph"}
     src.write_text("import ml_dtypes\n")
     assert _imported_modules(src) & set(FORBIDDEN) == {"ml_dtypes"}
+    src.write_text("import msgpack\n")
+    assert _imported_modules(src) & set(FORBIDDEN) == {"msgpack"}
 
 
 def test_entry_points_default_to_cuda():
     from repro_torch.dist.halo import attach_p2p
     from repro_torch.dist.ratectl import init_halo_cache, init_wire_residuals
     from repro_torch.graph.partition import PartitionedGraph
+    from repro_torch.graph.stream import ShardSet
     from repro_torch.nn.gnn import centralized_forward, init_gnn
     from repro_torch.serve import ServingEngine
     from repro_torch.train.trainer import train_gnn
@@ -69,7 +73,8 @@ def test_entry_points_default_to_cuda():
 
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
                centralized_forward, init_halo_cache, init_wire_residuals,
-               PartitionedGraph.device_arrays, train_gnn, serve, init_lm,
+               PartitionedGraph.device_arrays, ShardSet.device_arrays,
+               train_gnn, serve, init_lm,
                init_cache, lm_params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().get_default("device") == "cuda"

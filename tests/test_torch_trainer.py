@@ -22,6 +22,7 @@ from repro.graph.synthetic import tiny_graph as j_tiny
 from repro.nn import gnn as jgnn
 from repro.train.trainer import train_gnn as j_train
 from repro_torch.core.varco import CommPolicy
+from repro_torch.dist.faults import FaultSchedule
 from repro_torch.graph.partition import partition_graph
 from repro_torch.graph.synthetic import tiny_graph
 from repro_torch.nn import gnn as tgnn
@@ -104,7 +105,8 @@ def test_train_gnn_matches_jax(name):
     assert np.isfinite(ht.loss).all() and all(s >= 0 for s in ht.step_s)
 
 
-def test_train_gnn_reuses_a_partitioned_graph_and_refuses_unported():
+def test_train_gnn_reuses_a_partitioned_graph_and_refuses_unported(
+        tmp_path):
     g = tiny_graph(n=128, feat_dim=F)
     pg = partition_graph(g, 2, scheme="random", seed=0)
     pol = CommPolicy.parse("fixed:2", 2, compressor="blockmask")
@@ -113,13 +115,24 @@ def test_train_gnn_reuses_a_partitioned_graph_and_refuses_unported():
     a = train_gnn(g, q=2, scheme="random", **kw).history
     b = train_gnn(pg, q=7, scheme="metis-like", **kw).history
     assert a.loss == b.loss and a.transport_gfloats == b.transport_gfloats
-    for bad in ({"use_shard_map": True}, {"resume": True},
-                {"checkpoint_dir": "ckpt"}, {"stop_after": 1},
-                {"faults": object()}):
-        with pytest.raises(NotImplementedError):
-            train_gnn(pg, **{**kw, **bad})
     with pytest.raises(NotImplementedError):
-        train_gnn("shards/", **kw)
+        train_gnn(pg, **{**kw, "use_shard_map": True})
+    # ported since: resume needs a checkpoint directory, a path must be a
+    # shard directory, and checkpointed and faulted runs train (their
+    # parity: tests/test_torch_resume.py, tests/test_torch_faults.py)
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        train_gnn(pg, **{**kw, "resume": True})
+    with pytest.raises(FileNotFoundError):
+        train_gnn(str(tmp_path / "shards"), **kw)
+    ck = str(tmp_path / "ckpt")
+    part = train_gnn(pg, **{**kw, "checkpoint_dir": ck,
+                            "stop_after": 1}).history
+    rest = train_gnn(pg, **{**kw, "checkpoint_dir": ck,
+                            "resume": True}).history
+    assert part.loss == b.loss[:1] and rest.loss == b.loss[1:]
+    faulted = train_gnn(pg, **{**kw, "faults": FaultSchedule(
+        q=2, drop_rate=0.0)}).history
+    np.testing.assert_allclose(faulted.loss, b.loss, rtol=0, atol=1e-6)
     # the stale controller is ported now: the same call trains (its
     # parity with the JAX package: tests/test_torch_auto_wires.py)
     stale = train_gnn(pg, **{**kw, "policy": CommPolicy.parse(
