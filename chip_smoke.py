@@ -111,15 +111,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    a state tree of card tensors must be bitwise; save/restore ms and the
    file's bytes are printed, and the phase's peak device memory.
 
-7. lm_kernels — ``flash_attention`` at granite-3-2b's prefill shape (q
-   ``[8, 32, 2048, 64]``, k/v ``[8, 8, 2048, 64]``, bf16, causal, handed
-   over as the model's ``[B, S, H, D]`` views), at D = 128 and D = 256,
+7. lm_kernels — ``flash_attention`` at qwen2-moe-a2.7b's prefill shape
+   (q and k/v ``[8, 16, 2048, 128]``, bf16, causal, handed over as the
+   model's ``[B, S, H, D]`` views), at every other full-size prefill
+   shape of the registry (granite ``[8, 32, 2048, 64]`` kv 8, gemma
+   ``[8, 16, 2048, 256]`` MHA, musicgen ``[8, 32, 2048, 64]`` MHA, yi
+   ``[8, 32, 2048, 128]`` kv 4, qwen3 and jamba ``[8, 64, 2048, 128]`` kv
+   8, llama4 ``[8, 40, 2048, 128]`` kv 8, qwen2-vl ``[8, 12, 2048, 128]``
+   kv 2), at D = 128 and D = 256,
    with a window, at a ragged S — all on the tensor-core kernel — and in
    f32 and bf16 at D = 32 on the CUDA-core kernel (each case checks that
    the counter of its kernel, and only that one, moved; the record's
    ``path`` names it); ``ssd_chunk`` at mamba2-130m's (x ``[8, 8, 256,
    24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
-   output), at a two-group ragged shape and at G = 2, H/G = 3, Q = 100.
+   output), at jamba's (H = 256: x ``[8, 8, 256, 256, 64]``), at a
+   two-group ragged shape and at G = 2, H/G = 3, Q = 100.
    Flash attention also runs with explicit positions (a shifted and a
    left-padded batch, the JAX package's prefill mask) on both kernels,
    its bound from the (query, key) pairs the positions leave unmasked
@@ -134,38 +140,58 @@ Phases, each fatal on failure (exit code 1, no result line):
    the plain version in bf16 and timed here only; SSD: none) and the bound (bf16 products against the 989 TFLOP/s
    tensor-core peak, f32 against 67 TFLOP/s; the SSD count takes C·Bᵀ
    once per group, as the inputs need).
-8. lm — launch counts set to 0, then ``serve`` on granite-3-2b and on
-   mamba2-130m at full size (40 bf16 / 24 f32 layers, random weights from
-   a seeded generator on the card): batch 8, prompt 2048, 32 new tokens;
-   counts read right after each.  Each prefill must launch its kernel
-   once per layer (40 tensor-core flash, 24 SSD) and decode neither;
-   the CUDA-core flash kernel runs in neither.  The kernel-path
-   prefill logits must match the plain-path ones (the same call with the
-   plain versions swapped in) within 5e-2 (granite, bf16) and 1e-4
-   (mamba2, f32) of the largest logit; decode consistency — prefill over
-   S − 1 tokens plus one decode step against the prefill over S — within
-   1e-3 of the largest logit (granite's bf16 weights run in f32 for this
-   check; mamba2 at S = 256, since 2047 is no multiple of its chunk).
-   Granite's f32 check is the CUDA-core flash kernel's path: counts are
-   set to 0 before it and read after (two prefills: 80 launches of it,
-   none of the tensor-core kernel).  Granite's prefill with explicit
-   positions, kernel path against plain path within 5e-2: a shifted
-   batch at S = 2048 (masked by index, as the JAX package's chunked
-   branch) and a left-padded one at S = 2000 (masked by position).
+8. lm — every architecture of the registry served at full width,
+   random weights from a seeded generator on the card, batch 8, prompt
+   2048, 32 new tokens, one after another (each freed before the next):
+   granite-3-2b (40 bf16 layers), mamba2-130m (24 f32), qwen2-moe-a2.7b
+   (24 bf16 layers, 60 routed experts top-4 padded to 64 + 4 shared),
+   gemma-7b, yi-6b, musicgen-large, qwen2-vl-2b and qwen3-32b at full
+   depth, llama4-maverick-400b-a17b at one period (2 layers: a dense and
+   an MoE layer of 128 experts) and jamba-1.5-large-398b at the SMOKE
+   config's period ``("mamba", "attn")`` (2 layers; the attention layer
+   with an MoE of 16 experts); ``LM_SERVE`` holds the cuts.  Launch
+   counts are set to 0 before each ``serve`` and read right after: each
+   prefill must launch flash once per attention layer (on the kernel
+   ``kernel_for`` picks: tensor-core for every bf16 config) and
+   ``ssd_chunk`` once per mamba layer, and decode neither.  Each
+   kernel-path prefill's logits must match the plain path's (the same
+   call with the plain versions swapped in) within 5e-2 of the largest
+   logit in bf16 and 1e-4 in f32 (qwen3's check at batch 2, its dense
+   f32 scores beside 65.5 GB of weights); the MoE archs print the share
+   of (layer, token) pairs whose top-k experts agree between the two
+   paths, and the plain path's error when routed to the kernel path's
+   experts.  Decode consistency — prefill over S − 1 tokens plus one
+   decode step against the prefill over S — within 1e-3 of the largest
+   logit (granite's bf16 weights run in f32 for this check; mamba2 at S
+   = 256, since 2047 is no multiple of its chunk).  Granite's f32 check
+   is the CUDA-core flash kernel's path: counts are set to 0 before it
+   and read after (two prefills: 80 launches of it, none of the
+   tensor-core kernel).  Granite's prefill with explicit positions,
+   kernel path against plain path within 5e-2: a shifted batch at S =
+   2048 (masked by index, as the JAX package's chunked branch) and a
+   left-padded one at S = 2000 (masked by position).  Then qwen2-moe at
+   full width and 2 layers in f32: kernel path (CUDA-core flash) against
+   plain path within 1e-4 with the shared expert choices printed, and
+   decode consistency within 1e-3 at ``capacity_factor=8.0`` on 2 rows
+   (the JAX package's consistency test gives MoE the same headroom: a
+   decode step routes 2 tokens, the prefill 4096, and the capacities
+   then differ).
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
 no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
 from the auto phase for the stochastic codec and ``random_uniform``;
-from the LM prefills for the
-LM kernels, from granite's f32 check for the CUDA-core flash kernel); the
-last line is ``{"ok": true, "device": {...}}``.
+from qwen2-moe-a2.7b's prefill for tensor-core flash, mamba2-130m's for
+``ssd_chunk`` and granite's f32 check for the CUDA-core flash kernel);
+the last line is ``{"ok": true, "device": {...}}``.  ``--lm-only`` runs
+the device, build, lm_kernels and lm phases alone and prints neither.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -189,9 +215,31 @@ GRAD_TOL = 1e-4
 TRAIN_EPOCHS = 5
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_RTOL, SSD_ATOL = 1e-5, 1e-4
-PLAIN_PATH_TOL = {"granite-3-2b": 5e-2, "mamba2-130m": 1e-4}
+#: kernel path against plain path, of the largest logit, by param dtype
+PLAIN_PATH_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 CONSISTENCY_TOL = 1e-3
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
+#: the lm phase's architectures, in order, each at full width: ``cut``
+#: overrides cut the depth to fit one 80 GB card beside the phase's
+#: checks; ``plain_batch`` sizes a plain-path check whose f32 ``[B, H, S,
+#: S]`` scores would not fit beside the weights at LM_BATCH
+LM_SERVE = {
+    "granite-3-2b": {}, "mamba2-130m": {}, "qwen2-moe-a2.7b": {},
+    "gemma-7b": {}, "yi-6b": {}, "musicgen-large": {}, "qwen2-vl-2b": {},
+    "qwen3-32b": {"plain_batch": 2},
+    # one period: a dense layer and an MoE layer of 128 experts
+    "llama4-maverick-400b-a17b": {"cut": {"n_layers": 2}},
+    # the SMOKE config's period: a mamba layer and an attention + MoE one
+    "jamba-1.5-large-398b": {"cut": {"n_layers": 2,
+                                     "pattern": ("mamba", "attn")}},
+}
+#: the MoE architecture with the f32 and decode-consistency checks, and
+#: the depth it runs them at
+MOE_CHECK_ARCH, MOE_CHECK_LAYERS = "qwen2-moe-a2.7b", 2
+#: capacity headroom of the MoE decode-consistency check (the JAX
+#: package's consistency test uses the same): no choice drops in either
+#: prefill or the decode step, which route different token counts
+MOE_CONSISTENCY_CF = 8.0
 #: 32-bit integer operations of one ``random_mask`` element: the counter
 #: injection (2), 20 Threefry rounds of add, rotate and xor (60), 5 key
 #: injections of two adds (10), the output xor, the shift, the or with
@@ -246,10 +294,11 @@ GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
 #: the kernels of stochastic rounding: launched by make_auto_train_step(
 #: rounding="stochastic") steps (the auto phase), not by train_gnn
 STOCH_KERNELS = ("varco_pack_quant_stochastic", "random_uniform")
-#: kernel -> the arch whose prefill runs it (once per layer); the CUDA-core
-#: flash kernel runs in neither bf16 granite nor f32 mamba2 serving, but in
-#: granite served in f32 (the decode-consistency check's path)
-LM_KERNELS = {"flash_attention": "granite-3-2b", "ssd_chunk": "mamba2-130m",
+#: kernel -> the arch whose serving run gives the summary's launches (one
+#: per attention / mamba layer of a prefill); the CUDA-core flash kernel
+#: serves no full-size arch: its launches come from granite served in f32
+#: (the decode-consistency check's path)
+LM_KERNELS = {"flash_attention": "qwen2-moe-a2.7b", "ssd_chunk": "mamba2-130m",
               "flash_attention_simt": None}
 
 
@@ -1896,10 +1945,28 @@ def lm_kernels_phase(reps: int = 10) -> dict:
     largest error over its cases."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
-    # first record of each kernel: its main row (flash_attention_simt: the
-    # f32 granite shape that the f32 serving path runs)
+    # first record of each kernel: its main row (flash_attention: the
+    # full-width MoE path's prefill; flash_attention_simt: the f32 granite
+    # shape that the f32 serving path runs)
     flash = [
+        _flash_case("qwen2_moe_prefill", 8, 16, 16, 2048, 128, bf16, 0, reps,
+                    gen, library=True),
         _flash_case("granite_prefill", 8, 32, 8, 2048, 64, bf16, 0, reps,
+                    gen, library=True),
+        # every other full-size prefill shape: MHA at D = 256 (gemma) and
+        # D = 64 (musicgen); GQA 32/4 (yi), 64/8 (qwen3, jamba), 40/8
+        # (llama4), 12/2 (qwen2-vl)
+        _flash_case("gemma_prefill", 8, 16, 16, 2048, 256, bf16, 0, reps,
+                    gen, library=True),
+        _flash_case("musicgen_prefill", 8, 32, 32, 2048, 64, bf16, 0, reps,
+                    gen, library=True),
+        _flash_case("yi_prefill", 8, 32, 4, 2048, 128, bf16, 0, reps, gen,
+                    library=True),
+        _flash_case("qwen3_jamba_prefill", 8, 64, 8, 2048, 128, bf16, 0,
+                    reps, gen, library=True),
+        _flash_case("llama4_prefill", 8, 40, 8, 2048, 128, bf16, 0, reps,
+                    gen, library=True),
+        _flash_case("qwen2_vl_prefill", 8, 12, 2, 2048, 128, bf16, 0, reps,
                     gen, library=True),
         _flash_case("d128", 2, 32, 8, 2048, 128, bf16, 0, reps, gen,
                     library=True),
@@ -1927,6 +1994,8 @@ def lm_kernels_phase(reps: int = 10) -> dict:
                         "shifted", reps, gen),
     ]
     ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
+           # jamba's mamba layer: d_inner 16384 in 256 heads of 64
+           _ssd_case("jamba_prefill", 8, 8, 256, 256, 64, 1, 128, reps, gen),
            _ssd_case("ragged_g2", 2, 3, 100, 4, 32, 2, 16, reps, gen),
            _ssd_case("g2_rep3_q100", 2, 3, 100, 6, 64, 2, 128, reps, gen)]
     main = {}
@@ -1978,35 +2047,101 @@ def _consistency(cfg, params, prompts, s):
     return _rel_err(got, want)
 
 
+@contextlib.contextmanager
+def routed(record: list = None, replay: list = None):
+    """Around MoE runs: append each MoE layer's top-k expert indices to
+    ``record``, or route each layer to the experts ``replay`` holds (in
+    call order), gate values renormalised from this run's router."""
+    from repro_torch.models import moe
+
+    route = moe.route
+    it = iter(replay or ())
+
+    def wrapped(params, m, xt):
+        probs, gates, idx = route(params, m, xt)
+        if replay is not None:
+            idx = next(it)
+            gates = probs.gather(1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+        if record is not None:
+            record.append(idx)
+        return probs, gates, idx
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _same_choices(a: list, b: list) -> float:
+    """Share of (layer, token) pairs whose top-k expert sets are equal (the
+    order within a token's choices changes no output)."""
+    same = [(x.sort(-1).values == y.sort(-1).values).all(-1).float().mean()
+            for x, y in zip(a, b)]
+    return float(torch.stack(same).mean())
+
+
+def expected_launches(cfg) -> dict:
+    """Each LM kernel's launches in one prefill: one flash launch (on the
+    kernel ``kernel_for`` picks) per attention layer, one SSD launch per
+    mamba layer."""
+    from repro_torch.kernels.flash_attention import kernel_for
+
+    want = dict.fromkeys(LM_KERNELS, 0)
+    n_attn = cfg.n_blocks * cfg.pattern.count("attn")
+    if n_attn:
+        flash = kernel_for(cfg.adtype, cfg.resolved_head_dim)
+        want["flash_attention" if flash == "wgmma"
+             else "flash_attention_simt"] = n_attn
+    want["ssd_chunk"] = cfg.n_blocks * cfg.pattern.count("mamba")
+    return want
+
+
+def _n_moe(cfg) -> int:
+    return cfg.n_blocks * sum(cfg.layer_uses_moe(pi)
+                              for pi in range(cfg.pattern_period))
+
+
+def _prompts(cfg, seed: int, batch: int = LM_BATCH) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, LM_PROMPT)).astype(np.int32)).cuda()
+
+
+def _init(cfg, seed: int):
+    from repro_torch.models.transformer import init_lm
+
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
 def lm_phase(seed: int = 0) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models.transformer import init_lm, prefill
+    from repro_torch.models.transformer import prefill
     from repro_torch.nn.modules import param_count
 
     counters = launch_counters()
     launches = {}
-    for arch in ("granite-3-2b", "mamba2-130m"):
-        cfg = get_config(arch)
-        t0 = time.perf_counter()
-        params = init_lm(cfg, torch.Generator(device="cuda")
-                         .manual_seed(seed), device="cuda")
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        prompts = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)) \
-            .cuda()
+    for arch, spec in LM_SERVE.items():
+        cfg = get_config(arch).with_(**spec.get("cut", {}))
+        params, init_s = _init(cfg, seed)
+        prompts = _prompts(cfg, seed)
+        n_moe = _n_moe(cfg)
+        kernel_routes, plain_routes = [], []
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
         out = serve(cfg, params, prompts, LM_NEW, device="cuda")
         got = {name: counters[name].launches for name in LM_KERNELS}
         peak = torch.cuda.max_memory_allocated() / 1e9
+        want = expected_launches(cfg)
+        check(got == want, f"{arch}: LM kernels launched {got} in one "
+              f"prefill + {LM_NEW - 1} decode steps, expected {want}")
         for name, owner in LM_KERNELS.items():
-            want = cfg.n_layers if owner == arch else 0
-            check(got[name] == want, f"{arch}: {name} launched {got[name]} "
-                  f"times in one prefill + {LM_NEW - 1} decode steps, "
-                  f"expected {want}")
             if owner == arch:
                 launches[name] = got[name]
         check(tuple(out.tokens.shape) == (LM_BATCH, LM_NEW) and
@@ -2014,17 +2149,48 @@ def lm_phase(seed: int = 0) -> dict:
                    .all()), f"{arch}: malformed tokens")
         check(bool(torch.isfinite(out.prefill_logits.float()).all()),
               f"{arch}: non-finite prefill logits")
-        with plain_kernels():
-            plain, _ = prefill(params, cfg, {"tokens": prompts},
+        timing = {"prefill_ms": out.prefill_s * 1e3,
+                  "prefill_tokens_per_s": LM_BATCH * LM_PROMPT /
+                  out.prefill_s,
+                  "decode_s": out.decode_s,
+                  "decode_tokens_per_s": out.decode_tokens_per_s,
+                  "decode_ms_per_step": out.decode_s / (LM_NEW - 1) * 1e3,
+                  "peak_mem_gb": peak,
+                  "first_tokens": out.tokens[0, :8].tolist()}
+        del out
+        _, timing["warm_prefill_ms"] = _timed_prefill(
+            params, cfg, {"tokens": prompts})
+        # the plain path on the same prompts (a smaller batch where its
+        # dense scores would not fit: the kernel path again at that batch)
+        pb = spec.get("plain_batch", LM_BATCH)
+        with routed(record=kernel_routes):
+            kernel_logits, _ = prefill(params, cfg, {"tokens": prompts[:pb]})
+        with plain_kernels(), routed(record=plain_routes):
+            plain, _ = prefill(params, cfg, {"tokens": prompts[:pb]},
                                max_len=LM_PROMPT + LM_NEW)
-        plain_err = _rel_err(out.prefill_logits, plain)
+        plain_err = _rel_err(kernel_logits, plain)
+        moe_rec = {}
+        if n_moe:
+            # in bf16 the two paths' roundings flip near-tied router
+            # choices, and each flip moves a token's FFN output by O(1):
+            # the plain path routed to the kernel path's experts is what
+            # holds the kernels to the plain function; the free-running
+            # error and the share of equal choices are printed beside it
+            with plain_kernels(), routed(replay=kernel_routes):
+                pinned, _ = prefill(params, cfg, {"tokens": prompts})
+            moe_rec = {"same_expert_choices": _same_choices(kernel_routes,
+                                                            plain_routes),
+                       "free_routing_plain_path_rel_err": plain_err}
+            plain_err = _rel_err(kernel_logits, pinned)
+            del pinned
         pos_errs, pos_ms = {}, {}
-        if cfg.mamba is None:
+        if arch == "granite-3-2b":
             pos_errs, pos_ms = _positions_prefill(cfg, params, prompts)
-        if cfg.mamba is not None:
+        cons, cons_launches = None, {}
+        if cfg.mamba is not None and "attn" not in cfg.pattern:
             # S = one chunk: 2047 tokens would be no multiple of it
             cons = _consistency(cfg, params, prompts, cfg.mamba.chunk)
-        else:
+        elif arch == "granite-3-2b":
             # the identity in f32: a bf16 decode rounds its scores before
             # the softmax; batch 2 of the prompts.  Granite served in f32
             # is the CUDA-core flash kernel's path: two prefills
@@ -2033,42 +2199,86 @@ def lm_phase(seed: int = 0) -> dict:
             cons = _consistency(
                 cfg.with_(param_dtype="float32", activ_dtype="float32"),
                 _tree_float(params), prompts[:2], LM_PROMPT)
-            f32_got = {name: counters[name].launches for name in LM_KERNELS}
-            check(f32_got == {"flash_attention": 0, "ssd_chunk": 0,
-                              "flash_attention_simt": 2 * cfg.n_layers},
-                  f"{arch} in f32: flash launches {f32_got}, expected "
-                  f"{2 * cfg.n_layers} of flash_attention_simt only")
-            launches["flash_attention_simt"] = f32_got[
+            cons_launches = {name: counters[name].launches
+                             for name in LM_KERNELS}
+            want = {"flash_attention": 0, "ssd_chunk": 0,
+                    "flash_attention_simt": 2 * cfg.n_layers}
+            check(cons_launches == want, f"{arch} in f32: flash launches "
+                  f"{cons_launches}, expected {want}")
+            launches["flash_attention_simt"] = cons_launches[
                 "flash_attention_simt"]
         rec = {"phase": "lm", "arch": arch, "params": param_count(params),
                "dtype": cfg.param_dtype, "layers": cfg.n_layers,
+               "pattern": list(cfg.pattern), "cut": spec.get("cut", {}),
                "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-               "init_s": init_s, "prefill_ms": out.prefill_s * 1e3,
-               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / out.prefill_s,
-               "decode_s": out.decode_s,
-               "decode_tokens_per_s": out.decode_tokens_per_s,
-               "decode_ms_per_step": out.decode_s / (LM_NEW - 1) * 1e3,
-               "peak_mem_gb": peak, "launches": got,
-               **({"f32_consistency_launches": f32_got}
-                  if cfg.mamba is None else {}),
-               "plain_path_rel_err": plain_err,
+               "init_s": init_s, **timing, "launches": got,
+               "plain_path_batch": pb, "plain_path_rel_err": plain_err,
+               **moe_rec,
                "positions_plain_path_rel_err": pos_errs,
                "positions_prefill_ms": pos_ms,
                "decode_consistency_rel_err": cons,
-               "first_tokens": out.tokens[0, :8].tolist()}
+               **({"f32_consistency_launches": cons_launches}
+                  if cons_launches else {})}
         emit(rec)
-        check(plain_err <= PLAIN_PATH_TOL[arch],
-              f"{arch}: kernel-path prefill logits differ from the plain "
-              f"path by {plain_err} of the largest logit")
-        check(cons <= CONSISTENCY_TOL,
+        tol = PLAIN_PATH_TOL[cfg.param_dtype]
+        check(plain_err <= tol, f"{arch}: kernel-path prefill logits "
+              f"differ from the plain path by {plain_err} of the largest "
+              f"logit (limit {tol})")
+        check(cons is None or cons <= CONSISTENCY_TOL,
               f"{arch}: prefill + decode differs from prefill by {cons}")
         for kind, e in pos_errs.items():
-            check(e <= PLAIN_PATH_TOL[arch],
-                  f"{arch}: {kind} prefill, kernel path against plain "
-                  f"path: {e} of the largest logit")
-        del params, out, plain
+            check(e <= tol, f"{arch}: {kind} prefill, kernel path against "
+                  f"plain path: {e} of the largest logit")
+        del params, plain, kernel_logits
         torch.cuda.empty_cache()
+    moe_f32_phase(seed)
     return launches
+
+
+def moe_f32_phase(seed: int = 0) -> dict:
+    """The MoE check arch at full width and ``MOE_CHECK_LAYERS`` layers in
+    f32 (the CUDA-core flash kernel's path): kernel path against plain
+    path within 1e-4 of the largest logit, with the share of identical
+    expert choices; then prefill + decode consistency with
+    ``MOE_CONSISTENCY_CF`` capacity headroom."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import prefill
+
+    counters = launch_counters()
+    cfg = get_config(MOE_CHECK_ARCH).with_(
+        n_layers=MOE_CHECK_LAYERS, param_dtype="float32",
+        activ_dtype="float32")
+    params, init_s = _init(cfg, seed)
+    prompts = _prompts(cfg, seed)
+    kernel_routes, plain_routes = [], []
+    for fn in counters.values():
+        fn.launches = 0
+    with routed(record=kernel_routes):
+        got, _ = _timed_prefill(params, cfg, {"tokens": prompts})
+    launched = {name: counters[name].launches for name in LM_KERNELS}
+    want = expected_launches(cfg)
+    check(launched == want, f"{MOE_CHECK_ARCH} in f32: LM kernels "
+          f"launched {launched} in one prefill, expected {want}")
+    with plain_kernels(), routed(record=plain_routes):
+        plain, _ = prefill(params, cfg, {"tokens": prompts})
+    err = _rel_err(got, plain)
+    headroom = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CONSISTENCY_CF))
+    cons = _consistency(headroom, params, prompts[:2], LM_PROMPT)
+    emit({"phase": "lm_moe_f32", "arch": MOE_CHECK_ARCH,
+          "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "init_s": init_s,
+          "launches": launched, "plain_path_rel_err": err,
+          "same_expert_choices": _same_choices(kernel_routes, plain_routes),
+          "decode_consistency_rel_err": cons,
+          "consistency_capacity_factor": MOE_CONSISTENCY_CF,
+          "consistency_batch": 2})
+    check(err <= PLAIN_PATH_TOL["float32"], f"{MOE_CHECK_ARCH} in f32: "
+          f"kernel path against plain path: {err} of the largest logit")
+    check(cons <= CONSISTENCY_TOL, f"{MOE_CHECK_ARCH} in f32: prefill + "
+          f"decode differs from prefill by {cons}")
+    del params, got, plain
+    torch.cuda.empty_cache()
 
 
 def _timed_prefill(params, cfg, batch):
@@ -2117,10 +2327,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=169_343,
                     help="graph size (default: OGBN-Arxiv's node count)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only the device, build, lm_kernels and lm phases "
+                         "(a partial run: no summary or result line)")
     args = ap.parse_args(argv)
     try:
         card = device_phase()
         build_phase()
+        if args.lm_only:
+            lm_kernels_phase()
+            lm_phase()
+            print("lm-only run: every LM check passed", flush=True)
+            return 0
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
         main_recs = kernels_phase(eng)
         slice_phase(g, cfg, params, eng)

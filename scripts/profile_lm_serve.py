@@ -13,7 +13,12 @@ kernels and warm the allocator, then traces one prefill and
 line: the host-clock wall time (ending in a device sync), the device
 time summed over every kernel, the device's idle share of the wall time
 (the profiler's own host cost inflates the wall time, so the share is an
-upper bound), and the kernels with the most device time.  The card's
+upper bound), and the kernels with the most device time.  For an MoE
+architecture the stages of ``repro_torch.models.moe`` (``route``,
+``slots``, ``dispatch``, ``experts``, ``combine``) run under
+``record_function`` spans for the traced calls only, and the line adds
+each stage's device time (the kernels launched inside its span), and the
+gated MLPs (the shared experts', and any dense layer's) under ``mlp``.  The card's
 name and power limit go on the first line.  On the CPU the list holds
 operators' CPU self times, never device numbers.
 """
@@ -29,7 +34,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -39,6 +44,29 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
 from repro_torch.models.transformer import init_lm  # noqa: E402
 
 TOP = 12    # kernels listed per phase
+#: the MoE FFN's stages, each traced under a span of its name
+MOE_STAGES = ("route", "slots", "dispatch", "experts", "combine")
+
+
+def _device_total_us(evt) -> float:
+    return float(getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0)))
+
+
+def span_moe_stages() -> None:
+    """Wrap each MoE stage (and the layers' gated MLP, which the shared
+    experts run) in a ``record_function`` span named ``moe.<stage>``."""
+    from repro_torch.models import layers, moe
+
+    def spanned(name, fn):
+        def inner(*args, **kwargs):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kwargs)
+        return inner
+
+    for name in MOE_STAGES:
+        setattr(moe, name, spanned(name, getattr(moe, name)))
+    layers.mlp = spanned("mlp", layers.mlp)
 
 
 def _self_time_us(evt, on_card: bool) -> float:
@@ -60,11 +88,18 @@ def _trace(fn, device: torch.device) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     # on the card: the kernels (device-side events) only, so no time is
     # counted both under a kernel and under the operator that launched it
+    # (the MoE stages' spans also appear on the device's timeline: they
+    # are no kernels, so they stay out of the sum)
     rows = [(e.key[:160], _self_time_us(e, on_card), e.count)
             for e in prof.key_averages()
-            if not on_card or str(e.device_type).endswith("CUDA")]
+            if (not on_card or str(e.device_type).endswith("CUDA")) and
+            not e.key.startswith("moe.")]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
+    spans = {e.key: (_device_total_us(e) if on_card
+                     else float(e.cpu_time_total)) / 1e3
+             for e in prof.key_averages() if e.key.startswith("moe.") and
+             not str(e.device_type).endswith("CUDA")}
     busy_us = sum(r[1] for r in rows) if on_card else None
     return {"wall_ms": wall_us / 1e3,
             "device_ms": busy_us / 1e3 if on_card else None,
@@ -73,7 +108,8 @@ def _trace(fn, device: torch.device) -> dict:
             "time_kind": "device self time" if on_card
             else "CPU self time (not a device number)",
             "top": [{"op": k, "ms": us / 1e3, "calls": n}
-                    for k, us, n in rows[:TOP]]}
+                    for k, us, n in rows[:TOP]],
+            **({"moe_stage_ms": spans} if spans else {})}
 
 
 def main(argv=None) -> int:
@@ -123,6 +159,8 @@ def main(argv=None) -> int:
 
     tok, cache = run_prefill()                    # warm-up: builds kernels
     run_decode(tok, cache)
+    if cfg.moe is not None:
+        span_moe_stages()
     out = {}
     rec = _trace(lambda: out.update(zip(("tok", "cache"), run_prefill())),
                  device)

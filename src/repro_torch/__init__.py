@@ -35,8 +35,9 @@ over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
 
 * the LM serving slice — :func:`serve_lm` (``repro_torch.launch.serve.
   serve``: prefill a prompt batch, greedy-decode) over
-  :func:`init_lm` / :func:`prefill` / :func:`decode_step` for
-  granite-3-2b and mamba2-130m, whose prefill runs the
+  :func:`init_lm` / :func:`prefill` / :func:`decode_step` for every
+  architecture of the registry (dense, MoE through
+  :mod:`repro_torch.models.moe`, SSM and hybrid), whose prefill runs the
   ``flash_attention`` and ``ssd_chunk`` kernels.
 """
 

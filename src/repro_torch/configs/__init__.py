@@ -1,5 +1,5 @@
-from .base import (ARCH_IDS, PORTED, ArchConfig, MambaConfig, MoEConfig,
+from .base import (ARCH_IDS, ArchConfig, MambaConfig, MoEConfig,
                    get_config, torch_dtype)
 
-__all__ = ["ARCH_IDS", "PORTED", "ArchConfig", "MambaConfig", "MoEConfig",
+__all__ = ["ARCH_IDS", "ArchConfig", "MambaConfig", "MoEConfig",
            "get_config", "torch_dtype"]

@@ -2,11 +2,11 @@
 
 Counterpart of ``repro/configs/base.py``: the same dataclasses, fields and
 derived properties, with dtypes kept as strings and turned into torch
-dtypes by :func:`torch_dtype`.  Each ported architecture has one
-``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the exact
+dtypes by :func:`torch_dtype`.  Every architecture of :data:`ARCH_IDS` has
+one ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the exact
 assignment) and ``SMOKE`` (the reduced same-family variant the CPU tests
-use), copied from the JAX package.  :func:`get_config` serves the ported
-architectures; the others raise ``NotImplementedError``.
+use), copied field for field from the JAX package; :func:`get_config`
+serves each of them.
 """
 
 from __future__ import annotations
@@ -203,17 +203,9 @@ ARCH_IDS = [
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
-#: the architectures whose config files the port carries (the LM serving
-#: slice); every other id of ``ARCH_IDS`` waits for ROADMAP queue 1 item 12
-PORTED = ("granite-3-2b", "mamba2-130m")
-
 
 def get_config(arch: str, smoke: bool = False) -> ArchConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP queue 1 item 12, the LM "
-            f"stack); ported: {PORTED}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -6,6 +6,8 @@ tokens — counterpart of ``repro/launch/serve.py``.
         --batch 8 --prompt-len 2048 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --smoke --device cpu          # the reduced config on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b --prompt-len 2048   # any id of ARCH_IDS
 
 Weights are random, drawn on the device from a seeded generator; prompts
 come from ``numpy.random.default_rng(0)``.  :func:`serve` is the same path

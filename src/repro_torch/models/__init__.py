@@ -1,6 +1,7 @@
 """The LM stack's serving path — counterpart of ``repro/models``:
-:mod:`.layers` (attention, RoPE, gated MLP), :mod:`.mamba2` (SSD) and
-:mod:`.transformer` (``init_lm``, ``prefill``, ``decode_step``) — and
+:mod:`.layers` (attention, RoPE, gated MLP), :mod:`.mamba2` (SSD),
+:mod:`.moe` (the MoE FFN) and :mod:`.transformer` (``init_lm``,
+``prefill``, ``decode_step``) — and
 :func:`lm_params_from_jax`, which carries JAX weights across."""
 
 from __future__ import annotations

@@ -82,10 +82,12 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _normal(gen: torch.Generator, shape, dtype, scale: float
-            ) -> torch.Tensor:
+def normal(gen: torch.Generator, shape, dtype, scale: float
+           ) -> torch.Tensor:
+    """``scale · N(0, 1)`` drawn from ``gen`` on its device, scaled in
+    place (a full-size leaf is gigabytes: no second copy)."""
     return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=dtype) * scale
+                       dtype=dtype).mul_(scale)
 
 
 def init_attn(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
@@ -96,10 +98,10 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
                     cfg.resolved_head_dim)
     dt = cfg.pdtype
     p = {
-        "wq": _normal(gen, (*lead, d, h, hd), dt, 1.0 / math.sqrt(d)),
-        "wk": _normal(gen, (*lead, d, kv, hd), dt, 1.0 / math.sqrt(d)),
-        "wv": _normal(gen, (*lead, d, kv, hd), dt, 1.0 / math.sqrt(d)),
-        "wo": _normal(gen, (*lead, h, hd, d), dt, 1.0 / math.sqrt(h * hd)),
+        "wq": normal(gen, (*lead, d, h, hd), dt, 1.0 / math.sqrt(d)),
+        "wk": normal(gen, (*lead, d, kv, hd), dt, 1.0 / math.sqrt(d)),
+        "wv": normal(gen, (*lead, d, kv, hd), dt, 1.0 / math.sqrt(d)),
+        "wo": normal(gen, (*lead, h, hd, d), dt, 1.0 / math.sqrt(h * hd)),
     }
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((*lead, hd), dtype=dt, device=gen.device)
@@ -246,10 +248,10 @@ def attention(params: dict, cfg: ArchConfig, x: torch.Tensor,
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype,
              lead: tuple = ()) -> dict:
     return {
-        "w_gate": _normal(gen, (*lead, d, d_ff), dtype, 1.0 / math.sqrt(d)),
-        "w_up": _normal(gen, (*lead, d, d_ff), dtype, 1.0 / math.sqrt(d)),
-        "w_down": _normal(gen, (*lead, d_ff, d), dtype,
-                          1.0 / math.sqrt(d_ff)),
+        "w_gate": normal(gen, (*lead, d, d_ff), dtype, 1.0 / math.sqrt(d)),
+        "w_up": normal(gen, (*lead, d, d_ff), dtype, 1.0 / math.sqrt(d)),
+        "w_down": normal(gen, (*lead, d_ff, d), dtype,
+                         1.0 / math.sqrt(d_ff)),
     }
 
 

@@ -2,11 +2,13 @@
 serving entry points.
 
 A model is ``n_blocks`` repetitions of a *pattern* (a tuple of layer
-kinds: ``("attn",)`` for dense LMs, ``("mamba",)`` for mamba2).  The
-parameters keep the JAX layout — every block leaf stacked ``[n_blocks,
-...]`` — and the blocks run in a Python loop over that leading dim, so
-weights carry over from JAX unchanged (:func:`repro_torch.models.
-lm_params_from_jax`).  The model runs on one card: the JAX package's
+kinds: ``("attn",)`` for dense LMs, ``("mamba",)`` for mamba2,
+``("mamba", "attn")`` and the like for hybrids); each layer's FFN is the
+gated MLP or, where ``cfg.layer_uses_moe``, the MoE FFN of
+:mod:`repro_torch.models.moe`.  The parameters keep the JAX layout —
+every block leaf stacked ``[n_blocks, ...]`` — and the blocks run in a
+Python loop over that leading dim, so weights carry over from JAX
+unchanged (:func:`repro_torch.models.lm_params_from_jax`).  The model runs on one card: the JAX package's
 sharding hints have no counterpart.
 
 Entry points:
@@ -20,8 +22,9 @@ Entry points:
   tensors **in place** (a full-size KV cache is gigabytes; the JAX
   package returns a new one) and returns a Cache over the same tensors.
 
-Architectures with MoE layers raise ``NotImplementedError`` (ROADMAP
-queue 1 item 12); the training forward waits for the LM training slice.
+Every architecture of the registry is served; the MoE layers' router
+aux loss is summed per block and discarded by both entry points, as in
+the JAX package.  The training forward waits for the LM training slice.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (MambaCache, init_mamba,
                                        init_mamba_cache, mamba_layer)
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.nn.modules import rms_norm
 
 
@@ -53,13 +57,6 @@ class Cache(NamedTuple):
     """Per-pattern-position caches, each stacked over n_blocks."""
     layers: tuple   # tuple over pattern idx of AttnCache | MambaCache
     index: int      # number of tokens already in the cache
-
-
-def _need_dense(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1 "
-            f"item 12, models/moe.py)")
 
 
 def checked_device(device) -> torch.device:
@@ -114,7 +111,9 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
             lp["attn"] = L.init_attn(gen, cfg, lead)
         else:
             lp["mamba"] = init_mamba(gen, cfg, lead)
-        if cfg.d_ff > 0:
+        if cfg.layer_uses_moe(pi):
+            lp["moe"] = init_moe(gen, cfg, lead)
+        elif cfg.d_ff > 0:
             lp["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
                                    lead)
         else:
@@ -129,7 +128,6 @@ def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     ``generator`` (a ``torch.Generator`` on that device; seed 0 if
     omitted): block leaves are stacked ``[n_blocks, ...]``.  The numbers
     are not JAX's — parity runs carry JAX's weights across instead."""
-    _need_dense(cfg)
     device = checked_device(device)
     gen = generator if generator is not None else \
         torch.Generator(device=device).manual_seed(0)
@@ -137,16 +135,15 @@ def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         raise ValueError(f"generator lives on {gen.device}, weights on "
                          f"{device}")
     params = {
-        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                             device=device, dtype=cfg.pdtype) * 0.02,
+        "embed": L.normal(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                          0.02),
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
                                   device=device),
         "blocks": _init_block(gen, cfg, lead=(cfg.n_blocks,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn(
-            (cfg.d_model, cfg.vocab_size), generator=gen, device=device,
-            dtype=cfg.pdtype) * 0.02
+        params["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab_size),
+                                     cfg.pdtype, 0.02)
     return params
 
 
@@ -209,9 +206,11 @@ def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
 def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
                  positions: torch.Tensor, block_cache: Optional[tuple],
                  cache_index, positions3, mask_positions=None
-                 ) -> tuple[torch.Tensor, tuple]:
-    """One pattern period: pre-norm mixer + pre-norm FFN per layer."""
+                 ) -> tuple[torch.Tensor, tuple, torch.Tensor]:
+    """One pattern period: pre-norm mixer + pre-norm FFN (gated MLP or
+    MoE) per layer; returns the MoE layers' summed router aux loss too."""
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pi, kind in enumerate(cfg.pattern):
         lp = block[f"p{pi}_{kind}"]
         cl = block_cache[pi] if block_cache is not None else None
@@ -219,10 +218,14 @@ def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
                               positions, cl, cache_index, positions3,
                               mask_positions)
         h = h + mixed
-        if cfg.d_ff > 0:
+        if cfg.layer_uses_moe(pi):
+            ffn_out, a = moe_ffn(lp["moe"], cfg, rms_norm(h, lp["norm2"]))
+            aux = aux + a
+            h = h + ffn_out
+        elif cfg.d_ff > 0:
             h = h + L.mlp(lp["mlp"], rms_norm(h, lp["norm2"]), cfg.mlp)
         new_caches.append(new_c)
-    return h, tuple(new_caches)
+    return h, tuple(new_caches), aux
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +267,6 @@ def prefill(params, cfg: ArchConfig, batch: dict,
     (:func:`repro_torch.models.layers.prefill_mask_positions`, decided
     once here for every layer).
     """
-    _need_dense(cfg)
     x, positions = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     max_len = max_len or s
@@ -280,8 +282,9 @@ def prefill(params, cfg: ArchConfig, batch: dict,
     cache = init_cache(cfg, b, max_len, device=x.device)
     h = x
     for i in range(cfg.n_blocks):
-        h, new_c = _apply_block(_index(params["blocks"], i), cfg, h,
-                                positions, None, None, positions3, mask_pos)
+        h, new_c, _aux = _apply_block(_index(params["blocks"], i), cfg, h,
+                                      positions, None, None, positions3,
+                                      mask_pos)
         for pi, kind in enumerate(cfg.pattern):
             dst, src = cache.layers[pi], new_c[pi]
             if kind == "attn":
@@ -301,7 +304,6 @@ def decode_step(params, cfg: ArchConfig, batch: dict, cache: Cache
     """One-token serve step: ``batch["tokens"]`` [B, 1] (or embeds [B, 1,
     d]).  Updates ``cache``'s tensors in place; returns the logits [B, V]
     and the Cache with ``index + 1``."""
-    _need_dense(cfg)
     b = batch["tokens"].shape[0] if "tokens" in batch else \
         batch["embeds"].shape[0]
     if batch.get("positions") is None:
@@ -315,8 +317,9 @@ def decode_step(params, cfg: ArchConfig, batch: dict, cache: Cache
     h = x
     for i in range(cfg.n_blocks):
         bc = _index(cache.layers, i)
-        h, new_c = _apply_block(_index(params["blocks"], i), cfg, h,
-                                positions, bc, cache.index, positions3)
+        h, new_c, _aux = _apply_block(_index(params["blocks"], i), cfg, h,
+                                      positions, bc, cache.index,
+                                      positions3)
         for pi, kind in enumerate(cfg.pattern):
             if kind != "attn":    # attention wrote its slot in place
                 cache.layers[pi].conv[i] = new_c[pi].conv

@@ -1,20 +1,25 @@
 """The LM serving slice of the port against the live JAX package, on the CPU.
 
-JAX's ``init_lm(jax.random.key(0), SMOKE)`` weights for granite-3-2b and
-mamba2-130m are carried across with ``lm_params_from_jax``.  The port's
-``prefill`` logits and every cache leaf, and three ``decode_step``s, must
-match JAX's within 1e-5 (f32 sums in another order through two layers;
-measured ≤ 4e-6), including a sliding-window variant whose decode wraps
-the ring, ``qk_norm``, a 2048-token prompt that takes JAX's
-``chunked_sdpa`` branch and prompts with explicit (shifted, left-padded)
-positions, masked by position at S = 8 and by index at S = 2048 as the
-JAX package masks them; ``serve``'s greedy tokens must equal a JAX loop
-of ``make_prefill_step`` / ``make_decode_step``.  Here the ops run their
-plain versions; tests/test_torch_cuda.py holds the kernels to them.
+JAX's ``init_lm(jax.random.key(0), SMOKE)`` weights for every architecture
+of the registry (dense, GeGLU, qk-norm, M-RoPE, audio, MoE, SSM and hybrid)
+are carried across with ``lm_params_from_jax``. The port's ``prefill``
+logits and every cache leaf, and three ``decode_step``s, must match JAX's
+within 1e-5 (f32 sums in another order through two layers; measured ≤ 4e-6),
+including a sliding-window variant whose decode wraps the ring, ``qk_norm``,
+a 2048-token prompt that takes JAX's ``chunked_sdpa`` branch and prompts
+with explicit (shifted, left-padded) positions, masked by position at S = 8
+and by index at S = 2048 as the JAX package masks them, and qwen2-vl's
+M-RoPE with explicit ``positions3``; ``serve``'s greedy tokens must equal a
+JAX loop of ``make_prefill_step`` / ``make_decode_step``. The MoE configs
+drop the same overflowing choices on both sides, so parity needs no capacity
+headroom; the port's own decode-consistency check gives MoE layers
+``capacity_factor=8.0``, as the JAX package's test does. Here the ops run
+their plain versions; tests/test_torch_cuda.py holds the kernels to them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 
 import jax
@@ -23,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import ARCH_IDS
 from repro.configs.base import get_config as jget
 from repro.launch import steps as jsteps
 from repro.models import transformer as JT
@@ -33,7 +39,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.nn.modules import param_count
 
 TOL = 1e-5
-ARCHS = ["granite-3-2b", "mamba2-130m"]
+ARCHS = ["granite-3-2b", "mamba2-130m", "gemma-7b", "yi-6b", "qwen3-32b",
+         "qwen2-vl-2b", "musicgen-large", "qwen2-moe-a2.7b",
+         "llama4-maverick-400b-a17b", "jamba-1.5-large-398b"]
+assert sorted(ARCHS) == sorted(ARCH_IDS)
 
 
 def _setup(arch, **over):
@@ -171,6 +180,8 @@ def test_decode_consistency(models, arch):
     position, within 1e-5 (the decode path's sdpa / O(1) SSD step against
     the prefill's flash / chunked SSD, in f32)."""
     _, tc, _, tp = models[arch]
+    if tc.moe is not None:      # no capacity drops: S = 16 + 1 vs S = 17
+        tc = tc.with_(moe=dataclasses.replace(tc.moe, capacity_factor=8.0))
     toks = torch.from_numpy(_tokens(tc.vocab_size, 2, 17, seed=2))
     want, _ = TT.prefill(tp, tc, {"tokens": toks})
     _, cache = TT.prefill(tp, tc, {"tokens": toks[:, :16]}, max_len=24)
@@ -319,11 +330,21 @@ def test_prefill_mask_positions_decides_once():
 
 
 def test_moe_configs_raise():
+    """MoE configs no longer raise: granite-smoke given an MoE FFN in
+    every layer builds the ``moe`` leaves in place of ``mlp``, and
+    prefills, decodes and serves on the CPU with finite logits."""
     from repro_torch.configs.base import MoEConfig
     cfg = tget("granite-3-2b", smoke=True).with_(
-        moe=MoEConfig(n_experts=4, top_k=2, d_expert=64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        TT.init_lm(cfg, device="cpu")
+        moe=MoEConfig(n_experts=4, top_k=2, d_expert=64, n_shared=1))
+    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    layer = params["blocks"]["p0_attn"]
+    assert "mlp" not in layer and set(layer["moe"]) == {
+        "router", "w_gate", "w_up", "w_down", "shared"}
+    assert tuple(layer["moe"]["w_gate"].shape) == (cfg.n_blocks, 4, 128, 64)
+    out = tserve.serve(cfg, params, _tokens(cfg.vocab_size, 2, 12), 3,
+                       device="cpu")
+    assert tuple(out.tokens.shape) == (2, 3)
+    assert bool(torch.isfinite(out.prefill_logits).all())
 
 
 def test_serve_cli_runs_the_smoke_config_on_the_cpu(capsys):
@@ -357,3 +378,49 @@ def test_prefill_and_decode_from_embeds_match_jax(models):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
                                atol=TOL)
     _assert_caches_close(jcache, tcache)
+
+
+def _mrope_ids(b: int, text: int, grid: int) -> np.ndarray:
+    """int32 ``[3, B, text + grid²]`` (t, h, w) ids: ``text`` text tokens
+    (all three ids equal), then a ``grid × grid`` image of patches at
+    temporal id ``text`` with row / column ids from ``text``; row ``r`` of
+    the batch is shifted by ``2r``."""
+    t = np.arange(text)
+    rows, cols = np.divmod(np.arange(grid * grid), grid)
+    ids = np.stack([np.concatenate([t, np.full(grid * grid, text)]),
+                    np.concatenate([t, text + rows]),
+                    np.concatenate([t, text + cols])])
+    return np.stack([ids + 2 * r for r in range(b)], 1).astype(np.int32)
+
+
+def test_qwen2_vl_prefill_and_decode_with_positions3_match_jax(models):
+    """qwen2-vl's M-RoPE with explicit ``positions3``: 4 text tokens and a
+    4 × 4 patch grid (S = 20), then three decode steps at the text ids
+    that follow the grid; logits and caches within 1e-5, greedy tokens
+    equal."""
+    jc, tc, jp, tp = models["qwen2-vl-2b"]
+    b, s = 2, 20
+    toks = _tokens(jc.vocab_size, b, s + 3, seed=12)
+    p3 = _mrope_ids(b, 4, 4)
+    jl, jcache = JT.prefill(jp, jc, {"tokens": jnp.asarray(toks[:, :s]),
+                                     "positions3": jnp.asarray(p3)},
+                            max_len=s + 3)
+    tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(
+        toks[:, :s]), "positions3": torch.from_numpy(p3)}, max_len=s + 3)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+    _assert_caches_close(jcache, tcache)
+    for i in range(3):
+        tok = toks[:, s + i:s + i + 1]
+        d3 = np.broadcast_to(p3.max(axis=(0, 2))[None, :, None] + 1 + i,
+                             (3, b, 1)).astype(np.int32)
+        jl, jcache = JT.decode_step(jp, jc, {"tokens": jnp.asarray(tok),
+                                             "positions3": jnp.asarray(d3)},
+                                    jcache)
+        tl, tcache = TT.decode_step(tp, tc, {"tokens": torch.from_numpy(
+            tok), "positions3": torch.from_numpy(d3.copy())}, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL)
+        _assert_caches_close(jcache, tcache)
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(),
+                                      np.asarray(jnp.argmax(jl, -1)))
