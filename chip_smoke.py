@@ -110,6 +110,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    within 1e-4 of the uninterrupted run, and a ``save`` → ``restore`` of
    a state tree of card tensors must be bitwise; save/restore ms and the
    file's bytes are printed, and the phase's peak device memory.
+6d. update — streaming edge updates on the engine (after the other GNN
+   phases: the update changes its graph): a forced refresh, then a seeded
+   batch of 256 inserts and 256 deletes of existing edges through
+   ``apply_updates`` (host ``EdgeSpill``, the frontier recompute on the
+   card, a rebuild on the unchanged owner vector); the seconds of the
+   spill, the ms of the recompute (ending in a sync), each frontier's size
+   and the ms of the forced refresh that follows are printed.  The
+   patched cache must match ``centralized_forward`` on the new graph and
+   that forced refresh within 1e-4 (atomic scatter-adds reorder f32
+   sums); launch counts set to 0, three non-forced refreshes, counts read
+   (``ell_spmm`` and a wire pack must run).  Then an engine with
+   ``rounding="stochastic"`` and the drift gate off: counts set to 0, a
+   forced and two non-forced refreshes, counts read (the stochastic
+   codec must run), and every exchange's halo of each refresh must equal
+   the same refresh's with the plain codecs swapped in, bitwise (both
+   runs in PyTorch's deterministic mode, so the remote-halo scatter sums
+   in one order).
 
 7. lm_kernels — ``flash_attention`` at qwen2-moe-a2.7b's prefill shape
    (q and k/v ``[8, 16, 2048, 128]``, bf16, causal, handed over as the
@@ -176,15 +193,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    (the JAX package's consistency test gives MoE the same headroom: a
    decode step routes 2 tokens, the prefill 4096, and the capacities
    then differ).
+9. lm_train — launch counts set to 0, then LM training through
+   ``make_train_step`` (AdamW, lr 3e-4, ``TokenPipeline`` batches):
+   granite-3-2b at full size (40 bf16 layers, remat, f32 moments), batch 8
+   × 2048, 10 steps; qwen2-moe-a2.7b at full width and 2 layers, batch 4 ×
+   2048, 3 steps; mamba2-130m at full size (24 f32 layers), batch 8 ×
+   2048, 5 steps — each at half the batch if the card runs out of memory
+   (said in the record; width and depth are never cut); counts read after
+   (no LM kernel may run: neither has a backward).  Every loss finite,
+   granite's and mamba2's last three below their first, qwen2-moe's aux
+   loss positive; the median step ms of steps 3 on (host clock ending in
+   the loss read), tokens/s and peak memory are printed.  Granite's
+   training forward (``forward_train`` + ``_lm_head`` at the last
+   position) against its prefill (tensor-core flash) on the trained
+   weights, batch 8 × 2048, within 5e-2 of the largest logit.  Granite at
+   full width and 2 layers in f32, batch 2 × 512: one step on the card
+   from zero state, then one more from that state on the card and on the
+   CPU, loss within 1e-4 relative, every moment leaf within 1e-4 of its
+   largest magnitude and every parameter leaf within 1e-4 of its norm
+   (AdamW's normalised update turns the sum-order error of a near-zero
+   gradient entry into up to lr; the worst single entries are printed).
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
 no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
-from the auto phase for the stochastic codec and ``random_uniform``;
+from the auto phase plus the update phase's stochastic serving for the
+stochastic codec and ``random_uniform``;
 from qwen2-moe-a2.7b's prefill for tensor-core flash, mamba2-130m's for
 ``ssd_chunk`` and granite's f32 check for the CUDA-core flash kernel);
 the last line is ``{"ok": true, "device": {...}}``.  ``--lm-only`` runs
-the device, build, lm_kernels and lm phases alone and prints neither.
+the device, build, lm_kernels, lm and lm_train phases alone and prints
+neither.
 """
 
 from __future__ import annotations
@@ -192,6 +231,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1727,6 +1767,144 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: streaming edge updates, and serving with stochastic rounding
+# ---------------------------------------------------------------------------
+
+#: inserts and deletes (of existing edges) in the update batch
+UPDATE_BATCH = 256
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic mode around a comparison of two runs: the
+    remote-halo ``index_add_`` then sums in a fixed order (no atomics), so
+    a later layer's activations, and the halos packed from them, repeat
+    bit for bit.  ``warn_only``: cuBLAS stays as it is (deterministic on
+    one stream)."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _stoch_refreshes(eng, n_refresh: int) -> list:
+    """A forced and ``n_refresh - 1`` non-forced refreshes; each one's
+    halo caches (the hop buffers as received, one per exchange) and
+    transport bits."""
+    out = []
+    for i in range(n_refresh):
+        m = eng.refresh(force=i == 0)
+        torch.cuda.synchronize()
+        out.append(([h.clone() for h in eng._halo_cache],
+                    float(m["transport_bits"])))
+    return out
+
+
+def update_phase(g, cfg, params, eng, seed: int = 0) -> dict:
+    """A seeded batch of ``UPDATE_BATCH`` inserts and as many deletes of
+    existing edges through ``eng.apply_updates`` (host spill, frontier
+    recompute on the card, repartition on the unchanged owner vector): the
+    patched cache against ``centralized_forward`` on the new graph and
+    against the forced refresh that follows, within 1e-4; launch counts
+    set to 0, three non-forced refreshes on the new topology, counts read
+    (``ell_spmm`` and the wire must run).  Then an engine with
+    ``rounding="stochastic"`` and the drift gate off, counts set to 0, a
+    forced and two non-forced refreshes, counts read (the stochastic codec
+    must run); its halo caches must equal those of the same refreshes
+    with the plain codecs swapped in, bitwise.  Runs last among the GNN
+    phases: the update changes ``eng``'s graph."""
+    import copy
+
+    from repro_torch.nn.gnn import centralized_forward
+    from repro_torch.serve import ServingEngine
+
+    counters = launch_counters()
+    rng = np.random.default_rng(seed + 20)
+    n, n_layers = eng.g.num_nodes, len(params["layers"])
+    dst0, src0 = eng.g.edge_list()
+    pick = rng.integers(0, len(dst0), UPDATE_BATCH)
+    edges_before = eng.g.num_edges
+    eng.refresh(force=True)             # the cache the update patches
+    touched, fronts = eng.apply_updates(
+        inserts=(rng.integers(0, n, UPDATE_BATCH),
+                 rng.integers(0, n, UPDATE_BATCH)),
+        deletes=(dst0[pick], src0[pick]))
+    timing = dict(eng.timing)
+    status = eng.status()
+    patched = [eng.cache.gather(li, np.arange(n)) for li in range(n_layers)]
+    ref = centralized_forward(params, cfg, eng.g, device=eng.device)
+    err_central = float(np.abs(patched[-1] - ref.cpu().numpy()).max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.refresh(force=True)
+    forced_ms = (time.perf_counter() - t0) * 1e3
+    err_forced = max(float(np.abs(patched[li] - eng.cache.gather(
+        li, np.arange(n))).max()) for li in range(n_layers))
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(3):
+        eng.refresh()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    wire = sum(launches[k] for k in ("varco_pack", "varco_pack_quant"))
+
+    s_eng = ServingEngine(eng.g, params, cfg, q=eng.q, device=eng.device,
+                          seed=seed, threshold=-1.0, rounding="stochastic")
+    twin = copy.deepcopy(s_eng)          # the same state, for the plain run
+    for fn in counters.values():
+        fn.launches = 0
+    with deterministic():
+        stoch = _stoch_refreshes(s_eng, 3)
+        s_launches = {name: counters[name].launches
+                      for name in STOCH_KERNELS}
+        with plain_codecs():
+            plain = _stoch_refreshes(twin, 3)
+    # per refresh, per exchange
+    halo_equal = [[torch.equal(x, y) for x, y in zip(a[0], b[0])]
+                  for a, b in zip(stoch, plain)]
+    emb_err = float(np.abs(s_eng.serve(np.arange(n))[0] -
+                           twin.serve(np.arange(n))[0]).max())
+    rec = {"phase": "update", "nodes": n, "inserts": UPDATE_BATCH,
+           "deletes": UPDATE_BATCH, "directed_edges_before": edges_before,
+           "directed_edges_after": eng.g.num_edges,
+           "touched": int(len(touched)),
+           "frontier_sizes": [int(len(f)) for f in fronts],
+           "spill_s": timing["spill_s"], "gather_s": timing["gather_s"],
+           "recompute_ms": timing["recompute_s"] * 1e3,
+           "rebuild_s": timing["rebuild_s"], "status": status,
+           "patched_vs_centralized_max_abs": err_central,
+           "patched_vs_forced_refresh_max_abs": err_forced,
+           "forced_refresh_ms": forced_ms, "refresh_launches": launches,
+           "stochastic_launches": s_launches,
+           "stochastic_transport_bits": [t for _, t in stoch],
+           "stochastic_halo_equals_plain": halo_equal,
+           "stochastic_emb_vs_plain_max_abs": emb_err}
+    emit(rec)
+    check(status == "CACHED", f"after an update the status is {status}")
+    check(err_central <= FRESH_TOL, f"the patched cache differs from "
+          f"centralized_forward on the new graph by {err_central}")
+    check(err_forced <= FRESH_TOL, f"the patched cache differs from a "
+          f"forced refresh by {err_forced}")
+    check(launches["ell_spmm"] > 0 and wire > 0, f"the refreshes after the "
+          f"update launched {launches}")
+    check(s_launches["varco_pack_quant_stochastic"] > 0,
+          f"stochastic serving launched {s_launches}")
+    check(all(t > 0 for _, t in stoch[1:]), "a stochastic refresh shipped "
+          "nothing")
+    check(all(len(h) == n_layers and all(h) for h in halo_equal),
+          f"stochastic serving's halo differs from the plain codecs' "
+          f"(per refresh, per exchange): {halo_equal}")
+    del s_eng, twin, stoch, plain
+    return s_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2323,13 +2501,229 @@ def _tree_float(tree):
     return tree.float()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM training on the card
+# ---------------------------------------------------------------------------
+
+#: the training runs: arch -> (layers cut to, or None for full depth;
+#: batch; sequence; steps; the loss must fall)
+LM_TRAIN = {"granite-3-2b": (None, 8, 2048, 10),
+            "qwen2-moe-a2.7b": (2, 4, 2048, 3),
+            "mamba2-130m": (None, 8, 2048, 5)}
+LM_TRAIN_LR = 3e-4
+#: the f32 card-against-CPU step: granite at full width, 2 layers
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 512
+TRAIN_TOL = 1e-4
+
+
+def _train_run(cfg, batch: int, seq: int, steps: int, seed: int) -> dict:
+    """``steps`` steps of ``make_train_step`` from random weights on
+    ``TokenPipeline`` batches: losses, host-clock step times that end in a
+    sync (the loss read), peak memory."""
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.nn.modules import param_count
+    from repro_torch.train.data import TokenPipeline
+
+    params, init_s = _init(cfg, seed)
+    opt = make_optimizer(cfg, lr=LM_TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, aux, gnorm, ms = [], [], [], []
+    for _ in range(steps):
+        b = next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(float(m["moe_aux"]))
+        gnorm.append(float(m["grad_norm"]))
+    return {"params": param_count(params), "init_s": init_s,
+            "loss": losses, "moe_aux": aux, "grad_norm": gnorm,
+            "step_ms": ms, "peak_mem_gb":
+            torch.cuda.max_memory_allocated() / 1e9, "_params": params}
+
+
+def _train_or_halve(cfg, batch, seq, steps, seed) -> dict:
+    """:func:`_train_run` at ``batch``, and at half of it if the card runs
+    out of memory (said in the record; width and depth are never cut)."""
+    try:
+        return {"batch": batch, "halved": False,
+                **_train_run(cfg, batch, seq, steps, seed)}
+    except torch.cuda.OutOfMemoryError:
+        pass                 # retried outside: the traceback holds memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch // 2, "halved": True,
+            **_train_run(cfg, batch // 2, seq, steps, seed)}
+
+
+def _step_on(cfg, params, state, batch, device):
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+
+    step = make_train_step(cfg, make_optimizer(cfg, lr=LM_TRAIN_LR))
+    to = (lambda t: t.to(device))
+    p, s, m = step(_tree_to(params, to), _tree_to(state, to),
+                   {"tokens": batch.to(device)})
+    return p, s, {k: float(v) for k, v in m.items()}
+
+
+def _tree_to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, fn) for k, v in tree.items()}
+    return tree if tree.device.type == "cpu" and tree.dim() == 0 and \
+        tree.dtype == torch.int32 else fn(tree)
+
+
+def _card_vs_cpu(seed: int) -> dict:
+    """granite at full width, ``TRAIN_CHECK_LAYERS`` layers, in f32: one
+    step on the card from zero state (so the AdamW moments are populated),
+    then one more step from that state on the card and on the CPU.
+
+    The moments are held leaf by leaf at max |card − CPU| ≤ 1e-4 of the
+    leaf's largest magnitude; the parameters at ‖card − CPU‖ ≤ 1e-4 ·
+    ‖CPU‖ per leaf.  AdamW's ``m̂ / (√v̂ + eps)`` turns a gradient entry's
+    sum-order error into a parameter difference of up to lr where the
+    entry's gradients are near zero or cancel, and a zero-initialised
+    norm scale is itself only ~2 lr large after two steps; the largest
+    single differences are printed (``worst_leaves``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.train.data import TokenPipeline
+
+    cfg = get_config("granite-3-2b").with_(
+        n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+        activ_dtype="float32")
+    params, _ = _init(cfg, seed)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_BATCH,
+                         TRAIN_CHECK_SEQ, seed=seed + 1, device="cpu")
+    p1, s1, _ = _step_on(cfg, params, make_optimizer(cfg).init(params),
+                         next(pipe)["tokens"], "cuda")
+    b2 = next(pipe)["tokens"]
+    pc, sc, mc = _step_on(cfg, p1, s1, b2, "cuda")
+    ph, sh, mh = _step_on(cfg, p1, s1, b2, "cpu")
+    worst, param_l2, moment_max = [], 0.0, 0.0
+    for part, a_tree, b_tree in (("params", pc, ph), ("mu", sc["mu"],
+                                                      sh["mu"]),
+                                 ("nu", sc["nu"], sh["nu"])):
+        for (path, a), (_, b) in zip(_leaf_paths(a_tree, part),
+                                     _leaf_paths(b_tree, part)):
+            d = a.cpu() - b
+            big = float(b.abs().max())
+            rel_max = float(d.abs().max()) / max(big, 1e-30)
+            worst.append((rel_max, path, big))
+            if part == "params":
+                param_l2 = max(param_l2, float(
+                    d.norm() / b.norm().clamp(min=1e-30)))
+            else:
+                moment_max = max(moment_max, rel_max)
+    worst.sort(reverse=True)
+    return {"layers": cfg.n_layers, "dtype": cfg.param_dtype,
+            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+            "loss_card": mc["loss"], "loss_cpu": mh["loss"],
+            "loss_rel_err": abs(mc["loss"] - mh["loss"]) / abs(mh["loss"]),
+            "grad_norm_card": mc["grad_norm"], "grad_norm_cpu":
+            mh["grad_norm"], "param_leaf_l2_rel_err": param_l2,
+            "moment_leaf_max_rel_err": moment_max,
+            "worst_leaves": [{"leaf": p_, "max_rel_err": e, "largest": m}
+                             for e, p_, m in worst[:5]]}
+
+
+def _leaf_paths(tree, path: str):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def lm_train_phase(seed: int = 0) -> dict:
+    """LM training on the card: granite-3-2b at full size (10 steps),
+    qwen2-moe-a2.7b at full width and 2 layers (3 steps), mamba2-130m at
+    full size (5 steps), launch counts set to 0 before and read after
+    (training launches no LM kernel: neither has a backward); then
+    granite's training forward against its serving prefill (tensor-core
+    flash) on the trained weights, and one f32 step on the card against
+    the CPU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import _lm_head, forward_train, \
+        prefill
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {}
+    for arch, (layers, batch, seq, steps) in LM_TRAIN.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.with_(n_layers=layers)
+        r = _train_or_halve(cfg, batch, seq, steps, seed)
+        params = r.pop("_params")
+        warm = r["step_ms"][2:] or r["step_ms"]
+        r.update({"layers": cfg.n_layers, "dtype": cfg.param_dtype,
+                  "remat": cfg.remat, "moment_dtype": cfg.moment_dtype,
+                  "seq": seq, "steps": steps,
+                  "median_step_ms": float(np.median(warm)),
+                  "tokens_per_s": r["batch"] * seq /
+                  (float(np.median(warm)) / 1e3)})
+        runs[arch] = r
+        if arch == "granite-3-2b":
+            trained, g_cfg = params, cfg
+        else:
+            del params
+            torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    prompts = _prompts(g_cfg, seed + 5)
+    with torch.no_grad():
+        h, _ = forward_train(trained, g_cfg, {"tokens": prompts})
+        train_logits = _lm_head(trained, g_cfg, h[:, -1:])[:, 0]
+        del h
+        serve_logits, _ = prefill(trained, g_cfg, {"tokens": prompts})
+    fwd_err = _rel_err(train_logits, serve_logits)
+    del trained, train_logits, serve_logits
+    torch.cuda.empty_cache()
+    cpu_check = _card_vs_cpu(seed)
+    torch.cuda.empty_cache()
+
+    rec = {"phase": "lm_train", "lr": LM_TRAIN_LR, "runs": runs,
+           "launches": launches,
+           "train_vs_prefill_rel_err": fwd_err,
+           "train_vs_prefill_batch": LM_BATCH, "card_vs_cpu": cpu_check}
+    emit(rec)
+    for arch, r in runs.items():
+        check(all(np.isfinite(r["loss"])), f"{arch}: non-finite loss "
+              f"{r['loss']}")
+    for arch in ("granite-3-2b", "mamba2-130m"):
+        ls = runs[arch]["loss"]
+        check(np.mean(ls[-3:]) < ls[0], f"{arch}: the loss did not fall "
+              f"({ls})")
+    check(all(a > 0 for a in runs["qwen2-moe-a2.7b"]["moe_aux"]),
+          "qwen2-moe: the MoE aux loss is not positive")
+    check(all(launches[k] == 0 for k in LM_KERNELS), f"the training path "
+          f"launched LM kernels: {launches}")
+    check(fwd_err <= PLAIN_PATH_TOL["bfloat16"], f"granite: the training "
+          f"forward's logits differ from prefill's by {fwd_err} of the "
+          f"largest")
+    check(cpu_check["loss_rel_err"] <= TRAIN_TOL and
+          cpu_check["param_leaf_l2_rel_err"] <= TRAIN_TOL and
+          cpu_check["moment_leaf_max_rel_err"] <= TRAIN_TOL,
+          f"the f32 step on the "
+          f"card differs from the CPU's: {cpu_check}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=169_343,
                     help="graph size (default: OGBN-Arxiv's node count)")
     ap.add_argument("--lm-only", action="store_true",
-                    help="only the device, build, lm_kernels and lm phases "
-                         "(a partial run: no summary or result line)")
+                    help="only the device, build, lm_kernels, lm and "
+                         "lm_train phases (a partial run: no summary or "
+                         "result line)")
     args = ap.parse_args(argv)
     try:
         card = device_phase()
@@ -2337,6 +2731,7 @@ def main(argv=None) -> int:
         if args.lm_only:
             lm_kernels_phase()
             lm_phase()
+            lm_train_phase()
             print("lm-only run: every LM check passed", flush=True)
             return 0
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
@@ -2346,10 +2741,13 @@ def main(argv=None) -> int:
         launches.update(auto_phase(eng, params, cfg))
         resilience_phase(g, cfg, params, eng, runs["varco"])
         del runs
+        for name, n in update_phase(g, cfg, params, eng).items():
+            launches[name] += n          # stochastic serving's launches
         del eng
         torch.cuda.empty_cache()
         main_recs.update(lm_kernels_phase())
         launches.update(lm_phase())
+        lm_train_phase()
     except Failure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

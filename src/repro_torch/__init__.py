@@ -38,15 +38,25 @@ over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
   :func:`init_lm` / :func:`prefill` / :func:`decode_step` for every
   architecture of the registry (dense, MoE through
   :mod:`repro_torch.models.moe`, SSM and hybrid), whose prefill runs the
-  ``flash_attention`` and ``ssd_chunk`` kernels.
+  ``flash_attention`` and ``ssd_chunk`` kernels;
+
+* streaming edge updates in GNN serving
+  (:meth:`ServingEngine.apply_updates`, :mod:`repro_torch.serve.update`)
+  and serving with ``rounding="stochastic"``;
+
+* LM training on one card — :func:`train_lm` (``repro_torch.launch.train``)
+  over :func:`forward_train` / :func:`lm_loss`, AdamW with the config's
+  moment dtype and :class:`repro_torch.train.data.TokenPipeline`, in plain
+  torch with autograd (the JAX package trains through XLA attention and
+  the jnp SSD form too: neither kernel has a backward).
 """
 
 __version__ = "0.2.0"
 __all__ = ["CommPolicy", "FaultSchedule", "ServingEngine", "checkpoint",
-           "decode_step", "error_controller", "init_lm", "load_shards",
-           "open_store", "prefill", "round_key", "serve_lm",
-           "stale_controller", "stream_partition", "train_gnn",
-           "write_shards"]
+           "decode_step", "error_controller", "forward_train", "init_lm",
+           "lm_loss", "load_shards", "open_store", "prefill", "round_key",
+           "serve_lm", "stale_controller", "stream_partition", "train_gnn",
+           "train_lm", "write_shards"]
 
 
 def __getattr__(name):
@@ -60,7 +70,11 @@ def __getattr__(name):
     if name == "serve_lm":
         from repro_torch.launch.serve import serve
         return serve
-    if name in ("init_lm", "prefill", "decode_step"):
+    if name == "train_lm":
+        from repro_torch.launch.train import train_lm
+        return train_lm
+    if name in ("init_lm", "prefill", "decode_step", "forward_train",
+                "lm_loss"):
         from repro_torch.models import transformer
         return getattr(transformer, name)
     if name in ("error_controller", "stale_controller"):

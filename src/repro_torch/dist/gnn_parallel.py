@@ -1008,7 +1008,8 @@ def make_eval_step(cfg: GNNConfig, meta: DistMeta, mesh=None):
     return evaluate
 
 
-def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta):
+def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta,
+                    rounding: str = "rint"):
     """Inference-only distributed forward for the serving runtime.
 
     ``infer(params, graph, key, plan, cache=()) -> (logits, hiddens,
@@ -1020,8 +1021,13 @@ def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta):
     ``pair_transport``, ``pair_err`` and the per-exchange mean
     ``pair_delta``.  The plan's rates and widths are quantised to the
     static kept-block counts and storage widths on the host, as the JAX
-    package does outside jit.
+    package does outside jit.  ``rounding="stochastic"`` rounds the
+    quantised hops ``floor(v + u)`` under the per-(sender, hop)
+    ``round_key`` stream, as in training.
     """
+    if rounding not in ("rint", "stochastic"):
+        raise ValueError(f"rounding must be 'rint' or 'stochastic', got "
+                         f"{rounding!r}")
     if policy.mode != "auto":
         raise ValueError(f"make_infer_step needs an 'auto' policy, got "
                          f"mode {policy.mode!r}")
@@ -1057,7 +1063,8 @@ def make_infer_step(cfg: GNNConfig, policy, meta: DistMeta):
                 skip=np.asarray(plan.skip, np.float32) if cache else None,
                 cache=cache if cache else None,
                 cache_out=cache_out if cache else None,
-                width_map=wm, store_w=_packed_store_w(meta, wm))
+                width_map=wm, store_w=_packed_store_w(meta, wm),
+                rounding=rounding)
             logits, bits = gnn_forward(params, cfg, graph["features"], agg,
                                        hidden_out=hidden)
         bits = bits.cpu()                 # the one device -> host sync

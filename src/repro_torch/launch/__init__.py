@@ -1,2 +1,2 @@
-"""LM serving launch: step builders (:mod:`.steps`) and the batched
-serving launcher (:mod:`.serve`)."""
+"""LM launch: step builders (:mod:`.steps`), the batched serving
+launcher (:mod:`.serve`) and the training launcher (:mod:`.train`)."""

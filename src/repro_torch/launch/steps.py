@@ -1,14 +1,55 @@
-"""Prefill / decode step functions for the ported archs — counterpart of
-``repro/launch/steps.py`` (serving only; the train step waits for the LM
-training slice).  PyTorch runs eagerly, so the steps are plain closures
-where the JAX package jits them."""
+"""Train / prefill / decode step functions for the LM architectures —
+counterpart of ``repro/launch/steps.py``.  PyTorch runs eagerly, so the
+steps are plain closures where the JAX package jits them."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import decode_step, prefill
+from repro_torch.configs.base import ArchConfig, torch_dtype
+from repro_torch.models.transformer import decode_step, lm_loss, prefill
+from repro_torch.train.optim import (Optimizer, adamw, apply_updates,
+                                     clip_by_global_norm, tree_leaves,
+                                     tree_map)
+
+
+def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
+    """AdamW with weight decay 0.1 and the config's moment dtype (f32
+    moments beside bf16 weights in every full-size config)."""
+    return adamw(lr, weight_decay=0.1,
+                 moment_dtype=torch_dtype(cfg.moment_dtype))
+
+
+def _or_zeros(g, p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p) if g is None else g
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
+                    clip: float = 1.0):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` over a dict of leaf tensors: gradients of :func:`lm_loss`
+    by autograd, clipped to global norm ``clip``, then one optimiser
+    update.  ``metrics`` holds 0-d device tensors (``loss``, ``ce``,
+    ``moe_aux``, ``grad_norm``); nothing in the step waits for the card.
+    The inputs are not written: the step returns new trees."""
+    def train_step(params, opt_state, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, parts = lm_loss(leaves, cfg, batch)
+            got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                           allow_unused=True))
+        # tree_map visits the leaves in tree_leaves order; an unused leaf
+        # gets a zero gradient, as jax.grad gives it
+        grads = tree_map(lambda p: _or_zeros(next(got), p), leaves)
+        grads, gnorm = clip_by_global_norm(grads, clip)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads                 # freed before the new params are made
+        params = apply_updates(params, updates)
+        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                   "moe_aux": parts["moe_aux"].detach(), "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, max_len: int | None = None):

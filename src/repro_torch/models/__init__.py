@@ -1,8 +1,9 @@
-"""The LM stack's serving path — counterpart of ``repro/models``:
+"""The LM stack — counterpart of ``repro/models``:
 :mod:`.layers` (attention, RoPE, gated MLP), :mod:`.mamba2` (SSD),
 :mod:`.moe` (the MoE FFN) and :mod:`.transformer` (``init_lm``,
-``prefill``, ``decode_step``) — and
-:func:`lm_params_from_jax`, which carries JAX weights across."""
+``prefill``, ``decode_step``, ``forward_train``, ``lm_loss``) — and
+:func:`lm_params_from_jax` / :func:`adamw_state_from_jax`, which carry
+JAX weights and optimiser state across."""
 
 from __future__ import annotations
 
@@ -32,4 +33,15 @@ def lm_params_from_jax(tree, device="cuda"):
     return _leaf(tree, device)
 
 
-__all__ = ["lm_params_from_jax"]
+def adamw_state_from_jax(state, device="cuda") -> dict:
+    """The JAX package's AdamW state ``{"step", "mu", "nu"}`` (leaves
+    converted to numpy by the caller) as the port's: the step a 0-d int32
+    CPU tensor (the port's optimisers keep it on the host), the moments
+    through :func:`lm_params_from_jax` in their own dtype."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32),
+            "mu": lm_params_from_jax(state["mu"], device),
+            "nu": lm_params_from_jax(state["nu"], device)}
+
+
+__all__ = ["adamw_state_from_jax", "lm_params_from_jax"]

@@ -147,6 +147,14 @@ def out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
 
 
+def use_chunked_sdpa(cfg: ArchConfig, s: int, positions3) -> bool:
+    """Where the JAX package's prefill and training forward take
+    ``chunked_sdpa`` (``repro/models/transformer.py:212-214``): S ≥ 2048,
+    S % 1024 == 0, no M-RoPE."""
+    return s >= 2048 and s % 1024 == 0 and positions3 is None and \
+        not cfg.mrope_sections
+
+
 def prefill_mask_positions(cfg: ArchConfig, positions: torch.Tensor,
                            positions3: Optional[torch.Tensor] = None
                            ) -> Optional[torch.Tensor]:
@@ -160,8 +168,7 @@ def prefill_mask_positions(cfg: ArchConfig, positions: torch.Tensor,
     with one device comparison and one sync, so the caller decides once
     per prefill, not once per layer."""
     s = positions.shape[-1]
-    if s >= 2048 and s % 1024 == 0 and positions3 is None and \
-            not cfg.mrope_sections:
+    if use_chunked_sdpa(cfg, s, positions3):
         return None
     pos = positions.to(torch.int32)
     steps = torch.arange(s, dtype=torch.int32, device=pos.device)

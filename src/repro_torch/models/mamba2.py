@@ -7,8 +7,10 @@ state contribution) run in :func:`repro_torch.kernels.ops.ssd_chunk` —
 the ``ssd_chunk`` kernel on the card, fed the un-expanded B and C — while
 the inter-chunk recurrence over the tiny ``[H, P, N]`` state stays a
 plain torch loop over the chunks: the split that the Pallas kernel's
-docstring describes.  Decode keeps ``(conv_state, ssm_state)`` and costs
-O(1) per token, in plain torch.
+docstring describes.  The training forward (``train=True``) computes the
+intra-chunk terms as the JAX package's ``ssd_chunked`` does, in einsums
+that autograd differentiates (the kernel has no backward).  Decode keeps
+``(conv_state, ssm_state)`` and costs O(1) per token, in plain torch.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -87,15 +90,48 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
+def _ssd_intra_einsum(xc: torch.Tensor, dtc: torch.Tensor,
+                      cum: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The intra-chunk quadratic form and each chunk's state contribution
+    as the JAX package writes them (``repro/models/mamba2.py:96-117``),
+    over f32 chunks: x ``[B, NC, Q, H, P]``, dt/cum ``[B, NC, Q, H]``,
+    b/c ``[B, NC, Q, G, N]``.
+
+    The JAX form exponentiates every ``cum_q - cum_s`` and then zeroes the
+    non-causal ones; above the diagonal those are positive and overflow
+    to inf once a chunk's decay passes e^88, and the gradient through the
+    select is then inf · 0 = NaN.  Here the non-causal differences are
+    masked to -inf before the exp: the same forward values, a finite
+    backward."""
+    q_len, rep = xc.shape[2], xc.shape[3] // bc.shape[3]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,NC,Q,Q,H]
+    q_idx = torch.arange(q_len, device=xc.device)
+    causal = (q_idx[:, None] >= q_idx[None, :])[None, None, :, :, None]
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    bg = bc.repeat_interleave(rep, dim=3)                       # [B,NC,Q,H,N]
+    cg = cc.repeat_interleave(rep, dim=3)
+    scores = torch.einsum("bnqhk,bnshk->bnqsh", cg, bg)
+    m = scores * decay * dtc[:, :, None, :, :]                  # [B,NC,Q,S,H]
+    y_intra = torch.einsum("bnqsh,bnshp->bnqhp", m, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)           # [B,NC,Q,H]
+    state_contrib = torch.einsum("bnqh,bnqhk,bnqhp->bnhpk",
+                                 decay_to_end * dtc, bg, xc)    # [B,NC,H,P,N]
+    return y_intra, state_contrib
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
-                chunk: int, initial_state: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                chunk: int, initial_state: torch.Tensor | None = None,
+                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     x: [B, T, H, P]  dt: [B, T, H]  a_log: [H]
     b, c: [B, T, G, N]  d_skip: [H]
-    Returns (y [B,T,H,P], final_state [B,H,P,N] f32).
+    Returns (y [B,T,H,P], final_state [B,H,P,N] f32).  The intra-chunk
+    terms run in :func:`ops.ssd_chunk` (the kernel on the card), or with
+    ``train`` in the differentiable einsums of :func:`_ssd_intra_einsum`,
+    recomputed in the backward.
     """
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -118,7 +154,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     cum = torch.cumsum(dtac, dim=2)                             # [B,NC,Q,H]
     # intra-chunk quadratic form and chunk-state contributions
-    y_intra, state_contrib = ops.ssd_chunk(xc, dtc, cum, bc, cc)
+    if train:
+        # XLA fuses the masked decay, the scores and their products into
+        # the einsums and keeps none of them for the backward; autograd
+        # would keep four [B, NC, Q, Q, H] f32 tensors a layer (1.6 GB at
+        # 8 × 2048 on mamba2-130m), so the backward recomputes them
+        y_intra, state_contrib = checkpoint(_ssd_intra_einsum, xc, dtc, cum,
+                                            bc, cc, use_reentrant=False)
+    else:
+        y_intra, state_contrib = ops.ssd_chunk(xc, dtc, cum, bc, cc)
 
     chunk_decay = torch.exp(cum[:, :, -1, :])                   # [B,NC,H]
     state = initial_state.float() if initial_state is not None else \
@@ -141,9 +185,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def mamba_layer(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                cache: MambaCache | None = None
+                cache: MambaCache | None = None, train: bool = False
                 ) -> tuple[torch.Tensor, MambaCache]:
-    """Full mamba2 block. Prefill: cache=None. Decode: S==1."""
+    """Full mamba2 block. Prefill: cache=None. Decode: S==1.  ``train``
+    (with cache=None) runs the differentiable SSD form."""
     mc = cfg.mamba
     bsz, t, _ = x.shape
     di = mc.d_inner(cfg.d_model)
@@ -162,7 +207,7 @@ def mamba_layer(params: dict, cfg: ArchConfig, x: torch.Tensor,
         y, final_state = ssd_chunked(
             xs.reshape(bsz, t, h, p), dt_act, params["A_log"],
             bs.reshape(bsz, t, g, n), cs.reshape(bsz, t, g, n),
-            params["D"], min(mc.chunk, t))
+            params["D"], min(mc.chunk, t), train=train)
         new_cache = MambaCache(conv_state.to(x.dtype), final_state.float())
     else:
         # O(1) decode step

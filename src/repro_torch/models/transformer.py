@@ -22,23 +22,104 @@ Entry points:
   tensors **in place** (a full-size KV cache is gigabytes; the JAX
   package returns a new one) and returns a Cache over the same tensors.
 
-Every architecture of the registry is served; the MoE layers' router
-aux loss is summed per block and discarded by both entry points, as in
-the JAX package.  The training forward waits for the LM training slice.
+* :func:`forward_train` / :func:`lm_loss` — the training forward and
+  next-token CE (+ the MoE router aux loss).  They run what the JAX
+  package's training forward runs, in plain torch with autograd:
+  :func:`chunked_sdpa` (online softmax over query and key chunks) where the
+  JAX package takes it (S ≥ 2048, S % 1024 == 0, no M-RoPE) and
+  :func:`repro_torch.models.layers.sdpa` otherwise, and the einsum form of
+  the SSD scan (:func:`repro_torch.models.mamba2.ssd_chunked` with
+  ``train=True``).  Neither CUDA kernel has a backward, so the training
+  path reaches neither; ``train=True``, threaded through
+  :func:`_apply_block` and :func:`_mixer`, picks it.  With ``cfg.remat``
+  every block runs under ``torch.utils.checkpoint`` (the counterpart of
+  ``jax.checkpoint``): only block-boundary activations live across the
+  backward.
+
+Every architecture of the registry is served and trained; the MoE
+layers' router aux loss is summed per block, discarded by the serving
+entry points and added to the loss by :func:`lm_loss`, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (MambaCache, init_mamba,
                                        init_mamba_cache, mamba_layer)
 from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.nn.modules import rms_norm
+from repro_torch.nn.modules import rms_norm, softmax_cross_entropy
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash-style) attention for long training sequences
+# ---------------------------------------------------------------------------
+
+
+def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int, q_chunk: int = 512, kv_chunk: int = 1024
+                 ) -> torch.Tensor:
+    """Online-softmax causal attention in plain torch (the JAX package's
+    ``chunked_sdpa``, ``repro/models/transformer.py:45-122``); peak memory
+    O(q_chunk × kv_chunk) per (query chunk, key chunk) pair, and autograd
+    keeps each pair's scores for the backward.
+
+    q: [B, S, H, D], k/v: [B, S, KV, D] (same length, causal, optional
+    sliding window).  GQA repeats each key/value chunk to H heads.  The
+    score products run in q's dtype and the softmax statistics in f32, as
+    the JAX package computes them.  Key chunks that the causal or window
+    mask hides from a whole query chunk are skipped: in the JAX scan they
+    add ``exp(f32 min - m) = 0`` to every sum, so the result is the same.
+    """
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    if s % q_chunk or s % kv_chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunks ({q_chunk}, {kv_chunk})")
+    scale = 1.0 / math.sqrt(d)
+    neg = torch.finfo(torch.float32).min
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        q_blk = q[:, q0:q0 + q_chunk].transpose(1, 2)        # [B,H,Qc,D]
+        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
+        m_run = torch.full((b, h, q_chunk), neg, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, h, q_chunk), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, s, kv_chunk):
+            if k0 > q0 + q_chunk - 1:                       # all in future
+                continue
+            if window > 0 and k0 + kv_chunk - 1 <= q0 - window:
+                continue                                    # all too old
+            k_pos = torch.arange(k0, k0 + kv_chunk, device=q.device)
+            krep = k[:, k0:k0 + kv_chunk].repeat_interleave(group, dim=2)
+            vrep = v[:, k0:k0 + kv_chunk].repeat_interleave(group, dim=2)
+            scores = torch.einsum("bhqd,bshd->bhqs", q_blk,
+                                  krep).float() * scale
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > (q_pos[:, None] - window)
+            scores = torch.where(mask[None, None], scores, neg)
+            m_new = torch.maximum(m_run, scores.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqs,bshd->bhqd", p.to(q.dtype), vrep).float()
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-20)[..., None]
+        outs.append(out.to(q.dtype).transpose(1, 2))        # [B,Qc,H,D]
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +267,31 @@ def _attn_decode(params, cfg: ArchConfig, x: torch.Tensor,
     return L.out_project(out, params["wo"]).to(x.dtype), cache
 
 
+def _train_attention(params: dict, cfg: ArchConfig, h: torch.Tensor,
+                     positions: torch.Tensor, positions3) -> torch.Tensor:
+    """The training forward's attention sublayer: :func:`chunked_sdpa`
+    where the JAX package takes it, else the masked plain ``sdpa``."""
+    q, k, v = L.attn_qkv(params, cfg, h, positions, positions3)
+    if L.use_chunked_sdpa(cfg, h.shape[1], positions3):
+        out = chunked_sdpa(q, k, v, cfg.sliding_window)
+    else:
+        out = L.sdpa(q, k, v, L._attn_mask(positions, positions,
+                                           cfg.sliding_window))
+    return L.out_project(out, params["wo"]).to(h.dtype)
+
+
 def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
            positions: torch.Tensor, cache_layer, cache_index,
-           positions3, mask_positions=None) -> tuple[torch.Tensor, object]:
+           positions3, mask_positions=None, train: bool = False
+           ) -> tuple[torch.Tensor, object]:
     """Apply the token mixer (attention or mamba) for one layer; a prefill
-    attention masks by ``mask_positions`` (None: by index)."""
+    attention masks by ``mask_positions`` (None: by index).  ``train``
+    runs the plain, differentiable path and returns no cache."""
+    if train:
+        if kind == "attn":
+            return _train_attention(lp["attn"], cfg, h, positions,
+                                    positions3), None
+        return mamba_layer(lp["mamba"], cfg, h, train=True)[0], None
     if kind == "attn":
         if cache_layer is None:
             y, kvc = L.attention(lp["attn"], cfg, h, positions,
@@ -205,10 +306,12 @@ def _mixer(lp: dict, cfg: ArchConfig, pi: int, kind: str, h: torch.Tensor,
 
 def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
                  positions: torch.Tensor, block_cache: Optional[tuple],
-                 cache_index, positions3, mask_positions=None
+                 cache_index, positions3, mask_positions=None,
+                 train: bool = False
                  ) -> tuple[torch.Tensor, tuple, torch.Tensor]:
     """One pattern period: pre-norm mixer + pre-norm FFN (gated MLP or
-    MoE) per layer; returns the MoE layers' summed router aux loss too."""
+    MoE) per layer; returns the MoE layers' summed router aux loss too.
+    ``train`` selects the training forward's mixers (:func:`_mixer`)."""
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pi, kind in enumerate(cfg.pattern):
@@ -216,7 +319,7 @@ def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
         cl = block_cache[pi] if block_cache is not None else None
         mixed, new_c = _mixer(lp, cfg, pi, kind, rms_norm(h, lp["norm1"]),
                               positions, cl, cache_index, positions3,
-                              mask_positions)
+                              mask_positions, train)
         h = h + mixed
         if cfg.layer_uses_moe(pi):
             ffn_out, a = moe_ffn(lp["moe"], cfg, rms_norm(h, lp["norm2"]))
@@ -252,6 +355,65 @@ def _lm_head(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ params["embed"].T.to(h.dtype)
     return h @ params["lm_head"].to(h.dtype)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-block trees of a tree of stacked leaves, by one
+    ``unbind`` per leaf: the backward then stacks each leaf's gradient
+    once instead of scattering every block's slice into a full-size
+    zero tensor."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def forward_train(params, cfg: ArchConfig, batch: dict
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over the stacked blocks, no cache emission.
+
+    Returns ``(hidden [B, S, d], moe_aux)``.  With ``cfg.remat`` each
+    block runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    block-boundary activations survive the forward, and the backward
+    recomputes each block (the MoE routing is a stable sort, so the
+    recompute routes identically).
+    """
+    x, positions = _embed_in(params, cfg, batch)
+    positions3 = batch.get("positions3")
+
+    def block_fn(block, h):
+        h, _, aux = _apply_block(block, cfg, h, positions, None, None,
+                                 positions3, train=True)
+        return h, aux
+
+    h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in _unstack(params["blocks"], cfg.n_blocks):
+        if cfg.remat:
+            h, a = checkpoint(block_fn, block, h, use_reentrant=False)
+        else:
+            h, a = block_fn(block, h)
+        aux = aux + a
+    return h, aux
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token CE + MoE aux.  ``batch``: ``tokens`` [B, S] (or
+    ``embeds`` with ``labels``), optional ``loss_mask`` [B, S].  The
+    logits are cast to f32 once and the CE is taken over the shifted
+    labels, as the JAX package's ``lm_loss``."""
+    h, aux = forward_train(params, cfg, batch)
+    logits = _lm_head(params, cfg, h).float()
+    labels = batch.get("labels", batch.get("tokens"))
+    ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        loss = torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+    else:
+        loss = torch.mean(ce)
+    return loss + aux, {"ce": loss, "moe_aux": aux}
 
 
 def prefill(params, cfg: ArchConfig, batch: dict,

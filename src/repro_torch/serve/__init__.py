@@ -1,6 +1,8 @@
 """Distributed GNN inference serving over the p2p halo wire:
 :class:`ServingEngine` (micro-batched queries, drift-gated embedding cache,
-``auto:qos`` rate × width control) and :class:`EmbeddingCache`.
+``auto:qos`` rate × width control, streaming edge updates) and
+:class:`EmbeddingCache`; :func:`apply_edge_updates` and
+:func:`incremental_recompute` are the update path's two halves.
 
 Example::
 
@@ -12,5 +14,7 @@ Example::
 
 from repro_torch.serve.cache import EmbeddingCache
 from repro_torch.serve.frontend import MicroBatcher, Query, ServingEngine
+from repro_torch.serve.update import apply_edge_updates, incremental_recompute
 
-__all__ = ["EmbeddingCache", "MicroBatcher", "Query", "ServingEngine"]
+__all__ = ["EmbeddingCache", "MicroBatcher", "Query", "ServingEngine",
+           "apply_edge_updates", "incremental_recompute"]

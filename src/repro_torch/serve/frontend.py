@@ -9,8 +9,8 @@ inference (``repro_torch.dist.gnn_parallel.make_infer_step``), with a
 drift-gated :class:`repro_torch.serve.cache.EmbeddingCache` in front.
 Cross-partition neighbourhoods route through the wire only on refresh;
 between refreshes every query is a host cache gather at zero wire bits.
-
-Not ported yet: ``apply_updates`` (streaming edge updates; ROADMAP).
+``apply_updates`` folds a streaming edge batch in and re-embeds only the
+touched k-hop frontier (:mod:`repro_torch.serve.update`).
 """
 
 from __future__ import annotations
@@ -28,9 +28,10 @@ from repro_torch.dist.gnn_parallel import DistMeta, make_infer_step
 from repro_torch.dist.halo import attach_p2p, pair_query_mass
 from repro_torch.dist.ratectl import (RatePlan, exchange_widths,
                                       init_halo_cache, make_controller)
-from repro_torch.graph.partition import partition_graph
+from repro_torch.graph.partition import build_partitioned, partition_graph
 from repro_torch.nn.gnn import GNNConfig, params_to
 from repro_torch.serve.cache import EmbeddingCache
+from repro_torch.serve.update import apply_edge_updates, incremental_recompute
 
 __all__ = ["MicroBatcher", "Query", "ServingEngine"]
 
@@ -102,13 +103,18 @@ class ServingEngine:
     exact (rate-1, fp32) distributed forward; ``serve`` answers queries
     from the cache; periodic ``refresh()`` re-ships only the pairs whose
     measured halo drift crossed the gate, at the ``auto:qos`` controller's
-    rate × width (query-mass weighted).
+    rate × width (query-mass weighted); ``apply_updates`` folds an edge
+    batch in and re-embeds the touched k-hop frontier.
 
     ``status()`` is ``"FRESH"`` while the cache provably equals a full
     fresh fp32 forward and ``"CACHED"`` otherwise.  ``device`` (default
     ``"cuda"``) holds the graph, the parameters and every activation;
-    requesting CUDA where there is none raises.  ``timing`` holds the last
-    refresh's forward and host-copy seconds.
+    requesting CUDA where there is none raises.  ``rounding`` (``"rint"``
+    or ``"stochastic"``) is the quantised wire's rounding, under the JAX
+    package's ``round_key`` stream.  ``timing`` holds the last refresh's
+    forward and host-copy seconds, or the last update's seconds: the host
+    spill, the gather of the old stack, the recompute on the device and
+    the rebuild (partition, engine, cache).
 
     Example::
 
@@ -122,7 +128,8 @@ class ServingEngine:
                  scheme: str = "metis-like", seed: int = 0,
                  refresh_horizon: int = 64, threshold: float = 0.05,
                  max_stale: int = 8, block_nodes: int = 128,
-                 window_s: float = 2e-3, max_batch: int = 64):
+                 window_s: float = 2e-3, max_batch: int = 64,
+                 rounding: str = "rint"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -135,7 +142,7 @@ class ServingEngine:
         self.g, self.cfg, self.q = g, cfg, q
         self.params = params_to(params, self.device)
         self.threshold, self.max_stale = float(threshold), int(max_stale)
-        self.block_nodes = block_nodes
+        self.block_nodes, self.rounding = block_nodes, rounding
         self.refresh_horizon = int(refresh_horizon)
         self.pg = partition_graph(g, q, scheme=scheme, seed=seed)
         self.owner = np.asarray(self.pg.owner, np.int64)
@@ -169,7 +176,8 @@ class ServingEngine:
         self.graph = attach_p2p(pg.device_arrays(self.device), pg,
                                 self.device)
         self.meta = DistMeta.build(pg, self.params, wire="p2p")
-        self.infer = make_infer_step(self.cfg, self.policy, self.meta)
+        self.infer = make_infer_step(self.cfg, self.policy, self.meta,
+                                     rounding=self.rounding)
         self.ctl = make_controller(self.policy, self.meta, self.cfg,
                                    self.refresh_horizon)
         self._ctl_state = self.ctl.init()
@@ -264,6 +272,50 @@ class ServingEngine:
                 else:
                     emb, _ = self.serve_edges([qy.nodes])
                 out.append((qy, emb[0]))
+        return out
+
+    # -- streaming updates -------------------------------------------------
+
+    def apply_updates(self, inserts=None, deletes=None
+                      ) -> tuple[np.ndarray, list[np.ndarray]]:
+        """Fold an undirected edge insert/delete batch into the served
+        graph: rebuild the CSR through the ``EdgeSpill`` path on the host,
+        re-embed only the k-hop frontier of the touched endpoints on
+        ``self.device`` (:func:`repro_torch.serve.update.
+        incremental_recompute`), repartition on the UNCHANGED owner
+        vector, and reset the drift gate (the halo caches refer to the old
+        topology).  Returns ``(touched, per-layer frontiers)``; the status
+        becomes ``"CACHED"`` (≤ 1e-5 of a fresh forward, not bitwise)."""
+        n = self.g.num_nodes
+        t0 = time.perf_counter()
+        g2, touched = apply_edge_updates(self.g, inserts, deletes)
+        t1 = time.perf_counter()
+        hidden_old = [self.cache.gather(li, np.arange(n))
+                      for li in range(len(self.params["layers"]))]
+        t2 = time.perf_counter()
+        hidden_new, frontiers = incremental_recompute(
+            self.params, self.cfg, g2, hidden_old, touched,
+            device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t3 = time.perf_counter()
+        self.g = g2
+        self._rebuild(build_partitioned(g2, self.owner, self.q))
+        for li, h in enumerate(hidden_new):
+            self.cache.put(li, self._to_blocks(h.cpu().numpy()))
+        self._exact = False
+        self.timing = {"spill_s": t1 - t0, "gather_s": t2 - t1,
+                       "recompute_s": t3 - t2,
+                       "rebuild_s": time.perf_counter() - t3}
+        return touched, frontiers
+
+    def _to_blocks(self, garr: np.ndarray) -> np.ndarray:
+        """Global ``[n, F]`` rows → padded ``[Q, P, F]`` stack."""
+        out = np.zeros((self.q, self.pg.part_size, garr.shape[1]),
+                       np.float32)
+        idx = np.arange(len(garr))
+        out[self.owner[idx],
+            np.asarray(self.pg.local_index, np.int64)[idx]] = garr
         return out
 
     def query_counts(self) -> np.ndarray:

@@ -98,13 +98,20 @@ def sgd(lr: float | Callable, momentum: float = 0.0,
 
 
 def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
-    """AdamW with float32 moments (``repro/train/optim.py:75-121``)."""
+          eps: float = 1e-8, weight_decay: float = 0.0,
+          moment_dtype: torch.dtype | None = None) -> Optimizer:
+    """AdamW (``repro/train/optim.py:75-121``): the moments are stored in
+    ``moment_dtype`` (default: each parameter's own dtype) and updated in
+    float32; ``moment_dtype=torch.bfloat16`` halves the optimiser's
+    memory, ``torch.float32`` keeps f32 moments beside bf16 weights."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
+    def zeros(p):
+        return torch.zeros_like(p, dtype=moment_dtype or p.dtype)
+
     def init(params):
-        return {"step": _step0(), "mu": tree_map(torch.zeros_like, params),
-                "nu": tree_map(torch.zeros_like, params)}
+        return {"step": _step0(), "mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params)}
 
     def update(grads, state, params):
         step = state["step"] + 1
@@ -120,7 +127,8 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
             u = -eta * (mu_f / bc1) / (torch.sqrt(nu_f / bc2) + eps)
             if weight_decay:
                 u = u - eta * weight_decay * p.float()
-            return u.to(p.dtype), mu_f.to(p.dtype), nu_f.to(p.dtype)
+            dt = moment_dtype or p.dtype
+            return u.to(p.dtype), mu_f.to(dt), nu_f.to(dt)
 
         out = tree_map(leaf, grads, state["mu"], state["nu"], params)
         pick = (lambda i: tree_map(lambda _, o: o[i], grads, out))

@@ -71,13 +71,21 @@ def test_entry_points_default_to_cuda():
     from repro_torch.models import lm_params_from_jax
     from repro_torch.models.transformer import init_cache, init_lm
 
+    from repro_torch.launch.train import build_parser as train_parser
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import adamw_state_from_jax
+    from repro_torch.serve import incremental_recompute
+    from repro_torch.train.data import TokenPipeline
+
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
                centralized_forward, init_halo_cache, init_wire_residuals,
                PartitionedGraph.device_arrays, ShardSet.device_arrays,
                train_gnn, serve, init_lm,
-               init_cache, lm_params_from_jax):
+               init_cache, lm_params_from_jax, adamw_state_from_jax,
+               incremental_recompute, train_lm, TokenPipeline):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().get_default("device") == "cuda"
+    assert train_parser().get_default("device") == "cuda"
 
 
 def test_default_device_raises_without_a_card():
