@@ -32,7 +32,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    (output and kept counts), its bound the larger of the bytes and 76
    integer operations an element at the card's integer issue ceiling
    (128 results per SM per clock × SMs × the maximum SM clock); PyTorch
-   has no call that draws the same bits.  The ELL SpMM also runs over the
+   has no call that draws the same bits.  Its bf16 instantiation
+   (``random_mask_bf16``) runs over granite-3-2b's gradient leaves as the
+   one-worker VARCO step hands them over — the embedding ``[1, 49155,
+   2048]`` and the stacked MLP projection ``[1, 40, 2048, 8192]`` at rate
+   128 — and ragged, bitwise, its plain version over 2^26 elements at a
+   time (each chunk from its counter offset).  The ELL SpMM also runs over the
    reversed lists (the training backward); its records carry the bytes
    its gathers move (one row slice per valid slot) and their rate.  Each
    autograd function's backward on the card is held to the plain
@@ -47,7 +52,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    force=True)``, a few hundred node and edge queries through ``submit``/
    ``flush``, and three non-forced ``refresh()`` calls under the default
    ``auto:qos:<bits>:w8`` policy with queries between them; launch counts
-   read right after (each serving kernel must have run).  The ``FRESH``
+   read right after (each serving kernel must have run, the rint
+   quantised codec included: serving rounds half to even).  The ``FRESH``
    answers of the cold refresh must match ``centralized_forward`` on the
    card within 1e-4 (atomic scatter-adds and FMA contraction reorder f32
    sums).
@@ -65,16 +71,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``auto:budget:<half>:w4`` on the packed wire, 5 epochs each with
    AdamW, and one epoch each of ``fixed:4`` with ``topk`` and ``fixed:8``
    with ``int8`` on the dense wire; launch counts read right after (every kernel must
-   have run, the quantised codecs during the w8 run, ``random_mask`` in
-   exactly the dense runs that draw the random mask).  Then, at rate 2
+   have run, the stochastic quantised codec and the unpack codec during
+   the w8 run — the card's default wire rounding is stochastic, so the
+   rint codec must not run — ``random_mask`` in exactly the dense runs
+   that draw the random mask).  Then, at rate 2
    on the card: the packed halo must equal the dense ``blockmask`` halo
    bitwise, the p2p wire's remote values the same, and one packed
    exchange's transport ``halo_demand × K·128 × 32`` exactly.  Every
    loss must be finite and both ``full`` runs' must fall; per-epoch loss,
    rate, width, bits, step time, test accuracy and the peak device
    memory are printed.
-6b. auto  — launch counts set to 0, then three ``make_auto_train_step(
-   rounding="stochastic")`` steps: every pair at w8 on the p2p wire and at
+6b. auto  — launch counts set to 0, then three ``make_auto_train_step``
+   steps with no rounding named (the card's default, stochastic): every
+   pair at w8 on the p2p wire and at
    w4 on the packed wire (the fused stochastic codec) and a mixed-width
    p2p plan with one fp32 pair (``random_uniform``); counts read right
    after (both kernels must have run).  Each step's loss must match the
@@ -213,12 +222,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    largest magnitude and every parameter leaf within 1e-4 of its norm
    (AdamW's normalised update turns the sum-order error of a near-zero
    gradient entry into up to lr; the worst single entries are printed).
+   Then VARCO data-parallel training: granite-3-2b at full size, 8 ×
+   2048, under ``varco:linear:5`` through ``make_varco_dp_train_step``
+   with one worker (5 steps) and four (3 steps; half the batch if the
+   card runs out of memory, said), counts set to 0 before each and read
+   after: ``random_mask_bf16`` once a gradient leaf, a worker and a step,
+   no f32 mask and no LM kernel; losses finite, step 0's rate 128,
+   ``grad_bits`` 0 at one worker and positive at four; step ms beside the
+   ``full`` run's.  The f32 2-layer check again through the dp step over
+   4 workers of one row each (steps 0 and 1 of ``varco:linear:5`` over 10
+   steps): the same tolerances, ``grad_bits`` equal card vs CPU.  Each
+   training run and each served prefill records its bound from
+   ``launch/analytic.estimate`` (FLOPs against the parameter dtype's
+   peak, HBM bytes against 3.35 TB/s).
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
 no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
-from the auto phase plus the update phase's stochastic serving for the
-stochastic codec and ``random_uniform``;
+from serving for the rint quantised codec (train_gnn rounds
+stochastically on the card); from the training path, the auto phase and
+the update phase's stochastic serving for the stochastic codec and
+``random_uniform``; from granite's one-worker VARCO run for
+``random_mask_bf16``;
 from qwen2-moe-a2.7b's prefill for tensor-core flash, mamba2-130m's for
 ``ssd_chunk`` and granite's f32 check for the CUDA-core flash kernel);
 the last line is ``{"ok": true, "device": {...}}``.  ``--lm-only`` runs
@@ -326,20 +351,49 @@ KERNELS = {
     # no TPU kernel: the uniforms of stochastic rounding, drawn by XLA
     "random_uniform": {"source": "src/repro_torch/csrc/randmask.cu",
                        "replaces": "src/repro/kernels/ops.py:195"},
+    # the mask's bf16 instantiation, over the gradient leaves of VARCO
+    # data-parallel LM training; the JAX package draws the mask through
+    # XLA at the line named here and multiplies in the leaf's dtype
+    "random_mask_bf16": {"source": "src/repro_torch/csrc/randmask.cu",
+                         "replaces": "src/repro/core/compression.py:142"},
 }
 
 
-GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack", "varco_pack_quant",
-               "varco_unpack_quant", "random_mask")
-#: the kernels of stochastic rounding: launched by make_auto_train_step(
-#: rounding="stochastic") steps (the auto phase), not by train_gnn
+#: the kernels train_gnn launches on the card; its quantising auto runs
+#: round stochastically there (the card's default wire rounding), so the
+#: rint codec ``varco_pack_quant`` runs in serving (the slice phase) and
+#: under faults instead
+GNN_KERNELS = ("ell_spmm", "varco_pack", "varco_unpack",
+               "varco_pack_quant_stochastic", "varco_unpack_quant",
+               "random_mask")
+#: the kernels of stochastic rounding: launched by train_gnn's quantising
+#: auto runs, the auto phase's steps and stochastic serving
 STOCH_KERNELS = ("varco_pack_quant_stochastic", "random_uniform")
+#: the quantised codecs a quantising auto run of train_gnn launches
+TRAIN_QUANT_KERNELS = ("varco_pack_quant_stochastic", "varco_unpack_quant")
 #: kernel -> the arch whose serving run gives the summary's launches (one
 #: per attention / mamba layer of a prefill); the CUDA-core flash kernel
 #: serves no full-size arch: its launches come from granite served in f32
 #: (the decode-consistency check's path)
 LM_KERNELS = {"flash_attention": "qwen2-moe-a2.7b", "ssd_chunk": "mamba2-130m",
               "flash_attention_simt": None}
+
+
+class _Counter:
+    """One counter attribute of a wrapper, read and set as ``.launches``
+    (the bf16 launches of ``random_mask``, which ``random_mask.launches``
+    also counts)."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
 
 
 def launch_counters() -> dict:
@@ -358,7 +412,8 @@ def launch_counters() -> dict:
             "flash_attention_simt": flash_attention_simt,
             "ssd_chunk": ssd_chunk, "random_mask": random_mask,
             "varco_pack_quant_stochastic": vp.varco_pack_quant_stochastic,
-            "random_uniform": random_uniform}
+            "random_uniform": random_uniform,
+            "random_mask_bf16": _Counter(random_mask, "bf16_launches")}
 
 
 def emit(obj) -> None:
@@ -387,6 +442,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def analytic_bound(cfg, batch: int, seq: int, kind: str) -> dict:
+    """The least time one card could take for a whole LM step of ``kind``
+    (``"train"`` or ``"prefill"``) at ``batch × seq``, from the port's
+    ``launch/analytic.estimate`` (its FLOPs against the peak of the
+    config's parameter dtype, its HBM bytes against the memory rate; the
+    config's moment width)."""
+    from repro_torch.launch.analytic import estimate
+    from repro_torch.launch.shapes import InputShape
+
+    mb = torch.finfo(getattr(torch, cfg.moment_dtype)).bits // 8 \
+        if cfg.moment_dtype else None
+    est = estimate(cfg, InputShape("run", seq, batch, kind), 1,
+                   moment_bytes=mb)
+    peak = BF16_FLOPS_PER_S if cfg.param_dtype == "bfloat16" else \
+        F32_FLOPS_PER_S
+    ms, by = bound_ms(est.hbm_bytes_per_dev, est.flops_global, peak)
+    return {"analytic_bound_ms": ms, "analytic_bound_by": by,
+            "analytic_flops": est.flops_global,
+            "analytic_hbm_bytes": est.hbm_bytes_per_dev}
 
 
 def bound_ms(n_bytes: float, flops: float = 0.0,
@@ -623,32 +699,70 @@ def _mask_keys(q: int, seed: int, dev):
     return keys_tensor(np.stack([prng.fold_in(k, j) for j in range(q)]), dev)
 
 
-def _mask_case(name, x, rate, unbiased, reps, int_rate):
-    """``random_mask`` at one shape and rate: output and kept counts
-    bitwise against the plain version; kernel and plain times beside the
-    bound (76 integer ops an element at the integer issue ceiling,
-    against the bytes of x and out)."""
+#: elements a plain-version call of a gradient-leaf mask case covers: the
+#: plain version's int64 Threefry temporaries over a whole 671M-element
+#: MLP leaf would take tens of GB, so it runs over consecutive chunks,
+#: each from its counter offset (the same function, element for element)
+MASK_PLAIN_CHUNK = 1 << 26
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _mask_case(name, x, rate, unbiased, reps, int_rate, chunked=False):
+    """``random_mask`` at one shape and rate (f32, or bf16: the
+    ``random_mask_bf16`` record): output and kept counts bitwise against
+    the plain version; kernel and plain times beside the bound (76
+    integer ops an element at the integer issue ceiling, against the
+    bytes of x and out).  ``chunked`` (x ``[1, ...]``): the plain version
+    runs over ``MASK_PLAIN_CHUNK`` elements at a time."""
     from repro_torch.kernels.randmask import random_mask, random_mask_plain
 
     keys = _mask_keys(x.shape[0], int(rate * 10) + int(unbiased), x.device)
     p = float(np.float32(1.0) / np.float32(rate))
     scale = float(np.float32(rate)) if unbiased else 1.0
     out, counts = random_mask(x, keys, p, scale, count=True)
-    ref, ref_counts = random_mask_plain(x, keys, p, scale, count=True)
+    if chunked:
+        flat_x, flat_out = x.reshape(1, -1), out.reshape(1, -1)
+        starts = range(0, flat_x.shape[1], MASK_PLAIN_CHUNK)
+
+        def plain():
+            return [random_mask_plain(flat_x[:, s:s + MASK_PLAIN_CHUNK],
+                                      keys, p, scale, offset=s)
+                    for s in starts]
+
+        equal, kept = True, 0
+        for s in starts:
+            ref, c = random_mask_plain(flat_x[:, s:s + MASK_PLAIN_CHUNK],
+                                       keys, p, scale, offset=s, count=True)
+            equal &= _bitwise(flat_out[:, s:s + MASK_PLAIN_CHUNK], ref)
+            kept += int(c.sum())
+            del ref
+        equal &= kept == int(counts.sum())
+    else:
+        def plain():
+            return random_mask_plain(x, keys, p, scale)
+
+        ref, ref_counts = random_mask_plain(x, keys, p, scale, count=True)
+        equal = _bitwise(out, ref) and torch.equal(counts, ref_counts)
+        del ref
     torch.cuda.synchronize()
-    check(torch.equal(out, ref) and torch.equal(counts, ref_counts),
-          f"random_mask {name}: not bitwise equal to the plain version")
+    kernel = "random_mask_bf16" if x.dtype == torch.bfloat16 else \
+        "random_mask"
+    check(equal, f"{kernel} {name}: not bitwise equal to the plain version")
     n = x.numel()
-    b_ms, b_by = bound_ms(2 * n * 4 + keys.numel() * 4, MASK_INT_OPS * n,
-                          int_rate)
-    rec = {"kernel": "random_mask", "case": name,
-           "shape": {"x": list(x.shape), "rate": rate,
-                     "unbiased": unbiased},
+    b_ms, b_by = bound_ms(2 * n * x.element_size() + keys.numel() * 4,
+                          MASK_INT_OPS * n, int_rate)
+    rec = {"kernel": kernel, "case": name,
+           "shape": {"x": list(x.shape), "dtype": str(x.dtype),
+                     "rate": rate, "unbiased": unbiased},
            "kept_fraction": float(counts.sum()) / n, "max_abs_err": 0.0,
            "kernel_ms": cuda_ms(lambda: random_mask(x, keys, p, scale),
                                 reps),
-           "plain_ms": cuda_ms(lambda: random_mask_plain(x, keys, p, scale),
-                               max(reps // 5, 1)),
+           "plain_ms": cuda_ms(plain, max(reps // 5, 1)),
+           "plain_chunked": chunked,
            "library_ms": None,   # PyTorch has no Threefry call
            "bound_ms": b_ms, "bound_by": b_by,
            "int_ops": MASK_INT_OPS * n, "int32_ops_per_s": int_rate}
@@ -882,6 +996,21 @@ def kernels_phase(eng, reps: int = 20):
     keep(_mask_case("ragged", torch.randn((3, 77, 42), generator=gen,
                                           device=dev), 5.3, False, 5,
                     int_rate), False)
+    # the bf16 instantiation over granite-3-2b's gradient leaves as the
+    # one-worker VARCO step hands them over (x[None]): the embedding and
+    # an MLP projection stacked over the 40 layers, at step 0's rate 128;
+    # and ragged, unbiased
+    for leaf, shape in (("embed", (1, 49155, 2048)),
+                        ("mlp_w_up", (1, 40, 2048, 8192))):
+        x = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        keep(_mask_case(f"granite_{leaf}_r128", x, 128.0, False, reps,
+                        int_rate, chunked=True), leaf == "embed")
+        del x
+    keep(_mask_case("ragged_bf16_unbiased",
+                    torch.randn((3, 77, 42), generator=gen, device=dev,
+                                dtype=torch.bfloat16), 5.3, True, 5,
+                    int_rate), False)
     # stochastic rounding: the fused codec at the p2p hop shape (w8, w4)
     # and at the packed all-gather's [Q, B, F] (w4), and the uniforms of
     # the mixed-width hops over the same [Q·D, H·K·128]
@@ -1025,7 +1154,10 @@ def slice_phase(g, cfg, params, eng, seed: int = 0):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    for name in ("ell_spmm", "varco_pack", "varco_unpack"):
+    # serving's quantised wire rounds half to even (the JAX engine's
+    # explicit default): the rint codec runs here
+    for name in ("ell_spmm", "varco_pack", "varco_unpack",
+                 "varco_pack_quant", "varco_unpack_quant"):
         check(launches[name] > 0, f"{name} never launched on the serving "
               f"path")
     emb, _ = eng.serve(np.arange(0, g.num_nodes, 97))
@@ -1182,7 +1314,7 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
         runs[name] = res.history
         quant_launches[name] = {
             k: counters[k].launches - before[k]
-            for k in ("varco_pack_quant", "varco_unpack_quant")}
+            for k in ("varco_pack_quant", *TRAIN_QUANT_KERNELS)}
         mask_launches[name] = counters["random_mask"].launches - \
             before["random_mask"]
         h = res.history
@@ -1218,12 +1350,17 @@ def train_phase(g, cfg, params, eng, seed: int = 0):
     for name in GNN_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the training "
               f"path")
-    for name, count in quant_launches["auto_w8"].items():
-        check(count > 0, f"{name} never launched during the w8 run")
+    # the card's default rounding is stochastic: the w8 run's codec is the
+    # stochastic instantiation, and the rint one never runs in train_gnn
+    for name in TRAIN_QUANT_KERNELS:
+        check(quant_launches["auto_w8"][name] > 0,
+              f"{name} never launched during the w8 run")
     if min(runs["packed_auto_w4"].width) < 32:   # a sub-byte all-gather
-        for name, count in quant_launches["packed_auto_w4"].items():
-            check(count > 0, f"{name} never launched during the packed "
-                  f"auto run")
+        for name in TRAIN_QUANT_KERNELS:
+            check(quant_launches["packed_auto_w4"][name] > 0,
+                  f"{name} never launched during the packed auto run")
+    check(launches["varco_pack_quant"] == 0, "train_gnn launched the rint "
+          "codec: the card's default wire rounding is stochastic")
     check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
           f"grad-sync identity broken: {ident}")
     check(ident_dense["loss_err"] <= GRAD_TOL and
@@ -1371,8 +1508,8 @@ def auto_phase(eng, params, cfg, seed: int = 0) -> dict:
     def run_step(name):
         wire, rate, width, fp32_pair = STOCH_RUNS[name]
         meta = metas[wire]
-        step = make_auto_train_step(cfg, pol, opt, meta,
-                                    rounding="stochastic")
+        # no rounding named: the card's default, stochastic
+        step = make_auto_train_step(cfg, pol, opt, meta)
         cache = init_wire_residuals(meta, cfg, dev) if wire == "p2p" else ()
         t0 = time.perf_counter()
         _, _, m, _ = step(params, opt.init(params), graphs[wire], key,
@@ -2334,7 +2471,8 @@ def lm_phase(seed: int = 0) -> dict:
                   "decode_tokens_per_s": out.decode_tokens_per_s,
                   "decode_ms_per_step": out.decode_s / (LM_NEW - 1) * 1e3,
                   "peak_mem_gb": peak,
-                  "first_tokens": out.tokens[0, :8].tolist()}
+                  "first_tokens": out.tokens[0, :8].tolist(),
+                  **analytic_bound(cfg, LM_BATCH, LM_PROMPT, "prefill")}
         del out
         _, timing["warm_prefill_ms"] = _timed_prefill(
             params, cfg, {"tokens": prompts})
@@ -2514,12 +2652,26 @@ LM_TRAIN_LR = 3e-4
 #: the f32 card-against-CPU step: granite at full width, 2 layers
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 512
 TRAIN_TOL = 1e-4
+#: VARCO data-parallel training of granite-3-2b at full size, 8 × 2048:
+#: (workers, steps) of each run under LM_VARCO_COMM
+LM_VARCO_COMM = "varco:linear:5"
+LM_VARCO_RUNS = ((1, 5), (4, 3))
+#: its f32 card-against-CPU step: Q workers of one row each, the policy's
+#: schedule over this many steps (step 1 still compresses: rate 64.5)
+DP_CHECK_Q, DP_CHECK_TOTAL = 4, 10
 
 
-def _train_run(cfg, batch: int, seq: int, steps: int, seed: int) -> dict:
-    """``steps`` steps of ``make_train_step`` from random weights on
-    ``TokenPipeline`` batches: losses, host-clock step times that end in a
-    sync (the loss read), peak memory."""
+def _train_run(cfg, batch: int, seq: int, steps: int, seed: int,
+               comm: str | None = None, q: int = 1) -> dict:
+    """``steps`` steps from random weights on ``TokenPipeline`` batches —
+    of ``make_train_step``, or with ``comm`` of ``make_varco_dp_train_step``
+    over ``q`` emulated workers (step key ``prng.key(i)``, as
+    ``train_lm`` runs it): losses, host-clock step times that end in a
+    sync (the loss read), peak memory, and the dp step's rate and
+    ``grad_bits``."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import make_dp_mesh, make_varco_dp_train_step
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.nn.modules import param_count
     from repro_torch.train.data import TokenPipeline
@@ -2527,47 +2679,78 @@ def _train_run(cfg, batch: int, seq: int, steps: int, seed: int) -> dict:
     params, init_s = _init(cfg, seed)
     opt = make_optimizer(cfg, lr=LM_TRAIN_LR)
     state = opt.init(params)
-    step = make_train_step(cfg, opt)
+    if comm is None:
+        base = make_train_step(cfg, opt)
+
+        def step(p, s, b, _i):
+            return base(p, s, b)
+    else:
+        dp = make_varco_dp_train_step(cfg, opt,
+                                      CommPolicy.parse(comm, steps),
+                                      make_dp_mesh(q))
+
+        def step(p, s, b, i):
+            return dp(p, s, b, i, prng.key(i))
     pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed,
                          device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    losses, aux, gnorm, ms = [], [], [], []
-    for _ in range(steps):
+    losses, aux, gnorm, ms, rate, bits = [], [], [], [], [], []
+    for i in range(steps):
         b = next(pipe)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, m = step(params, state, b)
+        params, state, m = step(params, state, b, i)
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
         aux.append(float(m["moe_aux"]))
         gnorm.append(float(m["grad_norm"]))
-    return {"params": param_count(params), "init_s": init_s,
-            "loss": losses, "moe_aux": aux, "grad_norm": gnorm,
-            "step_ms": ms, "peak_mem_gb":
-            torch.cuda.max_memory_allocated() / 1e9, "_params": params}
+        if comm is not None:
+            rate.append(float(m["rate"]))
+            bits.append(float(m["grad_bits"]))
+    rec = {"params": param_count(params), "init_s": init_s,
+           "loss": losses, "moe_aux": aux, "grad_norm": gnorm,
+           "step_ms": ms, "peak_mem_gb":
+           torch.cuda.max_memory_allocated() / 1e9, "_params": params}
+    if comm is not None:
+        rec.update({"comm": comm, "workers": q, "rate": rate,
+                    "grad_bits": bits})
+    return rec
 
 
-def _train_or_halve(cfg, batch, seq, steps, seed) -> dict:
+def _train_or_halve(cfg, batch, seq, steps, seed, **kw) -> dict:
     """:func:`_train_run` at ``batch``, and at half of it if the card runs
     out of memory (said in the record; width and depth are never cut)."""
     try:
         return {"batch": batch, "halved": False,
-                **_train_run(cfg, batch, seq, steps, seed)}
+                **_train_run(cfg, batch, seq, steps, seed, **kw)}
     except torch.cuda.OutOfMemoryError:
         pass                 # retried outside: the traceback holds memory
     gc.collect()
     torch.cuda.empty_cache()
     return {"batch": batch // 2, "halved": True,
-            **_train_run(cfg, batch // 2, seq, steps, seed)}
+            **_train_run(cfg, batch // 2, seq, steps, seed, **kw)}
 
 
-def _step_on(cfg, params, state, batch, device):
+def _step_on(cfg, params, state, batch, device, i: int = 0,
+             q: int | None = None):
+    """One ``make_train_step`` step on ``device`` or, with ``q``, step
+    ``i`` of ``make_varco_dp_train_step`` under ``LM_VARCO_COMM`` over
+    ``q`` workers (key ``prng.key(i)``)."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import make_dp_mesh, make_varco_dp_train_step
     from repro_torch.launch.steps import make_optimizer, make_train_step
 
-    step = make_train_step(cfg, make_optimizer(cfg, lr=LM_TRAIN_LR))
+    opt = make_optimizer(cfg, lr=LM_TRAIN_LR)
     to = (lambda t: t.to(device))
-    p, s, m = step(_tree_to(params, to), _tree_to(state, to),
-                   {"tokens": batch.to(device)})
+    args = (_tree_to(params, to), _tree_to(state, to),
+            {"tokens": batch.to(device)})
+    if q is None:
+        p, s, m = make_train_step(cfg, opt)(*args)
+    else:
+        p, s, m = make_varco_dp_train_step(
+            cfg, opt, CommPolicy.parse(LM_VARCO_COMM, DP_CHECK_TOTAL),
+            make_dp_mesh(q, device=device))(*args, i, prng.key(i))
     return p, s, {k: float(v) for k, v in m.items()}
 
 
@@ -2578,10 +2761,13 @@ def _tree_to(tree, fn):
         tree.dtype == torch.int32 else fn(tree)
 
 
-def _card_vs_cpu(seed: int) -> dict:
+def _card_vs_cpu(seed: int, q: int | None = None) -> dict:
     """granite at full width, ``TRAIN_CHECK_LAYERS`` layers, in f32: one
     step on the card from zero state (so the AdamW moments are populated),
-    then one more step from that state on the card and on the CPU.
+    then one more step from that state on the card and on the CPU — of
+    ``make_train_step``, or with ``q`` of the VARCO data-parallel step
+    over ``q`` workers of one row each (the masks are the same Threefry
+    draws on both devices, so ``grad_bits`` must be equal).
 
     The moments are held leaf by leaf at max |card − CPU| ≤ 1e-4 of the
     leaf's largest magnitude; the parameters at ‖card − CPU‖ ≤ 1e-4 ·
@@ -2598,13 +2784,14 @@ def _card_vs_cpu(seed: int) -> dict:
         n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
         activ_dtype="float32")
     params, _ = _init(cfg, seed)
-    pipe = TokenPipeline(cfg.vocab_size, TRAIN_CHECK_BATCH,
-                         TRAIN_CHECK_SEQ, seed=seed + 1, device="cpu")
+    batch = TRAIN_CHECK_BATCH if q is None else q
+    pipe = TokenPipeline(cfg.vocab_size, batch, TRAIN_CHECK_SEQ,
+                         seed=seed + 1, device="cpu")
     p1, s1, _ = _step_on(cfg, params, make_optimizer(cfg).init(params),
-                         next(pipe)["tokens"], "cuda")
+                         next(pipe)["tokens"], "cuda", 0, q)
     b2 = next(pipe)["tokens"]
-    pc, sc, mc = _step_on(cfg, p1, s1, b2, "cuda")
-    ph, sh, mh = _step_on(cfg, p1, s1, b2, "cpu")
+    pc, sc, mc = _step_on(cfg, p1, s1, b2, "cuda", 1, q)
+    ph, sh, mh = _step_on(cfg, p1, s1, b2, "cpu", 1, q)
     worst, param_l2, moment_max = [], 0.0, 0.0
     for part, a_tree, b_tree in (("params", pc, ph), ("mu", sc["mu"],
                                                       sh["mu"]),
@@ -2621,8 +2808,11 @@ def _card_vs_cpu(seed: int) -> dict:
             else:
                 moment_max = max(moment_max, rel_max)
     worst.sort(reverse=True)
-    return {"layers": cfg.n_layers, "dtype": cfg.param_dtype,
-            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+    dp = {} if q is None else {
+        "workers": q, "comm": LM_VARCO_COMM, "rate": mc["rate"],
+        "grad_bits_card": mc["grad_bits"], "grad_bits_cpu": mh["grad_bits"]}
+    return {**dp, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+            "batch": batch, "seq": TRAIN_CHECK_SEQ,
             "loss_card": mc["loss"], "loss_cpu": mh["loss"],
             "loss_rel_err": abs(mc["loss"] - mh["loss"]) / abs(mh["loss"]),
             "grad_norm_card": mc["grad_norm"], "grad_norm_cpu":
@@ -2646,8 +2836,12 @@ def lm_train_phase(seed: int = 0) -> dict:
     full size (5 steps), launch counts set to 0 before and read after
     (training launches no LM kernel: neither has a backward); then
     granite's training forward against its serving prefill (tensor-core
-    flash) on the trained weights, and one f32 step on the card against
-    the CPU."""
+    flash) on the trained weights; granite at full size under
+    ``varco:linear:5`` through the data-parallel step with one worker (5
+    steps) and four (3 steps), counts set to 0 before each and read after
+    (``random_mask_bf16`` once a leaf, a worker and a step); and one f32
+    step on the card against the CPU, of the plain step and of the dp
+    step over four workers."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import _lm_head, forward_train, \
         prefill
@@ -2666,6 +2860,7 @@ def lm_train_phase(seed: int = 0) -> dict:
         r.update({"layers": cfg.n_layers, "dtype": cfg.param_dtype,
                   "remat": cfg.remat, "moment_dtype": cfg.moment_dtype,
                   "seq": seq, "steps": steps,
+                  **analytic_bound(cfg, r["batch"], seq, "train"),
                   "median_step_ms": float(np.median(warm)),
                   "tokens_per_s": r["batch"] * seq /
                   (float(np.median(warm)) / 1e3)})
@@ -2686,13 +2881,43 @@ def lm_train_phase(seed: int = 0) -> dict:
     fwd_err = _rel_err(train_logits, serve_logits)
     del trained, train_logits, serve_logits
     torch.cuda.empty_cache()
+
+    # VARCO data-parallel training: granite at full size through the
+    # compressed gradient all-reduce (random_mask_bf16 once a leaf, a
+    # worker and a step), counts set to 0 before each run
+    from repro_torch.train.optim import tree_leaves
+
+    varco, varco_launches = {}, {}
+    for q, steps in LM_VARCO_RUNS:
+        for fn in counters.values():
+            fn.launches = 0
+        r = _train_or_halve(g_cfg, LM_TRAIN["granite-3-2b"][1],
+                            LM_TRAIN["granite-3-2b"][2], steps, seed,
+                            comm=LM_VARCO_COMM, q=q)
+        n_leaves = len(tree_leaves(r.pop("_params")))
+        torch.cuda.empty_cache()
+        warm = r["step_ms"][2:] or r["step_ms"]
+        r.update({"steps": steps, "median_step_ms": float(np.median(warm)),
+                  "expected_mask_launches": n_leaves * q * steps,
+                  **analytic_bound(g_cfg, r["batch"],
+                                   LM_TRAIN["granite-3-2b"][2], "train")})
+        varco[f"q{q}"] = r
+        varco_launches[f"q{q}"] = {name: fn.launches
+                                   for name, fn in counters.items()}
     cpu_check = _card_vs_cpu(seed)
+    torch.cuda.empty_cache()
+    dp_check = _card_vs_cpu(seed, DP_CHECK_Q)
     torch.cuda.empty_cache()
 
     rec = {"phase": "lm_train", "lr": LM_TRAIN_LR, "runs": runs,
            "launches": launches,
            "train_vs_prefill_rel_err": fwd_err,
-           "train_vs_prefill_batch": LM_BATCH, "card_vs_cpu": cpu_check}
+           "train_vs_prefill_batch": LM_BATCH, "card_vs_cpu": cpu_check,
+           "varco": varco, "varco_launches": varco_launches,
+           "varco_vs_full_step_ms": {
+               k: v["median_step_ms"] / runs["granite-3-2b"][
+                   "median_step_ms"] for k, v in varco.items()},
+           "dp_card_vs_cpu": dp_check}
     emit(rec)
     for arch, r in runs.items():
         check(all(np.isfinite(r["loss"])), f"{arch}: non-finite loss "
@@ -2708,11 +2933,26 @@ def lm_train_phase(seed: int = 0) -> dict:
     check(fwd_err <= PLAIN_PATH_TOL["bfloat16"], f"granite: the training "
           f"forward's logits differ from prefill's by {fwd_err} of the "
           f"largest")
-    check(cpu_check["loss_rel_err"] <= TRAIN_TOL and
-          cpu_check["param_leaf_l2_rel_err"] <= TRAIN_TOL and
-          cpu_check["moment_leaf_max_rel_err"] <= TRAIN_TOL,
-          f"the f32 step on the "
-          f"card differs from the CPU's: {cpu_check}")
+    for chk in (cpu_check, dp_check):
+        check(chk["loss_rel_err"] <= TRAIN_TOL and
+              chk["param_leaf_l2_rel_err"] <= TRAIN_TOL and
+              chk["moment_leaf_max_rel_err"] <= TRAIN_TOL,
+              f"the f32 step on the card differs from the CPU's: {chk}")
+    check(dp_check["grad_bits_card"] == dp_check["grad_bits_cpu"] > 0,
+          f"the dp step's grad_bits differ card vs CPU: {dp_check}")
+    for k, r in varco.items():
+        n = varco_launches[k]
+        check(all(np.isfinite(r["loss"])), f"varco {k}: non-finite loss "
+              f"{r['loss']}")
+        check(r["rate"][0] == 128.0, f"varco {k}: step 0 rate {r['rate']}")
+        check(n["random_mask_bf16"] == n["random_mask"] ==
+              r["expected_mask_launches"], f"varco {k}: random_mask "
+              f"launched {n['random_mask']} times ({n['random_mask_bf16']} "
+              f"bf16), not {r['expected_mask_launches']}")
+        check(all(n[name] == 0 for name in LM_KERNELS),
+              f"varco {k} launched LM kernels: {n}")
+        check(all((b > 0) == (r["workers"] > 1) for b in r["grad_bits"]),
+              f"varco {k}: grad_bits {r['grad_bits']}")
     return rec
 
 
@@ -2736,9 +2976,13 @@ def main(argv=None) -> int:
             return 0
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
         main_recs = kernels_phase(eng)
-        slice_phase(g, cfg, params, eng)
+        serving = slice_phase(g, cfg, params, eng)
         launches, runs = train_phase(g, cfg, params, eng)
-        launches.update(auto_phase(eng, params, cfg))
+        # the rint codec's user path on the card is serving: train_gnn
+        # rounds stochastically there
+        launches["varco_pack_quant"] = serving["varco_pack_quant"]
+        for name, n in auto_phase(eng, params, cfg).items():
+            launches[name] += n          # train_gnn's + the auto phase's
         resilience_phase(g, cfg, params, eng, runs["varco"])
         del runs
         for name, n in update_phase(g, cfg, params, eng).items():
@@ -2747,7 +2991,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         main_recs.update(lm_kernels_phase())
         launches.update(lm_phase())
-        lm_train_phase()
+        # the granite-3-2b one-worker VARCO run's bf16 mask launches
+        launches["random_mask_bf16"] = lm_train_phase()["varco_launches"][
+            "q1"]["random_mask_bf16"]
     except Failure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,9 @@
 //   uniform(key, c) = float((bits >> 9) | 0x3F800000) - 1,
 //   bits = y0 ^ y1, (y0, y1) = threefry2x32(key, (c >> 32, c & 0xffffffff))
 //
-// x is [Q, N] (a worker's [B, F] block flattened), keys [Q, 2] uint32, one
+// x is [Q, N] (a worker's [B, F] block flattened; f32, or bf16 where the
+// mask compresses a bf16 LM gradient leaf: out = bf16(x * bf16(scale)),
+// the exact f32 product rounded once), keys [Q, 2] uint32, one
 // key per worker, and the counter c is the element's flat index inside
 // its worker's block plus offset: bitwise jax.random.bernoulli(key, p,
 // (B, F)) in the partitionable Threefry layout (jax's default), vmapped
@@ -28,8 +30,13 @@
 // ops of the path's [4, 44227, 256] block take 0.103 ms on an H100, its
 // bytes 0.108 ms.
 //
-// Design: a thread takes 4 consecutive elements (one float4 load and
-// store, four independent hashes to hide the ALU latency); rotations are
+// In bf16 (granite's [1, 49155 * 2048] embedding gradient) the bytes halve
+// to 4 an element and the integer operations bound it: 0.23 ms against
+// 0.12 ms of bytes at that shape.
+//
+// Design: a thread takes 4 consecutive elements (one 16-byte load and
+// store in f32, 8-byte in bf16; four independent hashes to hide the ALU
+// latency); rotations are
 // single funnel shifts; blockIdx.y is the worker, so a block loads one key
 // and its threads grid-stride over that worker's N elements; kept counts
 // are summed per thread, then per warp, one atomic per warp.
@@ -53,6 +60,7 @@
 // C interface (ctypes): pointers and the stream are void*, sizes 64-bit;
 // returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,18 +75,50 @@ __device__ __forceinline__ bool keep(uint32_t k0, uint32_t k1, uint32_t k2,
   return threefry::uniform(k0, k1, k2, c) < p;
 }
 
-// VEC: N % 4 == 0 and 16-byte aligned rows, so a group of 4 is one float4
-template <bool VEC>
+// the element types of the mask: f32, and bf16 (a gradient leaf of the
+// bf16 LM configs); arithmetic is in f32 either way
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// x * scale in x's dtype: the scale is first cast to it (JAX's
+// scale.astype(x.dtype)); for bf16 the f32 product of two bf16 values is
+// exact, so rounding it once is bf16's own multiply
+template <typename T>
+__device__ __forceinline__ T scaled(T v, float s) {
+  return from_f32<T>(to_f32(v) * s);
+}
+
+// four consecutive elements: one 16-byte (f32) or 8-byte (bf16) access
+template <typename T>
+struct alignas(4 * sizeof(T)) Group4 {
+  T v[4];
+};
+
+// VEC: N % 4 == 0 and rows aligned to a group, so a group is one load and
+// one store
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-random_mask_kernel(const float* __restrict__ x,
-                   const uint32_t* __restrict__ keys, float* __restrict__ out,
+random_mask_kernel(const T* __restrict__ x, const uint32_t* __restrict__ keys,
+                   T* __restrict__ out,
                    unsigned long long* __restrict__ counts, int64_t n,
                    uint64_t offset, float p, float scale) {
   const int q = blockIdx.y;
   const uint32_t k0 = keys[2 * q], k1 = keys[2 * q + 1];
   const uint32_t k2 = k0 ^ k1 ^ threefry::kParity;
-  const float* xq = x + (int64_t)q * n;
-  float* oq = out + (int64_t)q * n;
+  const float s = to_f32(from_f32<T>(scale));
+  const T zero = from_f32<T>(0.f);
+  const T* xq = x + (int64_t)q * n;
+  T* oq = out + (int64_t)q * n;
   const int64_t groups = (n + 3) / 4;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   unsigned int kept = 0;
@@ -87,23 +127,21 @@ random_mask_kernel(const float* __restrict__ x,
     const int64_t i = 4 * g;
     const uint64_t c = (uint64_t)i + offset;
     if (VEC) {
-      const float4 v = reinterpret_cast<const float4*>(xq)[g];
-      const bool m0 = keep(k0, k1, k2, c, p), m1 = keep(k0, k1, k2, c + 1, p),
-                 m2 = keep(k0, k1, k2, c + 2, p),
-                 m3 = keep(k0, k1, k2, c + 3, p);
-      float4 o;
-      o.x = m0 ? v.x * scale : 0.f;
-      o.y = m1 ? v.y * scale : 0.f;
-      o.z = m2 ? v.z * scale : 0.f;
-      o.w = m3 ? v.w * scale : 0.f;
-      reinterpret_cast<float4*>(oq)[g] = o;
-      kept += (unsigned)m0 + (unsigned)m1 + (unsigned)m2 + (unsigned)m3;
+      const Group4<T> v = reinterpret_cast<const Group4<T>*>(xq)[g];
+      Group4<T> o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool m = keep(k0, k1, k2, c + j, p);
+        o.v[j] = m ? scaled(v.v[j], s) : zero;
+        kept += (unsigned)m;
+      }
+      reinterpret_cast<Group4<T>*>(oq)[g] = o;
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (i + j < n) {
           const bool m = keep(k0, k1, k2, c + j, p);
-          oq[i + j] = m ? xq[i + j] * scale : 0.f;
+          oq[i + j] = m ? scaled(xq[i + j], s) : zero;
           kept += (unsigned)m;
         }
       }
@@ -158,6 +196,32 @@ dim3 grid_for(long long q, long long n, int device) {
   return dim3(bx > 0 ? bx : 1, (unsigned)q);
 }
 
+template <typename T>
+int launch_random_mask(const void* x, const void* keys, void* out,
+                       void* counts, long long q, long long n,
+                       long long offset, float p, float scale, int device,
+                       void* stream) {
+  cudaSetDevice(device);
+  if (q == 0 || n == 0) return (int)cudaGetLastError();
+  if (q > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(q, n, device);
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % sizeof(Group4<T>) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % sizeof(Group4<T>) == 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* kp = static_cast<const uint32_t*>(keys);
+  auto* cp = static_cast<unsigned long long*>(counts);
+  if (vec)
+    random_mask_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), kp, static_cast<T*>(out), cp, (int64_t)n,
+        (uint64_t)offset, p, scale);
+  else
+    random_mask_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), kp, static_cast<T*>(out), cp, (int64_t)n,
+        (uint64_t)offset, p, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: float32 [Q, N]; keys: uint32 [Q, 2]; counts: uint64 [Q] (added
@@ -166,25 +230,17 @@ extern "C" int random_mask_f32(const void* x, const void* keys, void* out,
                                void* counts, long long q, long long n,
                                long long offset, float p, float scale,
                                int device, void* stream) {
-  cudaSetDevice(device);
-  if (q == 0 || n == 0) return (int)cudaGetLastError();
-  if (q > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid = grid_for(q, n, device);
-  const bool vec = n % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* kp = static_cast<const uint32_t*>(keys);
-  auto* cp = static_cast<unsigned long long*>(counts);
-  if (vec)
-    random_mask_kernel<true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), kp, static_cast<float*>(out), cp,
-        (int64_t)n, (uint64_t)offset, p, scale);
-  else
-    random_mask_kernel<false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), kp, static_cast<float*>(out), cp,
-        (int64_t)n, (uint64_t)offset, p, scale);
-  return (int)cudaGetLastError();
+  return launch_random_mask<float>(x, keys, out, counts, q, n, offset, p,
+                                   scale, device, stream);
+}
+
+// the same over bf16 x and out: out = bf16(x * bf16(scale)) where kept
+extern "C" int random_mask_bf16(const void* x, const void* keys, void* out,
+                                void* counts, long long q, long long n,
+                                long long offset, float p, float scale,
+                                int device, void* stream) {
+  return launch_random_mask<__nv_bfloat16>(x, keys, out, counts, q, n,
+                                           offset, p, scale, device, stream);
 }
 
 // keys: uint32 [B, 2]; out: float32 [B, N]; offset: added to every

@@ -40,6 +40,7 @@ from repro_torch.dist.ratectl.budget import budget_controller
 from repro_torch.dist.ratectl.error import error_controller
 from repro_torch.dist.ratectl.qos import qos_controller
 from repro_torch.dist.ratectl.stale import stale_controller
+from repro_torch.kernels.ops import default_wire_rounding
 from repro_torch.kernels.varco_pack import LANE
 from repro_torch.nn.gnn import GNNConfig, gnn_forward, masked_loss_and_correct
 
@@ -181,9 +182,10 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     quantising policy — stale XOR error feedback — else ``()``; an exact
     step carries residuals unchanged.  ``metrics`` adds ``pair_transport``
     / ``pair_err`` / ``pair_delta`` ``[Q, Q]`` to the usual scalars.
-    ``rounding`` is ``"rint"`` (round half to even; ``None`` picks it, the
-    JAX package's default off the TPU) or ``"stochastic"`` (``floor(v +
-    u)`` under the per-pair ``round_key`` stream)."""
+    ``rounding`` is ``"rint"`` (round half to even) or ``"stochastic"``
+    (``floor(v + u)`` under the per-pair ``round_key`` stream); ``None``
+    picks by the device each step runs on (``ops.
+    default_wire_rounding``): stochastic on the card, rint on the CPU."""
     if policy.mode != "auto":
         raise ValueError(f"make_auto_train_step needs an 'auto' policy, "
                          f"got mode {policy.mode!r}")
@@ -206,14 +208,14 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     if stale and meta.wire != "p2p":
         raise ValueError("the stale controller reuses per-pair hop buffers; "
                          "it needs wire='p2p'")
-    rounding = "rint" if rounding is None else rounding
-    if rounding not in ("rint", "stochastic"):
+    if rounding not in (None, "rint", "stochastic"):
         raise ValueError(f"rounding must be 'rint' or 'stochastic', "
                          f"got {rounding!r}")
     # error feedback and hop reuse share the cache channel: stale XOR EF
     use_ef = policy.max_width < 32 and meta.wire == "p2p" and not stale
 
     def step(params, opt_state, graph, key, plan: RatePlan, cache=()):
+        mode = rounding or default_wire_rounding(graph["features"].device)
         rm = np.asarray(plan.rates, np.float32)
         kb = dict(_packed_pair_k_for(meta, rm))
         wm = plan_widths(meta, plan)
@@ -229,7 +231,7 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
                 cache_out=cache_out if stale else None,
                 resid=cache if ef else None,
                 resid_out=cache_out if ef else None,
-                store_w=_packed_store_w(meta, wm), rounding=rounding)
+                store_w=_packed_store_w(meta, wm), rounding=mode)
             logits, bits = gnn_forward(p, cfg, graph["features"], agg)
             loss_sum, _ = masked_loss_and_correct(
                 logits, graph["labels"], graph["train_mask"])

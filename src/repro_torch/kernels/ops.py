@@ -27,9 +27,10 @@ version and no global backend switch — the tensor decides.
   :func:`pack_bits`, :func:`dequant_bits`, :func:`quant_dequant`,
   :func:`wire_quant`) — PyTorch on every device, as the JAX runtime
   composes them from jnp ops; their ``key=`` (stochastic rounding)
-  draws its uniforms with the ``random_uniform`` kernel, and
+  draws its uniforms with the ``random_uniform`` kernel,
   :func:`round_key` is the JAX package's per-pair rounding key
-  schedule.
+  schedule and :func:`default_wire_rounding` the mode a step picks when
+  its caller names none.
 
 Every op takes a leading batch dimension (``[Q, N, F]`` with per-batch
 index rows) or, for the wire ops, an unbatched ``[N, F]`` with one index
@@ -226,8 +227,8 @@ class _RandomMask(torch.autograd.Function):
 def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float,
                 scale: float = 1.0, offset: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The paper's random element mask over workers: x ``[Q, ...]`` f32,
-    keys int32 ``[Q, 2]`` (uint32 bits; ``randmask.keys_tensor``), ``p``
+    """The paper's random element mask over workers: x ``[Q, ...]`` f32
+    or bf16 (the output keeps x's dtype), keys int32 ``[Q, 2]`` (uint32 bits; ``randmask.keys_tensor``), ``p``
     and ``scale`` float32 values -> ``(where(mask, x·scale, 0), kept
     counts int64 [Q])`` with worker ``q``'s mask bitwise
     ``jax.random.bernoulli(keys[q], p, x.shape[1:])``; ``offset`` shifts
@@ -378,6 +379,22 @@ def _width_tensor(width, like: torch.Tensor) -> torch.Tensor:
 #: fold_in salt separating the stochastic-rounding key stream from the
 #: mask-selection streams that share the per-exchange key
 ROUND_SALT = 0x5EED
+
+
+def default_wire_rounding(device) -> str:
+    """Rounding mode of the quantised wire when a caller names none
+    (``make_auto_train_step(rounding=None)``): ``"stochastic"`` on a CUDA
+    device, the port's hardware target, where the convergence argument
+    wants an unbiased codec (the JAX package's default on its own
+    hardware target); ``"rint"`` on the CPU, the deterministic
+    round-half-to-even that CPU parity with the JAX package is held
+    under."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return "stochastic"
+    if kind == "cpu":
+        return "rint"
+    raise ValueError(f"no wire rounding default for device {device}")
 
 
 def round_key(key, sender: int, hop: int | None = None) -> np.ndarray:

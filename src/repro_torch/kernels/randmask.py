@@ -10,18 +10,24 @@ because the mask is one 20-round Threefry hash per activation — 45M per
 exchange at the paper's width — and a plain PyTorch version spends over a
 hundred elementwise int64 passes on it.
 
-:func:`random_mask` — x ``[Q, N]`` f32 (a worker's ``[B, F]`` block
-flattened, or any trailing shape), per-worker keys ``[Q, 2]`` -> ``where(
-mask, x · scale, 0)`` with ``mask[q, i] = uniform(keys[q], i + offset) <
-p``, bitwise ``jax.random.bernoulli(keys[q], p, block_shape)`` vmapped
-over workers; optionally each worker's kept count.  Bound about equally
-by bytes (8 an element) and integer operations (76 a hash at the SM's
-issue ceiling): a thread hashes 4 consecutive elements between one
-float4 load and store, a block serves one worker.
+:func:`random_mask` — x ``[Q, N]`` f32 or bf16 (a worker's ``[B, F]``
+block flattened, a gradient leaf, or any trailing shape), per-worker keys
+``[Q, 2]`` -> ``where(mask, x · scale, 0)`` in x's dtype with ``mask[q,
+i] = uniform(keys[q], i + offset) < p``, bitwise ``jax.random.bernoulli(
+keys[q], p, block_shape)`` vmapped over workers; optionally each worker's
+kept count.  The scale is cast to x's dtype first and the product rounded
+once to it (the JAX package's ``x * scale.astype(x.dtype)``; in bf16 the
+f32 product of two bf16 values is exact).  In f32 bound about equally by
+bytes (8 an element) and integer operations (76 a hash at the SM's issue
+ceiling); in bf16 (4 bytes an element) by the operations.  A thread
+hashes 4 consecutive elements between one vector load and store, a block
+serves one worker; each dtype is its own instantiation of the kernel
+(``random_mask_f32``, ``random_mask_bf16``).
 
 Beside the kernel: its plain version :func:`random_mask_plain` (the key
 stream of ``repro_torch.prng.random_bits_torch``; what CPU tensors run)
-and the launch counter ``random_mask.launches``.
+and the launch counters ``random_mask.launches`` (every launch) and
+``random_mask.bf16_launches`` (those of the bf16 instantiation).
 
 :func:`random_uniform` — the same stream as float32 uniforms, ``out[b, i]
 = uniform(keys[b], i + offset)``, bitwise ``jax.random.uniform(keys[b],
@@ -44,9 +50,14 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import _build
 
+_MASK_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + \
+    [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#: the mask's instantiations, by element dtype
+_MASK_FUNCS = {torch.float32: "random_mask_f32",
+               torch.bfloat16: "random_mask_bf16"}
 _FUNCS = {
-    "random_mask_f32": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 +
-    [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "random_mask_f32": _MASK_ARGS,
+    "random_mask_bf16": _MASK_ARGS,
     "random_uniform_f32": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 +
     [ctypes.c_int, ctypes.c_void_p],
 }
@@ -74,14 +85,19 @@ def uniform_of_bits(bits: torch.Tensor) -> torch.Tensor:
 def random_mask_plain(x: torch.Tensor, keys: torch.Tensor, p: float,
                       scale: float, offset: int = 0,
                       count: bool = False):
-    """x ``[Q, ...]`` f32, keys int32 ``[Q, 2]`` (uint32 bits) -> ``(out,
-    counts int64 [Q] or None)``: the kernel's function in PyTorch."""
+    """x ``[Q, ...]`` f32 or bf16, keys int32 ``[Q, 2]`` (uint32 bits) ->
+    ``(out in x's dtype, counts int64 [Q] or None)``: the kernel's
+    function in PyTorch.  The product is taken in f32 from the scale cast
+    to x's dtype and rounded once, whatever PyTorch's promotion rules do
+    with a 0-d f32 scale."""
     q = x.shape[0]
     bits = prng.random_bits_torch(_uint32(keys), tuple(x.shape[1:]),
                                   x.device, offset)
-    mask = uniform_of_bits(bits) < torch.tensor(p, dtype=torch.float32, device=x.device)
-    out = torch.where(mask, x * torch.tensor(scale, dtype=torch.float32,
-                                             device=x.device),
+    mask = uniform_of_bits(bits) < torch.tensor(p, dtype=torch.float32,
+                                                device=x.device)
+    s = torch.tensor(scale, dtype=torch.float32).to(x.dtype).float()
+    prod = (x.float() * s.to(x.device)).to(x.dtype)
+    out = torch.where(mask, prod,
                       torch.zeros((), dtype=x.dtype, device=x.device))
     counts = mask.reshape(q, -1).sum(-1) if count else None
     return out, counts
@@ -89,11 +105,12 @@ def random_mask_plain(x: torch.Tensor, keys: torch.Tensor, p: float,
 
 def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float, scale: float,
                 offset: int = 0, count: bool = False):
-    """CUDA random mask: x ``[Q, ...]`` f32 contiguous, keys int32 ``[Q,
-    2]`` on the same card -> ``(out, counts int64 [Q] or None)``."""
-    if x.dtype != torch.float32 or keys.dtype != torch.int32:
-        raise TypeError(f"random_mask needs f32 x and int32 keys, got "
-                        f"{x.dtype}, {keys.dtype}")
+    """CUDA random mask: x ``[Q, ...]`` f32 or bf16 contiguous, keys int32
+    ``[Q, 2]`` on the same card -> ``(out in x's dtype, counts int64 [Q]
+    or None)``."""
+    if x.dtype not in _MASK_FUNCS or keys.dtype != torch.int32:
+        raise TypeError(f"random_mask needs f32 or bf16 x and int32 keys, "
+                        f"got {x.dtype}, {keys.dtype}")
     if x.dim() < 1 or tuple(keys.shape) != (x.shape[0], 2):
         raise ValueError(f"random_mask needs x [Q, ...] and keys [Q, 2], "
                          f"got {tuple(x.shape)}, {tuple(keys.shape)}")
@@ -113,16 +130,19 @@ def random_mask(x: torch.Tensor, keys: torch.Tensor, p: float, scale: float,
     counts = torch.zeros((q,), dtype=torch.int64, device=x.device) \
         if count else None
     lib = _build.library("randmask", _FUNCS)
-    _build.check(lib.random_mask_f32(
+    _build.check(getattr(lib, _MASK_FUNCS[x.dtype])(
         x.data_ptr(), keys.data_ptr(), out.data_ptr(),
         counts.data_ptr() if count else None, q, n, offset, float(p),
         float(scale), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream), "random_mask")
     random_mask.launches += 1
+    if x.dtype == torch.bfloat16:
+        random_mask.bf16_launches += 1
     return out, counts
 
 
 random_mask.launches = 0
+random_mask.bf16_launches = 0
 
 
 def random_uniform_plain(keys: torch.Tensor, n: int, offset: int = 0

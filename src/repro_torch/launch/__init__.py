@@ -1,2 +1,4 @@
 """LM launch: step builders (:mod:`.steps`), the batched serving
-launcher (:mod:`.serve`) and the training launcher (:mod:`.train`)."""
+launcher (:mod:`.serve`), the training launcher (:mod:`.train`), the
+assigned input shapes (:mod:`.shapes`) and the analytic FLOPs / HBM-bytes
+model (:mod:`.analytic`)."""

@@ -24,6 +24,21 @@ def _or_zeros(g, p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p) if g is None else g
 
 
+def loss_and_grads(params, cfg: ArchConfig, batch: dict):
+    """``(loss, parts, grads)``: :func:`lm_loss` and its gradient tree by
+    autograd (``jax.value_and_grad(lm_loss, has_aux=True)``), the loss
+    and parts detached; an unused leaf gets a zero gradient, as
+    ``jax.grad`` gives it.  ``params`` is not written."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, parts = lm_loss(leaves, cfg, batch)
+        got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                       allow_unused=True))
+    # tree_map visits the leaves in tree_leaves order
+    grads = tree_map(lambda p: _or_zeros(next(got), p), leaves)
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     clip: float = 1.0):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -33,20 +48,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     ``moe_aux``, ``grad_norm``); nothing in the step waits for the card.
     The inputs are not written: the step returns new trees."""
     def train_step(params, opt_state, batch):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            loss, parts = lm_loss(leaves, cfg, batch)
-            got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                           allow_unused=True))
-        # tree_map visits the leaves in tree_leaves order; an unused leaf
-        # gets a zero gradient, as jax.grad gives it
-        grads = tree_map(lambda p: _or_zeros(next(got), p), leaves)
+        loss, parts, grads = loss_and_grads(params, cfg, batch)
         grads, gnorm = clip_by_global_norm(grads, clip)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         del grads                 # freed before the new params are made
         params = apply_updates(params, updates)
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "moe_aux": parts["moe_aux"].detach(), "grad_norm": gnorm}
+        metrics = {"loss": loss, "ce": parts["ce"],
+                   "moe_aux": parts["moe_aux"], "grad_norm": gnorm}
         return params, opt_state, metrics
 
     return train_step

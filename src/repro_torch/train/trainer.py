@@ -185,10 +185,11 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                   checkpoint_dir="ck", stop_after=4)
         train_gnn(shard_dir, ..., checkpoint_dir="ck", resume=True)
 
-    Not ported (raises ``NotImplementedError``): ``use_shard_map``.  The
-    quantised wire rounds half to even (the JAX package's default off the
-    TPU; ``make_auto_train_step(rounding="stochastic")`` rounds
-    unbiased).
+    Not ported (raises ``NotImplementedError``): ``use_shard_map``.  An
+    auto policy's quantised wire rounds by the device's default (``ops.
+    default_wire_rounding``): stochastically on the card, as the JAX
+    package does on its hardware target, and half to even on the CPU,
+    where the port is held to the JAX package's CPU runs.
     """
     from repro_torch.dist import faults as faultlib
     from repro_torch.graph.stream import ShardSet, is_shard_dir, load_shards

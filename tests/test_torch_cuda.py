@@ -444,6 +444,35 @@ def test_cuda_random_mask_matches_plain(cuda_device, q, b, f, rate,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q,n", [(1, 4 * 49155), (4, 1000), (3, 1001),
+                                 (1, 1)])
+@pytest.mark.parametrize("rate,unbiased", [(4.0, False), (5.3, True),
+                                           (1.0, False)])
+def test_cuda_random_mask_bf16_matches_plain(cuda_device, q, n, rate,
+                                             unbiased):
+    """The bf16 instantiation (gradient leaves of the bf16 LM configs):
+    output bitwise, bf16 out, kept counts equal, on the 8-byte path and
+    the scalar one; both launch counters move by one."""
+    from repro_torch.kernels import randmask as trm
+
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(q, n)).astype(np.float32)).to(torch.bfloat16)
+    keys = _mask_keys(q, n)
+    p = float(np.float32(1.0) / np.float32(rate))
+    scale = float(np.float32(rate)) if unbiased else 1.0
+    before = (trm.random_mask.launches, trm.random_mask.bf16_launches)
+    out, counts = trm.random_mask(x.to(cuda_device), keys.to(cuda_device),
+                                  p, scale, count=True)
+    torch.cuda.synchronize()
+    assert (trm.random_mask.launches, trm.random_mask.bf16_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, ref_counts = trm.random_mask_plain(x, keys, p, scale, count=True)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu().view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(counts.cpu(), ref_counts)
+
+
+@pytest.mark.cuda
 def test_cuda_random_mask_counter_past_2_32(cuda_device):
     """A block of more than 2^32 elements, reached by the counter offset:
     the high counter word carries on the card as in the plain version."""
@@ -902,6 +931,56 @@ def test_cuda_lm_train_step_matches_cpu(cuda_device, arch):
     assert (tfa.flash_attention_wgmma.launches,
             tfa.flash_attention_simt.launches,
             tssd.ssd_chunk.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,q", [("granite-3-2b", 4),
+                                    ("granite-3-2b", 1),
+                                    ("qwen2-moe-a2.7b", 2)])
+def test_cuda_varco_dp_step_matches_cpu(cuda_device, arch, q):
+    """Two ``make_varco_dp_train_step`` steps (``varco:linear:5``, Q
+    emulated workers) on the card against the CPU from the same weights:
+    the masks are the same Threefry draws, so ``grad_bits`` and the rate
+    are equal and the losses, gradient norms and parameters agree within
+    1e-4 (each parameter leaf by its norm); ``random_mask`` launches once
+    a leaf, a worker and a step."""
+    from repro_torch import prng
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist.grad_compress import (make_dp_mesh,
+                                                make_varco_dp_train_step)
+    from repro_torch.kernels import randmask as trm
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = get_config(arch, smoke=True)
+    params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = make_optimizer(cfg, lr=1e-3)
+    policy = CommPolicy.parse("varco:linear:5", 4)
+    steps = {dev: make_varco_dp_train_step(cfg, opt, policy,
+                                           make_dp_mesh(q, device=dev))
+             for dev in (cuda_device, "cpu")}
+    batches = [next(TokenPipeline(cfg.vocab_size, 4, 64, seed=s,
+                                  device="cpu"))["tokens"] for s in (0, 1)]
+    p_c, s_c = _to(params, cuda_device), opt.init(_to(params, cuda_device))
+    p_h, s_h = params, opt.init(params)
+    before = trm.random_mask.launches
+    for i, toks in enumerate(batches):
+        p_c, s_c, m_c = steps[cuda_device](
+            p_c, s_c, {"tokens": toks.to(cuda_device)}, i, prng.key(i))
+        p_h, s_h, m_h = steps["cpu"](p_h, s_h, {"tokens": toks}, i,
+                                     prng.key(i))
+        assert float(m_c["grad_bits"]) == float(m_h["grad_bits"])
+        assert float(m_c["rate"]) == float(m_h["rate"])
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m_c[k]) - float(m_h[k])) <= 1e-4 * max(
+                1.0, abs(float(m_h[k]))), k
+    assert trm.random_mask.launches - before == \
+        2 * q * len(tree_leaves(params))
+    for a, b in zip(tree_leaves(p_c), tree_leaves(p_h)):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm())
 
 
 @pytest.mark.cuda

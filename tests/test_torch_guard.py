@@ -77,15 +77,21 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serve import incremental_recompute
     from repro_torch.train.data import TokenPipeline
 
+    from repro_torch.dist import make_dp_mesh, make_varco_dp_train_step
+
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
                centralized_forward, init_halo_cache, init_wire_residuals,
                PartitionedGraph.device_arrays, ShardSet.device_arrays,
                train_gnn, serve, init_lm,
                init_cache, lm_params_from_jax, adamw_state_from_jax,
-               incremental_recompute, train_lm, TokenPipeline):
+               incremental_recompute, train_lm, TokenPipeline,
+               make_dp_mesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().get_default("device") == "cuda"
     assert train_parser().get_default("device") == "cuda"
+    # the data-parallel step's mesh defaults to one worker on the card
+    assert inspect.signature(make_varco_dp_train_step).parameters[
+        "mesh"].default is None
 
 
 def test_default_device_raises_without_a_card():
@@ -121,6 +127,13 @@ def test_default_device_raises_without_a_card():
     lm_params = init_lm(lm_cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(lm_cfg, lm_params, np.zeros((1, 4), np.int32), 2)
+    from repro_torch.dist import make_dp_mesh, make_varco_dp_train_step
+    from repro_torch.launch.steps import make_optimizer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_dp_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_varco_dp_train_step(lm_cfg, make_optimizer(lm_cfg), CommPolicy
+                                 .parse("varco:linear:5", 4))
     assert serve(lm_cfg, lm_params, np.zeros((1, 4), np.int32), 2,
                  device="cpu").tokens.shape == (1, 2)
     # and the CPU, when asked for, runs

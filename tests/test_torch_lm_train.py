@@ -58,6 +58,7 @@ from repro.models import transformer as JT
 from repro.nn.modules import param_count as j_param_count
 from repro.train.data import TokenPipeline as JPipeline
 from repro_torch.configs.base import get_config as tget
+from repro_torch.core.varco import CommPolicy
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.train import main as train_main
@@ -326,7 +327,7 @@ def test_training_path_reaches_no_kernel(monkeypatch, arch, s):
         TT.prefill(tp, tc, tb)                 # serving still takes them
 
 
-def test_train_cli_and_refusals(tmp_path):
+def test_train_cli_and_refusals(tmp_path, capsys):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     ck = tmp_path / "lm.ckpt"
     out = subprocess.run(
@@ -352,12 +353,22 @@ def test_train_cli_and_refusals(tmp_path):
         "opt": tsteps.make_optimizer(tc).init(like_p)})
     assert int(tree["opt"]["step"]) == 3
     assert tree["opt"]["mu"]["embed"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        train_main(["--arch", "granite-3-2b", "--smoke", "--steps", "3",
-                    "--device", "cpu", "--comm", "varco:linear:5"])
-    with pytest.raises(NotImplementedError, match="grad_compress"):
-        train_lm("granite-3-2b", smoke=True, steps=1, comm="fixed:4",
-                 device="cpu", log=None)
+    # the compressing --comm specs run through the data-parallel step (one
+    # worker), and each line adds the rate, as the JAX CLI's do
+    capsys.readouterr()
+    train_main(["--arch", "granite-3-2b", "--smoke", "--steps", "3",
+                "--device", "cpu", "--comm", "varco:linear:5"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[:2] for ln in lines[1:3]] == [["step", "0"],
+                                                     ["step", "2"]]
+    pol = CommPolicy.parse("varco:linear:5", 3)
+    assert [float(ln.split("rate")[1].split()[0]) for ln in lines[1:3]] == \
+        [float(pol.rate(0)), float(pol.rate(2))] == [128.0, 1.0]
+    _, opt_state, ms = train_lm("granite-3-2b", smoke=True, steps=2,
+                                comm="fixed:4", device="cpu", log=None)
+    assert [m["rate"] for m in ms] == [4.0, 4.0]
+    assert all(m["grad_bits"] == 0.0 and np.isfinite(m["loss"]) for m in ms)
+    assert int(opt_state["step"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_lm("granite-3-2b", smoke=True, steps=1, log=None)

@@ -194,6 +194,19 @@ def test_round_key_matches_jax(sender, hop):
     np.testing.assert_array_equal(got, np.asarray(want, np.uint32))
 
 
+def test_default_wire_rounding_by_device():
+    """``rounding=None`` resolves by the step's device: stochastic on the
+    card (the JAX package's default on its hardware target), rint on the
+    CPU (its default there, which CPU parity is held under)."""
+    assert tops.default_wire_rounding("cpu") == jops.default_wire_rounding()
+    assert tops.default_wire_rounding(torch.device("cpu")) == "rint"
+    assert tops.default_wire_rounding("cuda") == "stochastic"
+    assert tops.default_wire_rounding(torch.device("cuda", 1)) == \
+        "stochastic"
+    with pytest.raises(ValueError, match="meta"):
+        tops.default_wire_rounding("meta")
+
+
 @pytest.mark.parametrize("width", [2, 4, 8, 32])
 def test_keyed_quant_codecs_match_jax_bitwise(width):
     rng = np.random.default_rng(width)
