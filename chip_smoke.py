@@ -93,7 +93,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    packed and one w8 p2p exchange must ship exactly ``ceil(ledger bits /
    8)`` bytes (``wire_out`` capture).
 6c. resilience — the rest of ``train_gnn`` on the setup's graph, model
-   and parameters, under a temporary directory removed at the end; launch
+   and parameters, under the run's temporary directory (removed at the
+   end of the run; the dist phase boots from its shards); launch
    counts set to 0 before each part and read after (``ell_spmm``,
    ``varco_pack`` and ``varco_unpack`` must run in each).  R1, the
    out-of-core boot: ``write_graph_store``, ``stream_partition(store, 4,
@@ -119,7 +120,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    within 1e-4 of the uninterrupted run, and a ``save`` → ``restore`` of
    a state tree of card tensors must be bitwise; save/restore ms and the
    file's bytes are printed, and the phase's peak device memory.
-6d. update — streaming edge updates on the engine (after the other GNN
+6d. dist — the worker backend: ``train_gnn(use_shard_map=True)`` over
+   Q = 4 worker processes (``spawn_workers``), each loading only its own
+   partition from the resilience phase's shard directory, at the setup's
+   width and seeds: p2p ``full`` and ``varco:linear:5``, dense
+   ``varco:linear:5`` (``randmask``) and packed ``fixed:4``, 3 epochs
+   each.  With four cards the workers run over NCCL; with fewer, all
+   four over ``gloo`` on ``cuda:0`` with every transfer staged through
+   pinned host memory (printed, with ``NCCL unverified: <n> card`` on a
+   line of its own).  Each worker sets its launch counts to 0 before a
+   run and reads them after; summed over the workers, ``ell_spmm``
+   (p2p), ``varco_pack``/``varco_unpack`` (p2p ``varco``, packed) and
+   ``random_mask`` (dense) must have run.  Before the measured runs each
+   worker runs them once more with every call of those four kernels held
+   against the plain version on the same arguments (pack/unpack and the
+   mask bitwise, ELL within 1e-5); that run must make as many calls as
+   the measured run launches, and every signature (shapes, strides,
+   dtypes, 16-byte alignment, scalar arguments) the measured run
+   launches at must have been held so.  Held against the
+   emulated backend's runs of the same settings on the same card: per-epoch
+   losses within 1e-4, the cumulative ledger at rel 1e-6, accuracies
+   within 1e-3; at rate 2 over a 256-wide exchange each worker's p2p
+   compact hop buffer and packed halo equal its slice of the emulated
+   backend's bitwise; one distributed ``sgd(0.1)`` ``full`` step holds
+   the grad-sync identity within 1e-4.  Printed per run: rank 0's step
+   ms median beside the emulated step's, every worker's bytes sent and
+   staged per step, host ms in the transport and peak GB.
+6e. update — streaming edge updates on the engine (after the other GNN
    phases: the update changes its graph): a forced refresh, then a seeded
    batch of 256 inserts and 256 deletes of existing edges through
    ``apply_updates`` (host ``EdgeSpill``, the frontier recompute on the
@@ -238,7 +265,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
-no TPU counterpart: its ``replaces`` names the JAX package's XLA draw;
+no TPU counterpart: its ``replaces`` names the JAX package's XLA draw,
+plus the dist phase's workers' launches;
 from serving for the rint quantised codec (train_gnn rounds
 stochastically on the card); from the training path, the auto phase and
 the update phase's stochastic serving for the stochastic codec and
@@ -261,6 +289,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1665,7 +1694,8 @@ def _fault_identities(cfg, params, shards, dev, seed: int = 0) -> dict:
             "all_dead_transport_bits": float(dark_bits[1])}
 
 
-def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
+def resilience_phase(g, cfg, params, eng, varco_in_memory, workdir,
+                     seed: int = 0):
     """R1: the graph written to a chunked store, cut by the streaming
     partitioner (the exact path: it must give the setup's owner vector),
     sharded, loaded (``device_arrays`` bitwise equal to the in-memory
@@ -1677,9 +1707,9 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
     DEAD), with the cached-pair and all-dead identities.  R3: the faulted
     ``varco`` run checkpointed after the crash and resumed, against the
     uninterrupted one, and a save→restore round trip of card tensors.
-    Launch counts are set to 0 before each part and read after."""
-    import tempfile
-
+    Launch counts are set to 0 before each part and read after.  The
+    store, the shards (which the dist phase boots from) and the
+    checkpoints go under ``workdir``."""
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist import faults as fl
     from repro_torch.dist.halo import attach_p2p
@@ -1717,180 +1747,179 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
     def policy(spec, epochs):
         return CommPolicy.parse(spec, epochs, compressor="blockmask")
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_res_") as tmp:
-        tmp = Path(tmp)
-        # ---- R1: the out-of-core boot ----------------------------------
-        t = time.perf_counter()
-        store = st.write_graph_store(g, tmp / "store")
-        t_store = time.perf_counter() - t
-        t = time.perf_counter()
-        owner = st.stream_partition(store, eng.pg.q, "metis-like",
-                                    seed=seed)
-        t_part = time.perf_counter() - t
-        check(np.array_equal(owner, eng.pg.owner),
-              "stream_partition's owner vector differs from the setup "
-              "phase's partition_graph")
-        t = time.perf_counter()
-        st.write_shards(store, owner, tmp / "shards")
-        t_write = time.perf_counter() - t
-        t = time.perf_counter()
-        shards = st.load_shards(tmp / "shards")
-        t_load = time.perf_counter() - t
-        t = time.perf_counter()
-        got = shards.device_arrays(dev)
-        sync()
-        t_h2d = time.perf_counter() - t
-        want = attach_p2p(eng.pg.device_arrays(dev), eng.pg, dev)
-        bad = [k for k in want if k not in got or got[k].dtype !=
-               want[k].dtype or not torch.equal(got[k], want[k])]
-        check(list(got) == list(want) and not bad,
-              f"shard arrays differ from the in-memory ones at {bad}")
-        del got, want
-        zero()
-        boot = train_gnn(str(tmp / "shards"),
-                         policy=policy(specs["varco"], TRAIN_EPOCHS),
-                         epochs=TRAIN_EPOCHS, **common)
-        r1_launches = read()
-        r1_err = float(np.abs(np.asarray(boot.history.loss) -
-                              np.asarray(varco_in_memory.loss)).max())
-        r1 = {"part": "R1", "store_write_s": t_store,
-              "stream_partition_s": t_part, "shard_write_s": t_write,
-              "shard_load_s": t_load, "device_arrays_s": t_h2d,
-              "store_bytes": _dir_bytes(tmp / "store"),
-              "shard_bytes": _dir_bytes(tmp / "shards"),
-              "owner_equal": True, "arrays_bitwise": True,
-              "loss": boot.history.loss,
-              "loss_vs_in_memory_max_abs": r1_err,
-              "step_ms": [x * 1e3 for x in boot.history.step_s],
-              "launches": r1_launches}
-        emit({"phase": "resilience", **r1})
-        check(r1_err <= RES_TOL, f"shard-backed losses differ from the "
-              f"in-memory run by {r1_err}")
-        for name in RES_KERNELS:
-            check(r1_launches[name] > 0, f"R1: {name} never launched")
+    tmp = Path(workdir)
+    # ---- R1: the out-of-core boot ----------------------------------
+    t = time.perf_counter()
+    store = st.write_graph_store(g, tmp / "store")
+    t_store = time.perf_counter() - t
+    t = time.perf_counter()
+    owner = st.stream_partition(store, eng.pg.q, "metis-like",
+                                seed=seed)
+    t_part = time.perf_counter() - t
+    check(np.array_equal(owner, eng.pg.owner),
+          "stream_partition's owner vector differs from the setup "
+          "phase's partition_graph")
+    t = time.perf_counter()
+    st.write_shards(store, owner, tmp / "shards")
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    shards = st.load_shards(tmp / "shards")
+    t_load = time.perf_counter() - t
+    t = time.perf_counter()
+    got = shards.device_arrays(dev)
+    sync()
+    t_h2d = time.perf_counter() - t
+    want = attach_p2p(eng.pg.device_arrays(dev), eng.pg, dev)
+    bad = [k for k in want if k not in got or got[k].dtype !=
+           want[k].dtype or not torch.equal(got[k], want[k])]
+    check(list(got) == list(want) and not bad,
+          f"shard arrays differ from the in-memory ones at {bad}")
+    del got, want
+    zero()
+    boot = train_gnn(str(tmp / "shards"),
+                     policy=policy(specs["varco"], TRAIN_EPOCHS),
+                     epochs=TRAIN_EPOCHS, **common)
+    r1_launches = read()
+    r1_err = float(np.abs(np.asarray(boot.history.loss) -
+                          np.asarray(varco_in_memory.loss)).max())
+    r1 = {"part": "R1", "store_write_s": t_store,
+          "stream_partition_s": t_part, "shard_write_s": t_write,
+          "shard_load_s": t_load, "device_arrays_s": t_h2d,
+          "store_bytes": _dir_bytes(tmp / "store"),
+          "shard_bytes": _dir_bytes(tmp / "shards"),
+          "owner_equal": True, "arrays_bitwise": True,
+          "loss": boot.history.loss,
+          "loss_vs_in_memory_max_abs": r1_err,
+          "step_ms": [x * 1e3 for x in boot.history.step_s],
+          "launches": r1_launches}
+    emit({"phase": "resilience", **r1})
+    check(r1_err <= RES_TOL, f"shard-backed losses differ from the "
+          f"in-memory run by {r1_err}")
+    for name in RES_KERNELS:
+        check(r1_launches[name] > 0, f"R1: {name} never launched")
 
-        # ---- R2: faults ------------------------------------------------
-        # at max_stale 2 this schedule leaves no pair DEAD within the 6
-        # epochs; the third run, at max_stale 1, trains through DEAD pairs
-        r2_runs = {name: (spec, RES_MAX_STALE)
-                   for name, spec in specs.items()}
-        r2_runs["varco_stale1"] = (specs["varco"], 1)
-        runs, r2_launches = {}, {}
-        for name, (spec, max_stale) in r2_runs.items():
-            zero()
-            runs[name] = train_gnn(
-                shards, policy=policy(spec, RES_EPOCHS), epochs=RES_EPOCHS,
-                faults=fl.FaultSchedule(**RES_SCHED),
-                fault_max_stale=max_stale, **common)
-            r2_launches[name] = read()
-        t = time.perf_counter()
-        sched, dstate = fl.FaultSchedule(**RES_SCHED), fl.init_degrade(4)
-        for ep in range(RES_EPOCHS):
-            crash = sched.crash_at_step(ep)
-            if crash is not None:
-                sched = sched.shrink(crash)
-                dstate = fl.migrate_degrade_state(dstate, crash)
-            serve, dstate = fl.degrade_plan(
-                dstate, sched.effective_drops(ep), ep,
-                max_stale=RES_MAX_STALE)
-            fl.serve_masks(serve)
-        t_ladder = time.perf_counter() - t
-        t = time.perf_counter()
-        shrunk = fl.shrink_shards(shards, 1)
-        t_shrink = time.perf_counter() - t
-        del shrunk
-        ident = _fault_identities(cfg, params, shards, dev, seed)
-        r2 = {"part": "R2", "ladder_s": t_ladder, "shrink_shards_s": t_shrink,
-              "identities": ident, "launches": r2_launches}
-        for name, res in runs.items():
-            h = res.history
-            r2[name] = {"loss": h.loss, "cached": h.cached_pairs,
-                        "dead": h.dead_pairs, "width": h.width,
-                        "step_ms": [x * 1e3 for x in h.step_s],
-                        "pairs": [len(p) for p in h.pair_transport_gf],
-                        "transport_gfloats": h.transport_gfloats,
-                        "q": res.meta.q}
-        emit({"phase": "resilience", **r2})
-        for name, res in runs.items():
-            h = res.history
-            check(bool(np.isfinite(h.loss).all()), f"R2 {name}: non-finite "
-                  f"loss {h.loss}")
-            check(res.meta.q == 3 and all(
-                len(p) == (16 if ep < 3 else 9)
-                for ep, p in zip(h.epoch, h.pair_transport_gf)),
-                f"R2 {name}: Q is not 3 from epoch 3 on")
-            for k in RES_KERNELS:
-                check(r2_launches[name][k] > 0, f"R2 {name}: {k} never "
-                      f"launched")
-        check(sum(runs["varco_stale1"].history.dead_pairs) > 0,
-              "R2: no pair reached DEAD at max_stale 1")
-        for k in QUANT_KERNELS:
-            check(r2_launches["auto_w8"][k] > 0,
-                  f"R2 auto_w8: {k} never launched")
-        check(abs(ident["cached_loss"] - ident["fresh_loss"]) <= RES_TOL,
-              f"R2: a CACHED pair changed the loss: {ident}")
-        check(ident["fresh_pair_bits"] > 0 and
-              ident["cached_pair_bits"] == 0.0,
-              f"R2: the CACHED pair was charged: {ident}")
-        check(ident["cached_rows_equal_cache"],
-              "R2: the CACHED pair's hop rows differ from the cache")
-        check(ident["all_dead_vs_none_max_abs"] <= RES_TOL and
-              ident["all_dead_transport_bits"] == 0.0,
-              f"R2: an all-DEAD forward differs from No-Comm: {ident}")
-
-        # ---- R3: checkpoint and resume ---------------------------------
-        ck = tmp / "ck"
-        kw = dict(policy=policy(specs["varco"], RES_EPOCHS),
-                  epochs=RES_EPOCHS, faults=fl.FaultSchedule(**RES_SCHED),
-                  fault_max_stale=RES_MAX_STALE, checkpoint_dir=str(ck),
-                  **common)
+    # ---- R2: faults ------------------------------------------------
+    # at max_stale 2 this schedule leaves no pair DEAD within the 6
+    # epochs; the third run, at max_stale 1, trains through DEAD pairs
+    r2_runs = {name: (spec, RES_MAX_STALE)
+               for name, spec in specs.items()}
+    r2_runs["varco_stale1"] = (specs["varco"], 1)
+    runs, r2_launches = {}, {}
+    for name, (spec, max_stale) in r2_runs.items():
         zero()
-        part = train_gnn(shards, stop_after=4, **kw)
-        ck_extra = ckpt.peek(ckpt.latest_checkpoint(str(ck)))
-        resumed = train_gnn(str(tmp / "shards"), resume=True, **kw)
-        r3_launches = read()
-        whole = runs["varco"].history.loss
-        r3_err = float(np.abs(np.asarray(resumed.history.loss) -
-                              np.asarray(whole[4:])).max())
-        meta = resumed.meta
-        gen = torch.Generator(device=dev).manual_seed(seed + 17)
-        fcache = tuple(torch.randn(c.shape, generator=gen, device=dev)
-                       for c in init_halo_cache(meta, cfg, dev))
-        opt = adamw(5e-3)
-        tree = {"params": resumed.params,
-                "opt": opt.init(resumed.params), "fcache": fcache}
-        path = str(tmp / "roundtrip.ckpt")
-        sync()
-        t = time.perf_counter()
-        ckpt.save(path, tree, extra={"q": meta.q})
-        t_save = time.perf_counter() - t
-        t = time.perf_counter()
-        back, _ = ckpt.restore(path, tree)
-        sync()
-        t_restore = time.perf_counter() - t
-        bitwise = all(a.device == b.device and a.dtype == b.dtype and
-                      torch.equal(a, b) for a, b in
-                      zip(tree_leaves(back), tree_leaves(tree)))
-        r3 = {"part": "R3", "stopped_at": len(part.history.loss),
-              "checkpoint_step": ck_extra["step"],
-              "checkpoint_alive": ck_extra["alive"],
-              "resumed_loss": resumed.history.loss,
-              "uninterrupted_loss": whole[4:],
-              "resume_vs_uninterrupted_max_abs": r3_err,
-              "train_state_bytes": os.path.getsize(
-                  ckpt.latest_checkpoint(str(ck))),
-              "roundtrip_bytes": os.path.getsize(path),
-              "save_ms": t_save * 1e3, "restore_ms": t_restore * 1e3,
-              "roundtrip_bitwise": bitwise, "launches": r3_launches}
-        emit({"phase": "resilience", **r3})
-        check(ck_extra["step"] == 4 and ck_extra["alive"] == [0, 2, 3],
-              f"R3: the checkpoint is not the shrunk run's after epoch 4: "
-              f"{ck_extra}")
-        check(r3_err <= RES_TOL, f"R3: resumed losses differ from the "
-              f"uninterrupted run by {r3_err}")
-        check(bitwise, "R3: save -> restore of card tensors is not bitwise")
+        runs[name] = train_gnn(
+            shards, policy=policy(spec, RES_EPOCHS), epochs=RES_EPOCHS,
+            faults=fl.FaultSchedule(**RES_SCHED),
+            fault_max_stale=max_stale, **common)
+        r2_launches[name] = read()
+    t = time.perf_counter()
+    sched, dstate = fl.FaultSchedule(**RES_SCHED), fl.init_degrade(4)
+    for ep in range(RES_EPOCHS):
+        crash = sched.crash_at_step(ep)
+        if crash is not None:
+            sched = sched.shrink(crash)
+            dstate = fl.migrate_degrade_state(dstate, crash)
+        serve, dstate = fl.degrade_plan(
+            dstate, sched.effective_drops(ep), ep,
+            max_stale=RES_MAX_STALE)
+        fl.serve_masks(serve)
+    t_ladder = time.perf_counter() - t
+    t = time.perf_counter()
+    shrunk = fl.shrink_shards(shards, 1)
+    t_shrink = time.perf_counter() - t
+    del shrunk
+    ident = _fault_identities(cfg, params, shards, dev, seed)
+    r2 = {"part": "R2", "ladder_s": t_ladder, "shrink_shards_s": t_shrink,
+          "identities": ident, "launches": r2_launches}
+    for name, res in runs.items():
+        h = res.history
+        r2[name] = {"loss": h.loss, "cached": h.cached_pairs,
+                    "dead": h.dead_pairs, "width": h.width,
+                    "step_ms": [x * 1e3 for x in h.step_s],
+                    "pairs": [len(p) for p in h.pair_transport_gf],
+                    "transport_gfloats": h.transport_gfloats,
+                    "q": res.meta.q}
+    emit({"phase": "resilience", **r2})
+    for name, res in runs.items():
+        h = res.history
+        check(bool(np.isfinite(h.loss).all()), f"R2 {name}: non-finite "
+              f"loss {h.loss}")
+        check(res.meta.q == 3 and all(
+            len(p) == (16 if ep < 3 else 9)
+            for ep, p in zip(h.epoch, h.pair_transport_gf)),
+            f"R2 {name}: Q is not 3 from epoch 3 on")
         for k in RES_KERNELS:
-            check(r3_launches[k] > 0, f"R3: {k} never launched")
+            check(r2_launches[name][k] > 0, f"R2 {name}: {k} never "
+                  f"launched")
+    check(sum(runs["varco_stale1"].history.dead_pairs) > 0,
+          "R2: no pair reached DEAD at max_stale 1")
+    for k in QUANT_KERNELS:
+        check(r2_launches["auto_w8"][k] > 0,
+              f"R2 auto_w8: {k} never launched")
+    check(abs(ident["cached_loss"] - ident["fresh_loss"]) <= RES_TOL,
+          f"R2: a CACHED pair changed the loss: {ident}")
+    check(ident["fresh_pair_bits"] > 0 and
+          ident["cached_pair_bits"] == 0.0,
+          f"R2: the CACHED pair was charged: {ident}")
+    check(ident["cached_rows_equal_cache"],
+          "R2: the CACHED pair's hop rows differ from the cache")
+    check(ident["all_dead_vs_none_max_abs"] <= RES_TOL and
+          ident["all_dead_transport_bits"] == 0.0,
+          f"R2: an all-DEAD forward differs from No-Comm: {ident}")
+
+    # ---- R3: checkpoint and resume ---------------------------------
+    ck = tmp / "ck"
+    kw = dict(policy=policy(specs["varco"], RES_EPOCHS),
+              epochs=RES_EPOCHS, faults=fl.FaultSchedule(**RES_SCHED),
+              fault_max_stale=RES_MAX_STALE, checkpoint_dir=str(ck),
+              **common)
+    zero()
+    part = train_gnn(shards, stop_after=4, **kw)
+    ck_extra = ckpt.peek(ckpt.latest_checkpoint(str(ck)))
+    resumed = train_gnn(str(tmp / "shards"), resume=True, **kw)
+    r3_launches = read()
+    whole = runs["varco"].history.loss
+    r3_err = float(np.abs(np.asarray(resumed.history.loss) -
+                          np.asarray(whole[4:])).max())
+    meta = resumed.meta
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    fcache = tuple(torch.randn(c.shape, generator=gen, device=dev)
+                   for c in init_halo_cache(meta, cfg, dev))
+    opt = adamw(5e-3)
+    tree = {"params": resumed.params,
+            "opt": opt.init(resumed.params), "fcache": fcache}
+    path = str(tmp / "roundtrip.ckpt")
+    sync()
+    t = time.perf_counter()
+    ckpt.save(path, tree, extra={"q": meta.q})
+    t_save = time.perf_counter() - t
+    t = time.perf_counter()
+    back, _ = ckpt.restore(path, tree)
+    sync()
+    t_restore = time.perf_counter() - t
+    bitwise = all(a.device == b.device and a.dtype == b.dtype and
+                  torch.equal(a, b) for a, b in
+                  zip(tree_leaves(back), tree_leaves(tree)))
+    r3 = {"part": "R3", "stopped_at": len(part.history.loss),
+          "checkpoint_step": ck_extra["step"],
+          "checkpoint_alive": ck_extra["alive"],
+          "resumed_loss": resumed.history.loss,
+          "uninterrupted_loss": whole[4:],
+          "resume_vs_uninterrupted_max_abs": r3_err,
+          "train_state_bytes": os.path.getsize(
+              ckpt.latest_checkpoint(str(ck))),
+          "roundtrip_bytes": os.path.getsize(path),
+          "save_ms": t_save * 1e3, "restore_ms": t_restore * 1e3,
+          "roundtrip_bitwise": bitwise, "launches": r3_launches}
+    emit({"phase": "resilience", **r3})
+    check(ck_extra["step"] == 4 and ck_extra["alive"] == [0, 2, 3],
+          f"R3: the checkpoint is not the shrunk run's after epoch 4: "
+          f"{ck_extra}")
+    check(r3_err <= RES_TOL, f"R3: resumed losses differ from the "
+          f"uninterrupted run by {r3_err}")
+    check(bitwise, "R3: save -> restore of card tensors is not bitwise")
+    for k in RES_KERNELS:
+        check(r3_launches[k] > 0, f"R3: {k} never launched")
     summary = {"phase": "resilience", "wall_s": time.perf_counter() -
                t_phase, "peak_mem_gb": torch.cuda.max_memory_allocated() /
                1e9 if on_card else None,
@@ -1904,7 +1933,329 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# phase 6d: streaming edge updates, and serving with stochastic rounding
+# phase 6d: the worker backend, one process per worker
+# ---------------------------------------------------------------------------
+
+DIST_Q = 4
+DIST_EPOCHS = 3
+#: name -> (policy spec, compressor, wire)
+DIST_RUNS = {"p2p_full": ("full", "blockmask", "p2p"),
+             "p2p_varco": ("varco:linear:5", "blockmask", "p2p"),
+             "dense_varco": ("varco:linear:5", "randmask", "dense"),
+             "packed_fixed4": ("fixed:4", "blockmask", "packed")}
+#: the kernels each run must launch (summed over the workers)
+DIST_KERNELS = {"p2p_full": ("ell_spmm",),
+                "p2p_varco": ("ell_spmm", "varco_pack", "varco_unpack"),
+                "dense_varco": ("random_mask",),
+                "packed_fixed4": ("varco_pack", "varco_unpack")}
+DIST_LAUNCHES = ("ell_spmm", "varco_pack", "varco_unpack", "random_mask")
+DIST_TOL = 1e-4
+DIST_ACC_TOL = 1e-3
+#: seconds any wait on the worker group may take before the run fails
+DIST_TIMEOUT = 300.0
+
+
+def _signature(args) -> tuple:
+    """A kernel call's signature: each tensor's shape, strides, dtype and
+    16-byte alignment, and every other argument as it is."""
+    return tuple((tuple(a.shape), tuple(a.stride()), str(a.dtype),
+                  a.data_ptr() % 16) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def _plain_err(kernel: str, out, ref) -> float:
+    """Max abs error of a kernel's output against its plain version's
+    (``inf`` on a shape or dtype mismatch; the mask and its kept counts,
+    and pack/unpack, must be bitwise: 0.0 or ``inf``)."""
+    if kernel == "random_mask":
+        (out, counts), (ref, ref_counts) = out, ref
+        same = _bitwise(out, ref) and (counts is None) == (ref_counts is None)
+        if counts is not None:
+            same &= torch.equal(counts, ref_counts)
+        return 0.0 if same else float("inf")
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        return float("inf")
+    if kernel == "ell_spmm":
+        return float((out - ref).abs().max()) if out.numel() else 0.0
+    return 0.0 if torch.equal(out, ref) else float("inf")
+
+
+@contextlib.contextmanager
+def _kernel_calls(seen: dict, compare: bool):
+    """Within the block, every call of a ``DIST_LAUNCHES`` kernel through
+    ``repro_torch.kernels.ops`` (the route of every call on the worker
+    backend's path) counts in ``seen[kernel][sig] = [calls, err]`` under
+    its :func:`_signature`; with ``compare`` each call also runs the plain
+    version on the same arguments, and ``err`` is the largest
+    :func:`_plain_err` (``None`` without).  The kernel's own call is the
+    one the path makes: its launch count moves as without the block."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_spmm import ell_spmm_plain
+    from repro_torch.kernels.randmask import random_mask_plain
+    from repro_torch.kernels.varco_pack import (varco_pack_plain,
+                                                varco_unpack_plain)
+
+    routes = {"ell_spmm": ("ell_spmm", ell_spmm_plain),
+              "varco_pack": ("varco_pack", varco_pack_plain),
+              "varco_unpack": ("varco_unpack", varco_unpack_plain),
+              "random_mask": ("random_mask_kernel", random_mask_plain)}
+    saved = {attr: getattr(ops, attr) for attr, _ in routes.values()}
+
+    def wrap(name, kernel, plain):
+        def call(*args):
+            out = kernel(*args)
+            rec = seen[name].setdefault(_signature(args), [0, None])
+            rec[0] += 1
+            if compare:
+                with torch.no_grad():
+                    err = _plain_err(name, out, plain(*args))
+                rec[1] = max(rec[1] or 0.0, err)
+            return out
+        return call
+
+    for name, (attr, plain) in routes.items():
+        seen.setdefault(name, {})
+        setattr(ops, attr, wrap(name, saved[attr], plain))
+    try:
+        yield seen
+    finally:
+        for attr, fn in saved.items():
+            setattr(ops, attr, fn)
+
+
+def _dist_halos(mesh, shard_dir, params, seed: int) -> dict:
+    """At rate 2 over a 256-wide exchange: this worker's p2p compact hop
+    buffer and packed halo against its slice of the emulated backend's
+    (every partition stacked on the same card), bitwise."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.graph.stream import load_shards
+
+    dev, r = mesh.device, mesh.rank
+    mine = load_shards(shard_dir, parts=[r])
+    graph_me = mine.device_arrays(dev)
+    graph_all = load_shards(shard_dir).device_arrays(dev)
+    pol = CommPolicy.parse("fixed:2", 1, compressor="blockmask")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    x = torch.randn(graph_all["features"].shape[:2] + (256,), generator=gen,
+                    device=dev)
+    key = prng.fold_in(prng.key(seed + 3), 256)
+    out = {}
+    for wire in ("p2p", "packed"):
+        meta = gp.DistMeta.build(mine, params, wire=wire)
+        want = gp.first_halo(graph_all, meta, pol, key, x)
+        got = gp.first_halo(graph_me, meta, pol, key, x[r:r + 1], mesh)
+        out[wire] = bool(torch.equal(got, want[r] if wire == "p2p"
+                                     else want))
+    return out
+
+
+def _dist_worker(mesh, shard_dir, hidden, layers, params, seed):
+    """One worker of the dist phase: the runs of ``DIST_RUNS`` and the
+    grad-sync identity's one ``sgd(0.1)`` step through ``train_gnn(
+    use_shard_map=True)`` from the shard directory (each worker loads its
+    own partition), launch counts set to 0 before each run and read
+    after, and the rate-2 halo identities.  Returns every worker's
+    records (gathered to rank 0) and rank 0's identity run."""
+    import torch.distributed as dist
+
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.train.optim import sgd
+    from repro_torch.train.trainer import train_gnn
+
+    on_card = mesh.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = launch_counters()
+    common = dict(hidden=hidden, layers=layers, seed=seed, eval_every=1,
+                  device=mesh.device, params=params, use_shard_map=True)
+
+    def run(spec, comp, wire):
+        return train_gnn(shard_dir, policy=CommPolicy.parse(
+            spec, DIST_EPOCHS, compressor=comp), epochs=DIST_EPOCHS,
+            wire=wire, **common)
+
+    runs = {}
+    for name, settings in DIST_RUNS.items():
+        # the kernels held against their plain versions at this worker's
+        # shapes, in a run of its own: the plain versions' time and memory
+        # stay out of the measured run below
+        checked = {}
+        with _kernel_calls(checked, compare=True):
+            run(*settings)
+        for fn in counters.values():
+            fn.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        measured = {}
+        with _kernel_calls(measured, compare=False):
+            res = run(*settings)
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+        runs[name] = {"history": dataclasses.asdict(res.history),
+                      "launches": {k: counters[k].launches
+                                   for k in DIST_LAUNCHES},
+                      "peak_gb": torch.cuda.max_memory_allocated(
+                          mesh.device) / 1e9 if on_card else None,
+                      "checked": {k: [{"args": [list(a[0]) if isinstance(
+                                           a, tuple) else a for a in sig],
+                                       "calls": n, "max_abs_err": err}
+                                      for sig, (n, err) in v.items()]
+                                  for k, v in checked.items()},
+                      "unchecked": {k: len(set(v) - set(checked[k]))
+                                    for k, v in measured.items()}}
+    ident = train_gnn(shard_dir, policy=CommPolicy.parse("full", 1),
+                      epochs=1, optimizer=sgd(0.1), wire="p2p", **common)
+    halos = _dist_halos(mesh, shard_dir, ident.params, seed)
+    every = [None] * mesh.q
+    dist.all_gather_object(every, {"runs": runs, "halos": halos,
+                                   "device": str(mesh.device)})
+    return {"workers": every, "ident": ident if mesh.rank == 0 else None}
+
+
+def _median_ms(step_s) -> float:
+    return float(np.median(np.asarray(step_s[1:] or step_s) * 1e3))
+
+
+def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
+    """``train_gnn(use_shard_map=True)`` at full width over Q = 4 worker
+    processes booted from the resilience phase's shard directory, against
+    the emulated backend on the same card.  Returns the launches summed
+    over the workers and runs, and each kernel's largest error against
+    its plain version at the workers' shapes."""
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist.gnn_parallel import spawn_workers
+    from repro_torch.nn.gnn import params_to
+    from repro_torch.train.trainer import train_gnn
+
+    on_card = eng.device.type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    backend = "nccl" if cards >= DIST_Q else "gloo"
+    print(f"dist backend: {backend}, {DIST_Q} workers on {cards} card(s)" +
+          (", every transfer staged through pinned host memory"
+           if backend == "gloo" and on_card else ""), flush=True)
+    if backend == "gloo":
+        print(f"NCCL unverified: {cards} card{'s' * (cards != 1)}",
+              flush=True)
+    common = dict(hidden=cfg.hidden, layers=cfg.layers, seed=seed,
+                  eval_every=1, device=eng.device, params=params)
+    emulated = {}
+    for name, (spec, comp, wire) in DIST_RUNS.items():
+        emulated[name] = train_gnn(shard_dir, policy=CommPolicy.parse(
+            spec, DIST_EPOCHS, compressor=comp), epochs=DIST_EPOCHS,
+            wire=wire, **common).history
+    t = time.perf_counter()
+    out = spawn_workers(_dist_worker, DIST_Q, str(shard_dir), cfg.hidden,
+                        cfg.layers, params_to(params, "cpu"), seed,
+                        device=eng.device.type, backend=backend,
+                        timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t
+    workers = out["workers"]
+    ident = _grad_sync_identity(out["ident"], g, cfg, params)
+    launches = {k: 0 for k in DIST_LAUNCHES}
+    runs = {}
+    for name in DIST_RUNS:
+        h = workers[0]["runs"][name]["history"]
+        e = emulated[name]
+        per = [w["runs"][name] for w in workers]
+        summed = {k: sum(p["launches"][k] for p in per)
+                  for k in DIST_LAUNCHES}
+        for k, n in summed.items():
+            launches[k] += n
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                  zip(h["halo_gfloats"] + h["transport_gfloats"],
+                      e.halo_gfloats + e.transport_gfloats))
+        runs[name] = {
+            "loss": h["loss"], "emulated_loss": e.loss,
+            "loss_max_abs": float(np.abs(np.asarray(h["loss"]) -
+                                         np.asarray(e.loss)).max()),
+            "ledger_max_rel": rel,
+            "acc_max_abs": max(
+                abs(a - b) for k in ("train_acc", "val_acc", "test_acc")
+                for a, b in zip(h[k], getattr(e, k))),
+            "step_ms_median": _median_ms(h["step_s"]),
+            "emulated_step_ms_median": _median_ms(e.step_s),
+            "step_ms": [x * 1e3 for x in h["step_s"]],
+            "sent_bytes_per_step": [w["runs"][name]["history"]["sent_bytes"]
+                                    for w in workers],
+            "staged_bytes_per_step": [
+                w["runs"][name]["history"]["staged_bytes"] for w in workers],
+            # host ms inside the transport: staging, collectives, waits
+            "comm_ms_per_step": [[x * 1e3 for x in w["runs"][name][
+                "history"]["comm_s"]] for w in workers],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "launches": summed,
+            "launches_per_worker": [p["launches"] for p in per],
+            # the per-worker kernel calls held against the plain versions
+            "kernel_checks": {k: {"signatures": sum(
+                len(p["checked"][k]) for p in per), "calls": sum(
+                c["calls"] for p in per for c in p["checked"][k]),
+                "max_abs_err": max(
+                (c["max_abs_err"] for p in per for c in p["checked"][k]),
+                default=None)} for k in DIST_LAUNCHES},
+            "checked": [(w, k, c) for w, p in enumerate(per)
+                        for k in DIST_LAUNCHES for c in p["checked"][k]],
+            "unchecked": [(w, k, p["unchecked"][k]) for w, p in
+                          enumerate(per) for k in DIST_LAUNCHES]}
+        emit({"phase": "dist_run", "run": name, "backend": backend,
+              **{k: v for k, v in runs[name].items()
+                 if k not in ("checked", "unchecked")}})
+    summary = {"phase": "dist", "backend": backend, "workers": DIST_Q,
+               "cards": cards, "devices": [w["device"] for w in workers],
+               "epochs": DIST_EPOCHS, "wall_s": wall,
+               "halo_identity": [w["halos"] for w in workers],
+               "grad_sync_identity": ident, "launches": launches,
+               "step_ms_median": {k: r["step_ms_median"]
+                                  for k, r in runs.items()},
+               "emulated_step_ms_median": {
+                   k: r["emulated_step_ms_median"] for k, r in runs.items()}}
+    emit(summary)
+    for name, r in runs.items():
+        for w, k, n in r["unchecked"]:
+            check(n == 0, f"dist {name}: worker {w} launched {k} at {n} "
+                  f"signature(s) no check held against the plain version")
+        for w, per_w in enumerate(r["launches_per_worker"]):
+            for k, n in per_w.items():
+                held = sum(c["calls"] for ww, kk, c in r["checked"]
+                           if (ww, kk) == (w, k))
+                check(held == n, f"dist {name}: worker {w} held {held} "
+                      f"{k} calls against the plain version, its measured "
+                      f"run launched {n}")
+        for w, k, case in r["checked"]:
+            tol = ELL_TOL if k == "ell_spmm" else 0.0
+            check(case["max_abs_err"] <= tol, f"dist {name}: worker {w}'s "
+                  f"{k} at {case['args']} differs from the plain version "
+                  f"by {case['max_abs_err']} > {tol}")
+        check(bool(np.isfinite(r["loss"]).all()), f"dist {name}: non-finite "
+              f"loss {r['loss']}")
+        check(r["loss_max_abs"] <= DIST_TOL, f"dist {name}: losses differ "
+              f"from the emulated backend's by {r['loss_max_abs']}")
+        check(r["ledger_max_rel"] <= 1e-6, f"dist {name}: ledger differs "
+              f"from the emulated backend's (rel {r['ledger_max_rel']})")
+        check(r["acc_max_abs"] <= DIST_ACC_TOL, f"dist {name}: accuracies "
+              f"differ from the emulated backend's by {r['acc_max_abs']}")
+        check(all(min(b) > 0 for b in r["sent_bytes_per_step"]),
+              f"dist {name}: a worker shipped nothing")
+        for k in DIST_KERNELS[name]:
+            check(r["launches"][k] > 0, f"dist {name}: {k} never launched "
+                  f"by any worker")
+    check(runs["dense_varco"]["launches"]["random_mask"] > 0 and
+          runs["p2p_full"]["launches"]["varco_pack"] == 0,
+          "dist: the wires launched the wrong kernels")
+    for r, w in enumerate(workers):
+        check(w["halos"] == {"p2p": True, "packed": True},
+              f"dist: worker {r}'s rate-2 halo differs from the emulated "
+              f"backend's slice: {w['halos']}")
+    check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
+          f"dist: grad-sync identity broken: {ident}")
+    worst = {k: max(r["kernel_checks"][k]["max_abs_err"] or 0.0
+                    for r in runs.values()) for k in DIST_LAUNCHES}
+    return launches, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: streaming edge updates, and serving with stochastic rounding
 # ---------------------------------------------------------------------------
 
 #: inserts and deletes (of existing edges) in the update batch
@@ -2965,6 +3316,12 @@ def main(argv=None) -> int:
                          "lm_train phases (a partial run: no summary or "
                          "result line)")
     args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        return run(args, work)
+
+
+def run(args, work) -> int:
+    """Every phase in order (files under ``work``); 0 on success."""
     try:
         card = device_phase()
         build_phase()
@@ -2983,8 +3340,14 @@ def main(argv=None) -> int:
         launches["varco_pack_quant"] = serving["varco_pack_quant"]
         for name, n in auto_phase(eng, params, cfg).items():
             launches[name] += n          # train_gnn's + the auto phase's
-        resilience_phase(g, cfg, params, eng, runs["varco"])
+        resilience_phase(g, cfg, params, eng, runs["varco"], work)
         del runs
+        dist_launches, dist_errs = dist_phase(g, cfg, params, eng,
+                                              Path(work) / "shards")
+        for name, n in dist_launches.items():
+            launches[name] += n          # the worker processes' launches
+            main_recs[name]["max_abs_err"] = max(
+                main_recs[name]["max_abs_err"], dist_errs[name])
         for name, n in update_phase(g, cfg, params, eng).items():
             launches[name] += n          # stochastic serving's launches
         del eng

@@ -1,14 +1,13 @@
-"""Compressed gradient collectives over Q emulated workers.
+"""Compressed collectives: the gradient half over Q emulated workers, the
+activation half over a group of Q processes.
 
-Counterpart of the gradient half of ``repro/core/collectives.py``: each
+Counterpart of ``repro/core/collectives.py``.  The gradient half: each
 worker compresses its local contribution with a Definition-1 compressor
 under its own key stream (``fold_in(key, worker)``, shared a priori, so
 no index travels), the compressed contributions are summed (all-reduce)
 or exchanged (all-to-all), and the bits charged are the ring's traffic
-of the compressed payload.
-
-The Q workers run one after another on one device, so a collective takes
-every worker's contribution:
+of the compressed payload.  Its Q workers run one after another on one
+device, so a collective takes every worker's contribution:
 
 * :func:`compressed_psum` / :func:`compressed_pmean` — an iterable of the
   Q workers' trees, consumed one at a time: each tree is compressed leaf
@@ -22,20 +21,47 @@ every worker's contribution:
 
 Every sum runs in worker order, and the bits in float32 in the JAX
 package's order (leaf order within a worker, then over workers, then the
-ring factor).  The all-gather and neighbour-exchange halves of the JAX
-module ship activations between workers of a real mesh; they wait for the
-multi-GPU backend.
+ring factor).
+
+The activation half ships halo activations between the processes of a
+:class:`WorkerMesh` (one process per worker over ``torch.distributed``;
+the JAX package's ``shard_map`` axis), each call made by every worker of
+the group with its own local block:
+
+* :func:`compressed_all_gather` — the dense wire: compress, all-gather;
+* :func:`packed_all_gather` — the packed wire: ``wire_pack`` the kept
+  lane-blocks, all-gather the ``[B, K·128]`` payload, ``wire_unpack``
+  every sender's block;
+* :func:`neighbor_exchange_start` / :func:`neighbor_exchange_finish`
+  (and :func:`neighbor_exchange`, both at once) — the p2p ring: the
+  ``Q - 1`` hops go out in one ``batch_isend_irecv`` at ``start`` and are
+  waited on at ``finish``, so the caller's local work overlaps them.
+
+Gradients cross the group as in JAX: an all-gather's cotangent is
+all-reduced and each worker keeps its own slice (``psum(g)[axis_index]``,
+:func:`_all_gather_grad_carrier`), a hop's cotangent rides the inverse
+ring (:func:`_ppermute_grad_carrier`).  Both carriers are zero-valued
+forwards added to the detached received values, so autograd routes each
+cotangent back into the sender's compressor or pack.  Only the
+scalar-rate wires are here: the per-pair rate and width maps, residuals,
+stochastic rounding and byte storage raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import time
 from collections.abc import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.compression import Compressor, _nbits
+from repro_torch.kernels.ops import wire_pack, wire_unpack
+from repro_torch.kernels.varco_pack import LANE, worker_block_maps
 from repro_torch.train.optim import tree_leaves, tree_map
 
 _F32 = torch.float32
@@ -155,3 +181,356 @@ def uncompressed_bits(x) -> torch.Tensor:
     baseline), float32: the count is summed exactly, then rounded."""
     total = sum(leaf.numel() * _nbits(leaf.dtype) for leaf in tree_leaves(x))
     return torch.tensor(float(np.float32(total)), dtype=_F32)
+
+
+# ---------------------------------------------------------------------------
+# The activation half: one process per worker
+# ---------------------------------------------------------------------------
+
+#: where the wires these collectives do not carry yet are queued
+NEXT_SLICE = ("ROADMAP.md queue 1 item 4: the closed loop on the worker "
+              "group")
+
+
+@dataclasses.dataclass
+class WorkerMesh:
+    """This process's place in the default process group of ``q`` worker
+    processes: its ``rank``, its ``device`` and the group's
+    ``torch.distributed`` ``backend``, built by
+    ``repro_torch.dist.gnn_parallel.make_worker_mesh``.
+
+    Its methods are the transport under the collectives.  Under ``gloo``
+    with a CUDA device (``staged``) every send, receive and reduction goes
+    through pinned host buffers, since gloo takes no CUDA pointers for
+    point-to-point operations.  ``sent_bytes`` is computed from the
+    payload sizes, not read off the wire: an all-gather counts its block
+    to each of ``q - 1`` peers, an all-reduce ``2(q-1)/q`` of the buffer,
+    a ring's share whatever algorithm the backend picks.  ``staged_bytes``
+    counts what was copied between the card and the host for them, and
+    ``comm_s`` the host seconds spent inside the transport (staging, the
+    collectives, the waits on posted hops; not the time hops spend in
+    flight while the caller computes)."""
+
+    q: int
+    rank: int
+    device: torch.device
+    backend: str
+    sent_bytes: int = 0
+    staged_bytes: int = 0
+    comm_s: float = 0.0
+
+    @contextlib.contextmanager
+    def _timed(self):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.comm_s += time.perf_counter() - t
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the transport sends it: contiguous, and copied to
+        pinned host memory when staged."""
+        t = t.detach()
+        if not self.staged:
+            return t.contiguous()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)                            # waits for the producer
+        self.staged_bytes += h.numel() * h.element_size()
+        return h
+
+    def _empty(self, shape, dtype) -> torch.Tensor:
+        if self.staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _in(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return h
+        self.staged_bytes += h.numel() * h.element_size()
+        return h.to(self.device, non_blocking=True)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every worker's ``t`` (a new tensor)."""
+        with self._timed():
+            h = self._out(t)
+            if not self.staged:
+                h = h.clone()                 # reduced in place
+            dist.all_reduce(h)
+            self.sent_bytes += (2 * (self.q - 1) * h.numel() *
+                                h.element_size()) // self.q
+            return self._in(h)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[q, *t.shape]``: every worker's ``t`` in rank order."""
+        with self._timed():
+            h = self._out(t)
+            out = self._empty((self.q, *h.shape), h.dtype)
+            dist.all_gather(list(out.unbind(0)), h)
+            self.sent_bytes += (self.q - 1) * h.numel() * h.element_size()
+            return self._in(out)
+
+    def ring_start(self, bufs: torch.Tensor, offsets) -> "RingTransfer":
+        """Post one batch of hops: ``bufs[i]`` goes to worker ``(rank +
+        offsets[i]) mod q`` while slot ``i`` of the returned transfer
+        receives worker ``(rank - offsets[i]) mod q``'s ``bufs[i]``."""
+        with self._timed():
+            send = self._out(bufs)
+            recv = self._empty(send.shape, send.dtype)
+            ops = []
+            for i, d in enumerate(offsets):
+                ops.append(dist.P2POp(dist.isend, send[i],
+                                      (self.rank + d) % self.q, tag=i))
+                ops.append(dist.P2POp(dist.irecv, recv[i],
+                                      (self.rank - d) % self.q, tag=i))
+            self.sent_bytes += send.numel() * send.element_size()
+            return RingTransfer(dist.batch_isend_irecv(ops), send, recv)
+
+    def ring_wait(self, transfer: "RingTransfer") -> torch.Tensor:
+        """The received hops of a posted batch, on this worker's
+        device."""
+        with self._timed():
+            for work in transfer.works:
+                work.wait()
+            return self._in(transfer.recv)
+
+
+@dataclasses.dataclass
+class RingTransfer:
+    """A posted batch of hops: the work handles, and the send and receive
+    buffers they use (held until the batch is waited on)."""
+
+    works: list
+    send: torch.Tensor
+    recv: torch.Tensor
+
+
+class _PpermuteGradCarrier(torch.autograd.Function):
+    """Zero forward; backward: each hop's cotangent rides the inverse
+    ring back to its sender."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, offsets):
+        ctx.mesh, ctx.offsets = mesh, offsets
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        back = mesh.ring_start(g, tuple(-d for d in ctx.offsets))
+        return mesh.ring_wait(back), None, None
+
+
+def _ppermute_grad_carrier(x: torch.Tensor, mesh: WorkerMesh,
+                           offsets) -> torch.Tensor:
+    """Zero-valued forward of ``x``'s shape whose VJP is the inverse-ring
+    hop: ``x [D, ...]`` stacks the hops this worker sent, hop ``i`` to
+    worker ``rank + offsets[i]``.  The receiver's value is ``received.
+    detach() + carrier(sent)``, so each hop's cotangent reaches the
+    sender's rows (``ppermute``'s transpose)."""
+    return _PpermuteGradCarrier.apply(x, mesh, tuple(offsets))
+
+
+class _AllGatherGradCarrier(torch.autograd.Function):
+    """Zero ``[Q, ...]`` forward; backward: the all-gather's transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.new_zeros((mesh.q, *x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g)[ctx.mesh.rank], None
+
+
+def _all_gather_grad_carrier(x: torch.Tensor,
+                             mesh: WorkerMesh) -> torch.Tensor:
+    """Zero-valued ``[Q, *x.shape]`` forward whose VJP all-reduces the
+    ``[Q, ...]`` cotangent and keeps this worker's slice (JAX's
+    ``psum(g)[axis_index]``)."""
+    return _AllGatherGradCarrier.apply(x, mesh)
+
+
+def _gather(x: torch.Tensor, mesh: WorkerMesh) -> torch.Tensor:
+    """Differentiable all-gather: ``[Q, *x.shape]``."""
+    out = mesh.all_gather(x)
+    return out + _all_gather_grad_carrier(x, mesh) if x.requires_grad \
+        else out
+
+
+def _scalar_rate_only(op: str, rounding: str = "rint", store_w: int = 0,
+                      **channels) -> None:
+    named = [k for k, v in channels.items() if v is not None]
+    if store_w:
+        named.append("store_w")
+    if rounding != "rint":
+        named.append(f"rounding={rounding!r}")
+    if named:
+        raise NotImplementedError(
+            f"{op}: {', '.join(named)} not ported to the worker group; "
+            f"only the scalar-rate wires are ({NEXT_SLICE})")
+
+
+def compressed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *,
+                          compressor: Compressor, rate, key,
+                          group_bits: bool = True):
+    """All-gather of compressed activations (the dense halo wire).
+
+    Each worker compresses its local block ``x`` under ``fold_in(key,
+    rank)``, then the blocks are gathered: ``[Q, *x.shape]`` in rank
+    order.  Returns ``(gathered, wire_bits)``, the bits the sum of every
+    worker's payload bits × ``(Q - 1)`` peers (float32, the same on every
+    worker).  ``group_bits=False`` returns ``None`` for the bits and skips
+    their all-reduce: a caller whose ledger is computed on the host saves
+    a round trip of the group (under XLA the unused psum is dropped)."""
+    x_tilde, bits = compressor(_per_device_key(key, mesh.rank), x, rate)
+    gathered = _gather(x_tilde, mesh)
+    if not group_bits:
+        return gathered, None
+    return gathered, mesh.all_reduce(bits.to(_F32).reshape(1))[0] * \
+        float(mesh.q - 1)
+
+
+def _kept_maps(key, q: int, f: int, n_keep: int, device):
+    """Every worker's ``(kept [Q, K], inv [Q, F/128])`` on ``device``."""
+    kept, inv = worker_block_maps(key, q, f // LANE, n_keep)
+    return (torch.as_tensor(kept, device=device),
+            torch.as_tensor(inv, device=device))
+
+
+def _own_maps(kept: torch.Tensor, inv: torch.Tensor, rank: int):
+    """Worker ``rank``'s rows of the maps, each in its own allocation (the
+    kernels take 16-byte aligned index vectors; a row of a ``[Q, K]``
+    table starts at ``4·K·rank`` bytes)."""
+    return kept[rank].clone(), inv[rank].clone()
+
+
+def packed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *, key,
+                      rate: float | None = None, n_keep: int | None = None,
+                      pair_k=None, pair_w=None, rounding: str = "rint",
+                      store_w: int = 0, wire_out: list | None = None):
+    """All-gather of packed boundary activations (the packed wire).
+
+    Worker ``rank`` packs its ``[B, F]`` block to the kept lane-blocks of
+    ``fold_in(key, rank)`` (``wire_pack``), the ``[B, K·128]`` payloads
+    are gathered, and every sender's payload is unpacked with its inverse
+    map re-derived from the shared ``key`` (``wire_unpack``, zero fill),
+    so no index travels and the halo equals the dense ``blockmask`` round
+    trip bitwise.  ``K = n_keep``, or ``max(floor((F/128)/rate), 1)``
+    from a static ``rate``.  Returns ``(gathered [Q, B, F],
+    collective_bits)``: every worker's payload, padding rows included,
+    crossing to ``Q - 1`` peers."""
+    _scalar_rate_only("packed_all_gather", rounding, store_w, pair_k=pair_k,
+                      pair_w=pair_w, wire_out=wire_out)
+    f = x.shape[-1]
+    if f % LANE:
+        raise ValueError(f"packed wire needs F % {LANE} == 0, got F={f}")
+    if n_keep is None:
+        if rate is None:
+            raise ValueError("pass n_keep or a static rate")
+        n_keep = max(int(f // LANE / max(float(rate), 1.0)), 1)
+    q, me = mesh.q, mesh.rank
+    kept, inv = _kept_maps(key, q, f, n_keep, x.device)
+    packed = wire_pack(x, *_own_maps(kept, inv, me))         # [B, K·128]
+    halo = wire_unpack(_gather(packed, mesh), inv, kept)      # [Q, B, F]
+    payload = packed.numel() * _nbits(packed.dtype)
+    return halo, torch.tensor(float(payload * q * (q - 1)), dtype=_F32)
+
+
+@dataclasses.dataclass
+class PendingHops:
+    """The issued half of a neighbour exchange: the hops this worker sent
+    ``[D, H, width]`` (still in autograd's graph), their transfer (None
+    at ``Q = 1``) and the unpacked feature width ``f``."""
+
+    sent: torch.Tensor | None
+    transfer: RingTransfer | None
+    f: int
+
+
+def neighbor_exchange_start(publish: torch.Tensor, send_slot: torch.Tensor,
+                            send_valid: torch.Tensor, mesh: WorkerMesh, *,
+                            key=None, n_keep: int | None = None,
+                            pair_k=None, pair_w=None, resid=None,
+                            resid_out: list | None = None,
+                            rounding: str = "rint", store_w: int = 0,
+                            wire_out: list | None = None,
+                            group_bits: bool = True):
+    """Issue half of :func:`neighbor_exchange`: pack the boundary block
+    once and post all ``Q - 1`` ring hops in one batch, but do not wait.
+
+    ``publish [B, F]`` is this worker's boundary block (invalid rows
+    zeroed); ``send_slot``/``send_valid [Q-1, H]`` hold, per ring offset
+    ``d``, the boundary slots worker ``(rank + d) mod Q`` references and
+    their 0/1 padding mask.  With ``n_keep`` the block is packed to its
+    kept lane-blocks under ``fold_in(key, rank)`` before the hop rows
+    are sliced out of it.  Returns ``(pending, wire_bits)``: the
+    :class:`PendingHops` that :func:`neighbor_exchange_finish` consumes,
+    and the genuine rows shipped group-wide × on-wire columns × 32
+    (``None``, without the all-reduce, under ``group_bits=False``; see
+    :func:`compressed_all_gather`)."""
+    _scalar_rate_only("neighbor_exchange_start", rounding, store_w,
+                      pair_k=pair_k, pair_w=pair_w, resid=resid,
+                      resid_out=resid_out, wire_out=wire_out)
+    q, f = mesh.q, publish.shape[-1]
+    width = f if n_keep is None else n_keep * LANE
+    wire_bits = None
+    if group_bits:
+        wire_bits = torch.zeros((), dtype=_F32) if q == 1 else \
+            mesh.all_reduce(send_valid.sum().to(_F32).reshape(1))[0] * \
+            float(width * 32.0)
+    if q == 1:
+        return PendingHops(None, None, f), wire_bits
+    if n_keep is not None:
+        if f % LANE:
+            raise ValueError(f"packed p2p hops need F % {LANE} == 0, "
+                             f"got F={f}")
+        if key is None:
+            raise ValueError("n_keep needs the shared exchange key")
+        kept, inv = _kept_maps(key, q, f, n_keep, publish.device)
+        publish = wire_pack(publish, *_own_maps(kept, inv, mesh.rank))
+    d_hops, h_w = send_slot.shape
+    rows = publish.index_select(0, send_slot.reshape(-1).long()).reshape(
+        d_hops, h_w, width) * send_valid[..., None]
+    return PendingHops(rows, mesh.ring_start(rows, range(1, q)), f), \
+        wire_bits
+
+
+def neighbor_exchange_finish(pending: PendingHops, mesh: WorkerMesh, *,
+                             key=None, n_keep: int | None = None
+                             ) -> torch.Tensor:
+    """Completion half of :func:`neighbor_exchange`: wait for the hops,
+    attach the inverse-ring gradient carrier, unpack each hop with its
+    sender's inverse map (hop ``d`` came from worker ``rank - d``) and
+    stack them into the compact ``[(Q-1)·H, F]`` halo (``[1, F]`` zeros
+    at ``Q = 1``)."""
+    q, f = mesh.q, pending.f
+    if q == 1:
+        return torch.zeros((1, f), dtype=_F32, device=mesh.device)
+    offsets = range(1, q)
+    hops = mesh.ring_wait(pending.transfer)
+    if pending.sent.requires_grad:
+        hops = hops + _ppermute_grad_carrier(pending.sent, mesh, offsets)
+    if n_keep is None:
+        return hops.reshape(-1, f)
+    kept, inv = _kept_maps(key, q, f, n_keep, hops.device)
+    src = torch.as_tensor([(mesh.rank - d) % q for d in offsets],
+                          device=hops.device)
+    return wire_unpack(hops, inv[src], kept[src]).reshape(-1, f)
+
+
+def neighbor_exchange(publish: torch.Tensor, send_slot: torch.Tensor,
+                      send_valid: torch.Tensor, mesh: WorkerMesh, *,
+                      key=None, n_keep: int | None = None):
+    """Neighbour-only p2p halo exchange over the ring: at offset ``d``
+    this worker sends only the rows worker ``(rank + d) mod Q``
+    references.  Returns ``(compact [(Q-1)·H, F], wire_bits)``; see
+    :func:`neighbor_exchange_start`."""
+    pending, bits = neighbor_exchange_start(publish, send_slot, send_valid,
+                                            mesh, key=key, n_keep=n_keep)
+    return neighbor_exchange_finish(pending, mesh, key=key,
+                                    n_keep=n_keep), bits

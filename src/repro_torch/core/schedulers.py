@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Callable
 
 import torch
@@ -35,55 +36,71 @@ class Scheduler:
         return torch.clamp(c, self.c_min, self.c_max)
 
 
+# the schedule functions are module-level and bound with ``partial``, so
+# a scheduler (and the policy holding it) pickles into spawned workers
+
+
+def _constant_fn(t, c):
+    return _f32(c)
+
+
+def _linear_fn(t, total_steps, slope, c_max, c_min):
+    c = c_max - slope * (c_max - c_min) * t / total_steps
+    return torch.clamp(c, c_min, c_max)
+
+
+def _fixed_step_fn(t, decrement, c_max, c_min):
+    return torch.clamp(c_max - decrement * t, c_min, c_max)
+
+
+def _exponential_fn(t, total_steps, c_max, ratio):
+    frac = torch.clamp(t / total_steps, 0.0, 1.0)
+    return c_max * torch.pow(ratio, frac)
+
+
+def _cosine_fn(t, total_steps, c_max, c_min):
+    frac = torch.clamp(t / total_steps, 0.0, 1.0)
+    return c_min + 0.5 * (c_max - c_min) * (1.0 + torch.cos(math.pi * frac))
+
+
 def constant(c: float) -> Scheduler:
     """Fixed compression ratio (the paper's 'Fixed Comp Rate' baselines)."""
-    return Scheduler(f"fixed:{c:g}", lambda t: _f32(c), c, c)
+    return Scheduler(f"fixed:{c:g}", partial(_constant_fn, c=c), c, c)
 
 
 def linear(total_steps: int, slope: float = 5.0, c_max: float = 128.0,
            c_min: float = 1.0) -> Scheduler:
     """Paper eq. (8): linear decrease with slope multiplier ``a``."""
-
-    def fn(t):
-        c = c_max - slope * (c_max - c_min) * t / total_steps
-        return torch.clamp(c, c_min, c_max)
-
-    return Scheduler(f"linear:a={slope:g}", fn, c_max, c_min)
+    return Scheduler(f"linear:a={slope:g}",
+                     partial(_linear_fn, total_steps=total_steps,
+                             slope=slope, c_max=c_max, c_min=c_min),
+                     c_max, c_min)
 
 
 def fixed_step(total_steps: int, decrement: float, c_max: float = 128.0,
                c_min: float = 1.0) -> Scheduler:
     """Appendix A 'fixed rate' variant: ``c_{k+1} = c_k - R``."""
     del total_steps
-
-    def fn(t):
-        return torch.clamp(c_max - decrement * t, c_min, c_max)
-
-    return Scheduler(f"step:R={decrement:g}", fn, c_max, c_min)
+    return Scheduler(f"step:R={decrement:g}",
+                     partial(_fixed_step_fn, decrement=decrement,
+                             c_max=c_max, c_min=c_min), c_max, c_min)
 
 
 def exponential(total_steps: int, c_max: float = 128.0, c_min: float = 1.0
                 ) -> Scheduler:
     """Appendix A exponential variant: geometric decay c_max -> c_min."""
-    ratio = _f32(c_min / c_max)
-
-    def fn(t):
-        frac = torch.clamp(t / total_steps, 0.0, 1.0)
-        return c_max * torch.pow(ratio, frac)
-
-    return Scheduler("exp", fn, c_max, c_min)
+    return Scheduler("exp", partial(_exponential_fn,
+                                    total_steps=total_steps, c_max=c_max,
+                                    ratio=_f32(c_min / c_max)),
+                     c_max, c_min)
 
 
 def cosine(total_steps: int, c_max: float = 128.0, c_min: float = 1.0
            ) -> Scheduler:
     """Cosine anneal (smooth endpoints, still monotone)."""
-
-    def fn(t):
-        frac = torch.clamp(t / total_steps, 0.0, 1.0)
-        return c_min + 0.5 * (c_max - c_min) * (1.0 + torch.cos(math.pi *
-                                                                frac))
-
-    return Scheduler("cosine", fn, c_max, c_min)
+    return Scheduler("cosine", partial(_cosine_fn, total_steps=total_steps,
+                                       c_max=c_max, c_min=c_min),
+                     c_max, c_min)
 
 
 def parse(spec: str, total_steps: int) -> Scheduler:

@@ -352,7 +352,9 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
 
     if mesh is not None:
         raise NotImplementedError(
-            "the shard_map backend is not ported (ROADMAP queue 1)")
+            "the fault channel is not ported to the worker group: its "
+            "receiver-major hop cache under make_fault_train_step(mesh="
+            "...) is ROADMAP.md queue 1 item 5")
     if meta.wire != "p2p":
         raise ValueError("fault-tolerant training serves dropped links "
                          "from per-pair hop caches; it needs wire='p2p', "

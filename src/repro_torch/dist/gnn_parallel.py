@@ -1,9 +1,15 @@
 """Partition-parallel GNN training and inference (paper Algorithm 1).
 
-Counterpart of ``repro/dist/gnn_parallel.py``'s emulated backend.  All
-``Q`` partitions live stacked as ``[Q, ...]`` tensors on one device — the
-JAX package's ``vmap`` over partitions written out as a leading batch
-dimension.  A layer's aggregation is
+Counterpart of ``repro/dist/gnn_parallel.py``, with its two backends.
+The emulated one stacks all ``Q`` partitions as ``[Q, ...]`` tensors on
+one device — the JAX package's ``vmap`` over partitions written out as a
+leading batch dimension.  The worker backend (the JAX package's
+``shard_map`` path) runs one process per worker over ``torch.
+distributed``: :func:`make_worker_mesh` / :func:`spawn_workers` build the
+group, :func:`shard_graph` keeps a worker's ``[1, ...]`` block, and
+``make_train_step`` / ``make_eval_step`` take ``mesh=`` to run the same
+steps over the collectives of ``repro_torch.core.collectives``.  A
+layer's aggregation is
 
 * a **local** ELL aggregation over edges whose endpoints are both owned
   (the ``ell_spmm`` kernel, one launch for all partitions; its backward
@@ -50,12 +56,23 @@ element masks stay on the device.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
+import os
+import pickle
+import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
+from repro_torch.core.collectives import (WorkerMesh, _gather,
+                                          _scalar_rate_only,
+                                          compressed_all_gather,
+                                          neighbor_exchange_finish,
+                                          neighbor_exchange_start,
+                                          packed_all_gather)
 from repro_torch.core.varco import FULL_COMM, CommPolicy
 from repro_torch.kernels.ops import (WIRE_WIDTHS, ell_aggregate,
                                      per_block_wire_bits, qmax_of,
@@ -458,6 +475,45 @@ def _scatter_rows(x: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
     return out.reshape(q, p_sz + 1, f)[:, :p_sz]
 
 
+def _remote_scatter(vals: torch.Tensor, dst: torch.Tensor,
+                    p_sz: int) -> torch.Tensor:
+    """``out[q, dst] += vals`` over ``[Q, E, F]`` edge values (pad edges
+    point at the dropped row ``P``) -> ``[Q, P, F]``."""
+    q, _, f = vals.shape
+    off = (torch.arange(q, device=vals.device) * (p_sz + 1))[:, None]
+    out = torch.zeros((q * (p_sz + 1), f), dtype=vals.dtype,
+                      device=vals.device).index_add(
+        0, (dst.long() + off).reshape(-1), vals.reshape(-1, f))
+    return out.reshape(q, p_sz + 1, f)[:, :p_sz]
+
+
+def _gathered_remote(graph: dict, halo: torch.Tensor, q: int,
+                     p_sz: int) -> torch.Tensor:
+    """The remote edges' aggregation out of an all-gathered ``[Q·B, F]``
+    halo (the dense and packed wires)."""
+    vals = graph["remote_w"][..., None] * halo.index_select(
+        0, graph["remote_src"].long().reshape(-1)).reshape(
+            q, -1, halo.shape[-1])
+    return _remote_scatter(vals, graph["remote_dst"], p_sz)
+
+
+def _p2p_remote(graph: dict, compact: torch.Tensor,
+                p_sz: int) -> torch.Tensor:
+    """The remote edges' aggregation out of each receiver's compact
+    ``[Q, C, F]`` hop buffer (the p2p wire)."""
+    vals = graph["remote_w"][..., None] * \
+        _rows_of(compact, graph["remote_src_p2p"], compact.shape[1])
+    return _remote_scatter(vals, graph["remote_dst"], p_sz)
+
+
+def _ell_local(graph: dict, x: torch.Tensor,
+               ell_w: torch.Tensor) -> torch.Tensor:
+    """The local edges' ELL aggregation (``ell_spmm``; its backward runs
+    over the reversed lists)."""
+    return ell_aggregate(x, graph["ell_nbr"], ell_w, graph["ell_rnbr"],
+                         graph["ell_rslot"])
+
+
 def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
                              rate, key, packed_k: dict | None = None,
                              rate_map=None, skip=None, cache=None,
@@ -821,22 +877,13 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         """Consume layer ``li``'s delivered halo: the local aggregation
         (ELL on the p2p wire) plus the remote scatter out of the token."""
         del li
-        f = x.shape[-1]
         if not policy.communicates:                    # No-Comm baseline
             return _scatter_rows(x, graph["local_dst"], graph["local_src"],
                                  graph["local_w_iso"], p_sz)
         if not p2p:
             local = _scatter_rows(x, graph["local_dst"], graph["local_src"],
                                   _local_w_for(graph, policy, rate), p_sz)
-            vals = graph["remote_w"][..., None] * token.index_select(
-                0, graph["remote_src"].long().reshape(-1)).reshape(
-                    q, -1, f)
-            off = (torch.arange(q, device=dev) * (p_sz + 1))[:, None]
-            rem = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype,
-                              device=dev).index_add(
-                0, (graph["remote_dst"].long() + off).reshape(-1),
-                vals.reshape(-1, f))
-            return local + rem.reshape(q, p_sz + 1, f)[:, :p_sz]
+            return local + _gathered_remote(graph, token, q, p_sz)
         ell_w = _ell_w_for(graph, policy, rate)
         if dead is not None:
             # local-only fallback: blend each receiver's weights toward
@@ -844,16 +891,7 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             # (every pair dead → exactly No-Comm), still on ell_spmm
             mix = to_dev(_dead_mix(meta, dead))[:, None, None]
             ell_w = ell_w + mix * (graph["ell_w_iso"] - ell_w)
-        loc = ell_aggregate(x, graph["ell_nbr"], ell_w,
-                            graph["ell_rnbr"], graph["ell_rslot"])
-        vals = graph["remote_w"][..., None] * \
-            _rows_of(token, graph["remote_src_p2p"], token.shape[1])
-        off = (torch.arange(q, device=dev) * (p_sz + 1))[:, None]
-        rem = torch.zeros((q * (p_sz + 1), f), dtype=x.dtype,
-                          device=dev).index_add(
-            0, (graph["remote_dst"].long() + off).reshape(-1),
-            vals.reshape(-1, f))
-        return loc + rem.reshape(q, p_sz + 1, f)[:, :p_sz]
+        return _ell_local(graph, x, ell_w) + _p2p_remote(graph, token, p_sz)
 
     def aggregate(li, x):
         token, bits = start(li, x)
@@ -862,6 +900,337 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     aggregate.start = start
     aggregate.complete = complete
     return aggregate
+
+
+# ---------------------------------------------------------------------------
+# The worker group: one process per worker over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _group_backend(q: int, device: torch.device, backend: str | None
+                   ) -> str:
+    """The backend a ``q``-worker group on ``device`` runs over, checked:
+    ``nccl`` on the card needs a card per worker (NCCL refuses two ranks
+    on one card), and nothing switches backend on its own."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a worker group was asked for CUDA devices but torch.cuda."
+            "is_available() is False; pass device='cpu' to run the workers "
+            "on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"workers run on 'cuda' or 'cpu', got {device}")
+    if backend is None:
+        if dist.is_available() and dist.is_initialized():
+            backend = dist.get_backend()
+        else:
+            backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got "
+                         f"{backend!r}")
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("backend='nccl' needs CUDA devices; workers on "
+                             "the CPU run over backend='gloo'")
+        n = torch.cuda.device_count()
+        if n < q:
+            raise ValueError(
+                f"backend='nccl' needs a card per worker: {q} workers, {n} "
+                f"card(s), and NCCL refuses two ranks on one card; pass "
+                f"backend='gloo' to share cards, every transfer staged "
+                f"through pinned host memory")
+    return backend
+
+
+def make_worker_mesh(q: int, device="cuda",
+                     backend: str | None = None) -> WorkerMesh:
+    """This process's :class:`~repro_torch.core.collectives.WorkerMesh` in
+    the initialised default process group of world size ``q`` (from
+    ``torchrun`` or :func:`spawn_workers`): the JAX package's
+    ``make_worker_mesh``, one process per worker.
+
+    The worker's device is ``cuda:{rank % device_count}`` (``device=
+    "cuda"``), the given card, or the CPU.  ``backend`` defaults to the
+    group's; ``"gloo"`` with CUDA tensors stages every transfer through
+    pinned host buffers, and ``"nccl"`` with two workers on one card
+    raises.
+
+    Example (under ``torchrun --nproc_per_node 4``)::
+
+        dist.init_process_group("nccl")
+        mesh = make_worker_mesh(4)
+        step = make_train_step(cfg, policy, opt, meta, mesh=mesh)
+    """
+    device = torch.device(device)
+    backend = _group_backend(q, device, backend)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"make_worker_mesh needs an initialised process group of world "
+            f"size {q}: start the workers with torchrun, or with "
+            f"repro_torch.dist.gnn_parallel.spawn_workers")
+    if dist.get_world_size() != q:
+        raise ValueError(f"need {q} workers, the process group has "
+                         f"{dist.get_world_size()}")
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"not backend={backend!r}")
+    rank = dist.get_rank()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    return WorkerMesh(q=q, rank=rank, device=device, backend=backend)
+
+
+def _spawned_worker(rank: int, fn, q: int, args: tuple, device: str,
+                    backend: str, timeout: float, tmp: str) -> None:
+    """One spawned worker: join the group, run ``fn(mesh, *args)``, leave
+    rank 0's result (or this worker's exception) in ``tmp``."""
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(tmp, "store"),
+        rank=rank, world_size=q,
+        timeout=datetime.timedelta(seconds=timeout))
+    try:
+        mesh = make_worker_mesh(q, device, backend)
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)   # before any collective
+        out = fn(mesh, *args)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "result.part"))
+            os.replace(os.path.join(tmp, "result.part"),
+                       os.path.join(tmp, "result"))
+    except BaseException as exc:
+        try:
+            with open(os.path.join(tmp, f"error_{rank}"), "wb") as fh:
+                pickle.dump(exc, fh)
+        except (pickle.PicklingError, TypeError, AttributeError):
+            pass                      # the parent reports the traceback
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_workers(fn, q: int, *args, device="cuda",
+                  backend: str | None = None, timeout: float = 60.0):
+    """Run ``fn(mesh, *args)`` in ``q`` new worker processes, one per
+    worker (``torch.multiprocessing.spawn``), joined in a process group
+    through a ``file://`` store in a temporary directory, and return rank
+    0's result.
+
+    ``fn`` must be importable by name (the workers start from a fresh
+    interpreter) and ``args`` picklable.  ``device``/``backend`` are
+    :func:`make_worker_mesh`'s; ``timeout`` (seconds) bounds every wait
+    on the group, so a hung hop fails instead of hanging.  Each worker
+    runs one CPU thread.  A worker's exception is re-raised here (the
+    first one raised, chained to the spawn error)."""
+    from torch.multiprocessing import spawn
+    from torch.multiprocessing.spawn import ProcessException
+
+    device = torch.device(device)
+    backend = _group_backend(q, device, backend)
+    try:
+        pickle.dumps((fn, args))
+    except (pickle.PicklingError, AttributeError, TypeError) as err:
+        raise TypeError(
+            f"spawn_workers pickles fn and its arguments into the new "
+            f"processes, and cannot: {err}; pass module-level functions "
+            f"and picklable values (an optimiser is a closure: let the "
+            f"worker build it)") from err
+    with tempfile.TemporaryDirectory(prefix="repro_torch_workers_") as tmp:
+        try:
+            spawn(_spawned_worker, args=(fn, q, args, str(device), backend,
+                                         timeout, tmp), nprocs=q, join=True)
+        except ProcessException as err:
+            errors = sorted((e for e in os.scandir(tmp)
+                             if e.name.startswith("error_")),
+                            key=lambda e: e.stat().st_mtime_ns)
+            if errors:
+                with open(errors[0].path, "rb") as fh:
+                    raise pickle.load(fh) from err
+            raise
+        return torch.load(os.path.join(tmp, "result"), weights_only=False)
+
+
+def shard_graph(graph: dict, mesh: WorkerMesh) -> dict:
+    """This worker's ``[1, ...]`` row of every stacked ``[Q, ...]`` graph
+    leaf (the p2p halo and ELL lists included), on ``mesh.device``: the
+    JAX package's ``shard_graph`` with the validation of
+    ``worker_graph_shardings`` — a leaf whose leading dimension is not
+    ``Q`` is rejected with its key named.
+
+    Example::
+
+        graph = shard_graph(attach_p2p(pg.device_arrays("cpu"), pg, "cpu"),
+                            make_worker_mesh(pg.q))
+    """
+    for k, v in graph.items():
+        shape = tuple(getattr(v, "shape", ()))
+        if not shape or shape[0] != mesh.q:
+            raise ValueError(
+                f"graph leaf {k!r} has shape {shape}; expected a stacked "
+                f"[Q, ...] tensor with Q == {mesh.q} workers")
+    r = mesh.rank
+    return {k: v[r:r + 1].to(mesh.device, copy=True)
+            for k, v in graph.items()}
+
+
+def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
+                          rate, key, mesh: WorkerMesh,
+                          packed_k: dict | None = None, rate_map=None,
+                          width_map=None, resid=None,
+                          resid_out: list | None = None, fskip=None,
+                          fcache=None, fcache_out: list | None = None,
+                          dead=None, rounding: str = "rint",
+                          store_w: int = 0, wire_out: list | None = None):
+    """AggregateFn of one worker of ``mesh`` (blocks ``[1, P, F]``): the
+    JAX package's ``_make_aggregate_shard`` for the scalar-rate wires.
+
+    Dense wire: :func:`~repro_torch.core.collectives.compressed_all_gather`
+    under the policy's compressor (the ``random_mask`` kernel for the
+    paper's ``randmask``), or a plain all-gather at full communication.
+    Packed wire: :func:`~repro_torch.core.collectives.packed_all_gather`
+    at ``packed_k``'s kept blocks.  P2P wire: the ``Q - 1`` ring hops of
+    :func:`~repro_torch.core.collectives.neighbor_exchange_start`, packed
+    under a compressing policy, with the local edges on ``ell_spmm``.
+    The collectives' own bit counts are skipped (``group_bits=False``):
+    the ledger is the host-computed ``_exchange_bits``.
+    Worker ``i`` draws its kept blocks and masks from ``fold_in(fold_in(
+    key, call), i)``, the emulated backend's streams, so the two backends'
+    halos agree bitwise, and the ledger is the emulated one.
+
+    The same ``start``/``complete`` split as the emulated oracle: on the
+    p2p wire ``start`` posts the hops and ``complete`` runs the ELL local
+    aggregation before it waits for them.  The rate-map, width-map,
+    residual and byte-storage channels and stochastic rounding raise
+    ``NotImplementedError`` (queue 1 item 4), the fault channel too (item
+    5)."""
+    _scalar_rate_only("the worker backend's aggregation", rounding, store_w,
+                      rate_map=rate_map, width_map=width_map, resid=resid,
+                      resid_out=resid_out, wire_out=wire_out)
+    faults = [k for k, v in (("fskip", fskip), ("fcache", fcache),
+                             ("fcache_out", fcache_out), ("dead", dead))
+              if v is not None]
+    if faults:
+        raise NotImplementedError(
+            f"the fault channel ({', '.join(faults)}) is not ported to the "
+            f"worker group (ROADMAP.md queue 1 item 5)")
+    if mesh.q != meta.q:
+        raise ValueError(f"the mesh has {mesh.q} workers, the partitioning "
+                         f"{meta.q}")
+    p2p = meta.wire == "p2p"
+    packed_wire = meta.wire == "packed"
+    compressor = policy.compressor() if policy.compresses and \
+        meta.wire == "dense" else None
+    q, p_sz, b_sz = meta.q, meta.part_size, meta.halo_size
+    dev = graph["features"].device
+    rate = torch.as_tensor(rate, dtype=_F32)
+    calls = itertools.count()
+
+    def start(li, x):                                  # x: [1, P, F]
+        """Issue layer ``li``'s exchange on this worker.  Returns
+        ``(token, ledger [analytic, transport])``: the posted hops on the
+        p2p wire, the gathered ``[Q·B, F]`` halo on the others."""
+        del li
+        call = next(calls)
+        f = x.shape[-1]
+        if not policy.communicates:
+            return None, torch.zeros((2,), dtype=_F32, device=dev)
+        publish = (_rows_of(x, graph["send_idx"], p_sz) *
+                   graph["send_valid"][..., None])[0]  # [B, F]
+        n_keep = wire_width = k_call = None
+        if packed_wire or (p2p and policy.compresses):
+            n_keep = _keep_of(f, rate, packed_k)
+            wire_width = n_keep * LANE
+        if packed_wire or policy.compresses:
+            k_call = prng.fold_in(key, call)
+        bits = _exchange_bits(meta, f, rate, wire_width).to(dev)
+        if p2p:
+            pending, _ = neighbor_exchange_start(
+                publish, graph["p2p_send_slot"][0],
+                graph["p2p_send_valid"][0], mesh, key=k_call,
+                n_keep=n_keep, group_bits=False)
+            return (pending, k_call, n_keep), bits
+        if packed_wire:
+            halo, _ = packed_all_gather(publish, mesh, key=k_call,
+                                        n_keep=n_keep)
+        elif compressor is not None:
+            halo, _ = compressed_all_gather(
+                publish, mesh, compressor=compressor, rate=rate, key=k_call,
+                group_bits=False)
+        else:
+            halo = _gather(publish, mesh)              # [Q, B, F]
+        return halo.reshape(q * b_sz, f), bits
+
+    def complete(li, x, token):
+        """Consume layer ``li``'s exchange: the local aggregation (ELL on
+        the p2p wire, before the hops are waited on) plus the remote
+        scatter."""
+        del li
+        if not policy.communicates:                    # No-Comm baseline
+            return _scatter_rows(x, graph["local_dst"], graph["local_src"],
+                                 graph["local_w_iso"], p_sz)
+        if not p2p:
+            local = _scatter_rows(x, graph["local_dst"], graph["local_src"],
+                                  _local_w_for(graph, policy, rate), p_sz)
+            return local + _gathered_remote(graph, token, 1, p_sz)
+        pending, k_call, n_keep = token
+        loc = _ell_local(graph, x, _ell_w_for(graph, policy, rate))
+        halo = neighbor_exchange_finish(pending, mesh, key=k_call,
+                                        n_keep=n_keep)
+        return loc + _p2p_remote(graph, halo[None], p_sz)
+
+    def aggregate(li, x):
+        token, bits = start(li, x)
+        return complete(li, x, token), bits
+
+    aggregate.start = start
+    aggregate.complete = complete
+    return aggregate
+
+
+def first_halo(graph: dict, meta: DistMeta, policy: CommPolicy, key,
+               x: torch.Tensor, mesh: WorkerMesh | None = None
+               ) -> torch.Tensor:
+    """The halo of layer 0's exchange of ``x`` at step 0's rate, without
+    autograd: what the two backends' halos are held to each other by.  The
+    gathered ``[Q·B, F]`` halo on the all-gather wires; on the p2p wire
+    the compact hop buffers, ``[Q, C, F]`` emulated (``mesh=None``), a
+    worker's own ``[C, F]`` under ``mesh``."""
+    rate = policy.rate(0) if policy.communicates else 1.0
+    kb = dict(_packed_k_for(meta, float(rate)))
+    with torch.no_grad():
+        if mesh is None:
+            return _make_aggregate_emulated(graph, meta, policy, rate, key,
+                                            packed_k=kb).start(0, x)[0]
+        token = _make_aggregate_shard(graph, meta, policy, rate, key, mesh,
+                                      packed_k=kb).start(0, x)[0]
+        if meta.wire != "p2p":
+            return token
+        pending, k_call, n_keep = token
+        return neighbor_exchange_finish(pending, mesh, key=k_call,
+                                        n_keep=n_keep)
+
+
+def _all_reduce_leaves(leaves: list, mesh: WorkerMesh) -> list:
+    """Every worker's ``leaves`` summed, in leaf order: one all-reduce of
+    a buffer that concatenates the leaves of each dtype."""
+    out = list(leaves)
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        idx = [i for i, t in enumerate(leaves) if t.dtype == dtype]
+        flat = mesh.all_reduce(torch.cat([leaves[i].reshape(-1)
+                                          for i in idx]))
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view_as(leaves[i])
+    return out
+
+
+def _pmean_inexact(tree, mesh: WorkerMesh):
+    """FedAvg's server step: the mean over the workers of every floating
+    leaf; integer state (the optimiser's step count) stays local."""
+    leaves = tree_leaves(tree)
+    floats = [t for t in leaves if t.is_floating_point()]
+    mean = iter(t / mesh.q for t in _all_reduce_leaves(floats, mesh))
+    return tree_map(lambda t: next(mean) if t.is_floating_point() else t,
+                    tree)
 
 
 # ---------------------------------------------------------------------------
@@ -914,11 +1283,19 @@ def _optimize(opt: Optimizer, grads, opt_state, params):
 
 
 def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
-                    meta: DistMeta, mesh=None, sync: str = "grad"):
-    """One full-batch step of Algorithm 1 on the emulated backend.
+                    meta: DistMeta, mesh: WorkerMesh | None = None,
+                    sync: str = "grad"):
+    """One full-batch step of Algorithm 1.
 
     ``step(params, opt_state, graph, step_idx, key) -> (params, opt_state,
-    {loss, rate, halo_bits, transport_bits})``.  On the dense wire a
+    {loss, rate, halo_bits, transport_bits})``.  ``mesh=None`` runs the
+    emulated backend over ``[Q, ...]`` stacks on one device; with a
+    :func:`make_worker_mesh` mesh each worker process runs the same step
+    on its :func:`shard_graph` block over real collectives: its local loss
+    and gradients, the loss all-reduced, then under ``sync="grad"`` the
+    gradients all-reduced (the centralized step) and one update, under
+    ``"fedavg"`` a local update and the mean of the floating parameters
+    and optimiser state (Algorithm 1's server step).  On the dense wire a
     compressing policy runs its compressor (any of
     ``repro_torch.core.compression``'s).  On the packed wire, and under
     compression on the p2p wire, the schedule's rate is quantised to the
@@ -933,10 +1310,9 @@ def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
         params, opt_state, m = step(params, opt_state, graph, 0,
                                     prng.key(0))
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the shard_map backend is not ported (ROADMAP queue 1): the "
-            "port runs the emulated backend, every partition on one card")
+    if mesh is not None and mesh.q != meta.q:
+        raise ValueError(f"the mesh has {mesh.q} workers, the partitioning "
+                         f"{meta.q}")
     if sync not in ("grad", "fedavg"):
         raise ValueError(f"sync must be 'grad' or 'fedavg', got {sync!r}")
     if policy.mode == "auto":
@@ -968,24 +1344,39 @@ def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
         kb = dict(_packed_k_for(meta, float(rate))) if needs_kb else None
 
         def loss_fn(p):
-            agg = _make_aggregate_emulated(graph, meta, policy, rate, key,
-                                           packed_k=kb)
+            if mesh is None:
+                agg = _make_aggregate_emulated(graph, meta, policy, rate,
+                                               key, packed_k=kb)
+            else:
+                agg = _make_aggregate_shard(graph, meta, policy, rate, key,
+                                            mesh, packed_k=kb)
             return _local_loss_fn(p, cfg, graph, agg, meta)
 
         (loss, bits), grads = _value_and_grad(loss_fn, params)
+        if mesh is not None and sync == "grad":
+            # the loss rides the gradients' all-reduce: one round trip
+            summed = _all_reduce_leaves([loss.reshape(1),
+                                         *tree_leaves(grads)], mesh)
+            loss, rest = summed[0][0], iter(summed[1:])
+            grads = tree_map(lambda _: next(rest), grads)
+        elif mesh is not None:
+            loss = mesh.all_reduce(loss.reshape(1))[0]
         new_params, new_state = _optimize(opt, grads, opt_state, params)
+        if mesh is not None and sync == "fedavg":
+            new_params = _pmean_inexact(new_params, mesh)
+            new_state = _pmean_inexact(new_state, mesh)
         return new_params, new_state, _step_metrics(loss, rate, bits)
 
     return step
 
 
-def make_eval_step(cfg: GNNConfig, meta: DistMeta, mesh=None):
+def make_eval_step(cfg: GNNConfig, meta: DistMeta,
+                   mesh: WorkerMesh | None = None):
     """Full-communication accuracy over the train/val/test splits:
     ``evaluate(params, graph) -> {"train": acc, "val": acc, "test":
-    acc}`` (float32 tensors), always over the dense wire."""
-    if mesh is not None:
-        raise NotImplementedError("the shard_map backend is not ported "
-                                  "(ROADMAP queue 1)")
+    acc}`` (float32 tensors), always over the dense wire; with a worker
+    ``mesh`` each worker evaluates its block and the correct counts are
+    all-reduced."""
     meta = dataclasses.replace(meta, wire="dense")
     splits = (("train", "train_mask", meta.n_train),
               ("val", "val_mask", meta.n_val),
@@ -993,17 +1384,22 @@ def make_eval_step(cfg: GNNConfig, meta: DistMeta, mesh=None):
 
     def evaluate(params, graph):
         with torch.no_grad():
-            agg = _make_aggregate_emulated(graph, meta, FULL_COMM,
-                                           torch.ones((), dtype=_F32),
-                                           prng.key(0))
+            one, key = torch.ones((), dtype=_F32), prng.key(0)
+            if mesh is None:
+                agg = _make_aggregate_emulated(graph, meta, FULL_COMM, one,
+                                               key)
+            else:
+                agg = _make_aggregate_shard(graph, meta, FULL_COMM, one,
+                                            key, mesh)
             logits, _ = gnn_forward(params, cfg, graph["features"], agg)
             pred = logits.argmax(-1)
-            out = {}
-            for name, mask_key, n in splits:
-                correct = ((pred == graph["labels"]) *
-                           graph[mask_key].to(_F32)).sum()
-                out[name] = (correct * _per(n)).cpu()
-        return out
+            correct = torch.stack([((pred == graph["labels"]) *
+                                    graph[mask_key].to(_F32)).sum()
+                                   for _, mask_key, _ in splits])
+            if mesh is not None:
+                correct = mesh.all_reduce(correct)
+            return {name: (correct[i] * _per(n)).cpu()
+                    for i, (name, _, n) in enumerate(splits)}
 
     return evaluate
 

@@ -191,7 +191,10 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
                          f"got mode {policy.mode!r}")
     if mesh is not None:
         raise NotImplementedError(
-            "the shard_map backend is not ported (ROADMAP queue 1)")
+            "the closed loop is not ported to the worker group: "
+            "make_auto_train_step(mesh=...) is ROADMAP.md queue 1 item 4; "
+            "the open-loop policies run there through "
+            "gnn_parallel.make_train_step(mesh=...)")
     if meta.wire not in ("packed", "p2p"):
         raise ValueError(f"per-pair rate maps need wire='packed' or 'p2p', "
                          f"got {meta.wire!r} (the dense wire is "

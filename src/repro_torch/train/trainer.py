@@ -15,11 +15,14 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.varco import CommPolicy
 from repro_torch.dist.gnn_parallel import (DistMeta, make_eval_step,
-                                           make_train_step)
+                                           make_train_step,
+                                           make_worker_mesh, shard_graph,
+                                           spawn_workers)
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.nn.gnn import GNNConfig, init_gnn, params_to
 from repro_torch.train.optim import Optimizer, adamw
@@ -37,8 +40,13 @@ class History:
     32 when exact), ``step_s`` (host seconds of the step, ending in the
     metrics' device sync; a crash's shrink and rebuild count in its
     epoch) and, under faults, ``cached_pairs``/``dead_pairs`` (the
-    ladder's CACHED and DEAD pair counts of the step) are the port's
-    additions; ``row()`` keeps the JAX package's CSV columns.
+    ladder's CACHED and DEAD pair counts of the step) and, on the worker
+    backend, ``sent_bytes``/``staged_bytes``/``comm_s`` (``WorkerMesh``'s
+    counters for the step: the bytes this worker handed the transport,
+    computed from the payload sizes with an all-reduce counted as a
+    ring's share, not read off the wire; the bytes copied between card
+    and host for them; the host seconds spent in the transport) are the
+    port's additions; ``row()`` keeps the JAX package's CSV columns.
     """
     epoch: list = dataclasses.field(default_factory=list)
     loss: list = dataclasses.field(default_factory=list)
@@ -56,6 +64,9 @@ class History:
     step_s: list = dataclasses.field(default_factory=list)
     cached_pairs: list = dataclasses.field(default_factory=list)
     dead_pairs: list = dataclasses.field(default_factory=list)
+    sent_bytes: list = dataclasses.field(default_factory=list)
+    staged_bytes: list = dataclasses.field(default_factory=list)
+    comm_s: list = dataclasses.field(default_factory=list)
 
     def row(self, i: int) -> dict:
         out = {k: getattr(self, k)[i] for k in
@@ -116,6 +127,25 @@ def _plan_width(plan, q: int) -> float:
     off = ~np.eye(q, dtype=bool)
     return float(np.asarray(plan.widths, np.float32).reshape(-1, q, q)
                  [:, off].mean())
+
+
+def _train_worker(mesh, g, kwargs: dict) -> "TrainResult":
+    """One spawned worker of ``train_gnn(use_shard_map=True)``."""
+    return train_gnn(g, use_shard_map=True, **kwargs)
+
+
+def _wire_counters(mesh) -> tuple:
+    return mesh.sent_bytes, mesh.staged_bytes, mesh.comm_s
+
+
+def _world_size(g, q: int) -> int:
+    """The worker count a run over ``g`` needs: its partitioning's, else
+    ``q``."""
+    from repro_torch.graph.stream import is_shard_dir, shard_meta
+
+    if is_shard_dir(g):
+        return int(shard_meta(g)["q"])
+    return int(getattr(g, "q", q))
 
 
 def train_gnn(g, *, q: int = 8, scheme: str = "random",
@@ -185,8 +215,29 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                   checkpoint_dir="ck", stop_after=4)
         train_gnn(shard_dir, ..., checkpoint_dir="ck", resume=True)
 
-    Not ported (raises ``NotImplementedError``): ``use_shard_map``.  An
-    auto policy's quantised wire rounds by the device's default (``ops.
+    ``use_shard_map=True`` runs the worker backend, one process per
+    worker over ``torch.distributed``: under an initialised process group
+    of world size Q (``torchrun --nproc_per_node Q``) this process trains
+    as its rank, on ``cuda:{rank % device_count}`` (or the CPU), with its
+    own partition — the in-memory partitioner's, or its ``part_*.npz``
+    alone from a shard directory — and returns its result (the same
+    parameters on every rank).  Without a group it spawns Q workers
+    (:func:`~repro_torch.dist.gnn_parallel.spawn_workers`, ``nccl`` on
+    the card, ``gloo`` on the CPU) and returns rank 0's result, so one
+    call in one interpreter works::
+
+        res = train_gnn(g, q=4, policy=CommPolicy.parse(
+            "varco:linear:5", 3, compressor="blockmask"), epochs=3,
+            wire="p2p", device="cpu", use_shard_map=True)
+
+    The worker backend runs the open-loop policies on every wire, under
+    both ``sync`` modes; auto policies, ``faults``, ``checkpoint_dir``
+    and ``resume`` raise ``NotImplementedError`` with it.  Spawned
+    workers receive the arguments pickled: pass ``optimizer=None`` (the
+    AdamW of ``lr``/``weight_decay``) or start the workers yourself, since
+    the optimisers are closures.
+
+    An auto policy's quantised wire rounds by the device's default (``ops.
     default_wire_rounding``): stochastically on the card, as the JAX
     package does on its hardware target, and half to even on the CPU,
     where the port is held to the JAX package's CPU runs.
@@ -195,10 +246,6 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     from repro_torch.graph.stream import ShardSet, is_shard_dir, load_shards
     from repro_torch.train import checkpoint as ckpt
 
-    if use_shard_map:
-        raise NotImplementedError(
-            "train_gnn(use_shard_map=...) is not ported yet (ROADMAP "
-            "queue 1: the multi-GPU backend)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -207,11 +254,38 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             "the plain versions on the CPU")
     auto = policy.mode == "auto"
     fault = faults is not None
+    mesh = None
+    if use_shard_map:
+        for what, asked, item in (
+                ("an auto policy", auto, 4), ("faults=", fault, 5),
+                ("checkpoint_dir=", checkpoint_dir, 5),
+                ("resume=True", resume, 5)):
+            if asked:
+                raise NotImplementedError(
+                    f"train_gnn(use_shard_map=True) with {what} is not "
+                    f"ported to the worker group (ROADMAP.md queue 1 item "
+                    f"{item})")
+        if not (dist.is_available() and dist.is_initialized()):
+            kwargs = dict(q=q, scheme=scheme, policy=policy, epochs=epochs,
+                          lr=lr, weight_decay=weight_decay, hidden=hidden,
+                          layers=layers, conv=conv, seed=seed,
+                          eval_every=eval_every, optimizer=optimizer,
+                          sync=sync, wire=wire, device=str(device),
+                          stop_after=stop_after, log_fn=log_fn,
+                          params=None if params is None else
+                          params_to(params, "cpu"))
+            return spawn_workers(_train_worker, _world_size(g, q), g, kwargs,
+                                 device=device)
+        if log_fn is not None and dist.get_rank() != 0:
+            log_fn = None              # one log: rank 0's
+        mesh = make_worker_mesh(_world_size(g, q), device)
+        device = mesh.device
     if (auto or fault) and wire == "dense":
         wire = "p2p"                   # per-pair rates need a per-pair wire
     sched = faults
     if is_shard_dir(g):
-        g = load_shards(g)
+        # a worker reads its own partition's file alone
+        g = load_shards(g, parts=None if mesh is None else [mesh.rank])
     elif isinstance(g, (str, bytes)):
         raise FileNotFoundError(f"{g!r} is no shard directory (no "
                                 f"shards.json)")
@@ -221,17 +295,26 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
         params = init_gnn(cfg, torch.Generator().manual_seed(seed),
                           device=device)
     params = params_to(params, device)
+    # a worker holds its own partition (a one-part shard set) or stacks
+    # every partition on the host and keeps its own row
+    own = mesh is not None and isinstance(g, ShardSet) and len(g.parts) == 1
+    if own and g.parts != (mesh.rank,):
+        raise ValueError(f"worker {mesh.rank} was given the shards of "
+                         f"partition {g.parts[0]}")
+    stack_on = device if mesh is None or own else torch.device("cpu")
     if isinstance(g, ShardSet):
         pg = g                         # partitioned offline; q comes with it
-        graph = pg.device_arrays(device)
+        graph = pg.device_arrays(stack_on)
     else:
         pg = g if isinstance(g, PartitionedGraph) else \
             partition_graph(g, q, scheme=scheme, seed=seed)
-        graph = pg.device_arrays(device)
+        graph = pg.device_arrays(stack_on)
         if wire == "p2p" or auto:      # auto's per-pair stats need them
             from repro_torch.dist.halo import attach_p2p
-            graph = attach_p2p(graph, pg, device)
+            graph = attach_p2p(graph, pg, stack_on)
     q = pg.q
+    if mesh is not None and not own:
+        graph = shard_graph(graph, mesh)
     if resume:
         if not checkpoint_dir:
             raise ValueError("resume=True needs checkpoint_dir")
@@ -284,7 +367,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                                                   sync=sync)
         if auto:
             return make_auto_train_step(cfg, policy, opt, meta_, sync=sync)
-        return make_train_step(cfg, policy, opt, meta_, sync=sync)
+        return make_train_step(cfg, policy, opt, meta_, mesh=mesh, sync=sync)
 
     ctl = ctl_state = None
     if auto:
@@ -294,7 +377,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     fcache = init_halo_cache(meta, cfg, device) if fault else ()
     dstate = faultlib.init_degrade(q) if fault else None
     step = _make_step(meta)
-    evaluate = make_eval_step(cfg, meta)
+    evaluate = make_eval_step(cfg, meta, mesh=mesh)
 
     hist = History()
     halo_bits_cum = transport_bits_cum = err_cum = 0.0
@@ -356,6 +439,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     t0 = time.time()
     for epoch in range(start_epoch, epochs):
         t_step = time.perf_counter()
+        if mesh is not None:
+            wire0 = _wire_counters(mesh)
         width = 32.0
         if fault:
             crash = sched.crash_at_step(epoch)
@@ -383,7 +468,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                 cache = _init_cache(meta)   # stale/EF buffers restart cold
                 fcache = init_halo_cache(meta, cfg, device)
                 step = _make_step(meta)
-                evaluate = make_eval_step(cfg, meta)
+                evaluate = make_eval_step(cfg, meta, mesh=mesh)
                 # keep cumulative pair splits shaped [..., Q, Q]: the dead
                 # worker's history leaves the ledger with it
                 if pair_bits_cum is not None:
@@ -428,6 +513,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                     else layer_bits_cum + layer_t
         loss = float(m["loss"])                 # the step's device sync
         step_s = time.perf_counter() - t_step
+        if mesh is not None:
+            moved = [b - a for a, b in zip(wire0, _wire_counters(mesh))]
         halo_bits_cum += float(m["halo_bits"])
         transport_bits_cum += float(m["transport_bits"])
         if epoch % eval_every == 0 or epoch == epochs - 1:
@@ -446,6 +533,10 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             if fault:
                 hist.cached_pairs.append(ladder[0])
                 hist.dead_pairs.append(ladder[1])
+            if mesh is not None:
+                hist.sent_bytes.append(moved[0])
+                hist.staged_bytes.append(moved[1])
+                hist.comm_s.append(moved[2])
             if pair_bits_cum is not None:
                 hist.pair_transport_gf.append(tuple(
                     pair_bits_cum.ravel() / 32.0 / 1e9))

@@ -25,7 +25,9 @@ attention with explicit positions (shifted and left-padded prompts) on
 both kernels, under the same tolerances.  Two LM training steps of a
 smoke config on the card against the CPU within 1e-4 (no LM kernel
 launched), and a streaming-update frontier recompute on the card against
-the CPU within 1e-5.
+the CPU within 1e-5.  The worker backend: two worker processes on the
+card over host-staged ``gloo`` (``tests/torch_dist_cases.py``), one p2p
+``varco`` step within 1e-4 of the emulated step on the card.
 """
 
 from __future__ import annotations
@@ -1025,3 +1027,44 @@ def test_cuda_incremental_recompute_matches_cpu(cuda_device):
     fresh = centralized_forward(params_to(params, cuda_device), cfg, g2,
                                 device=cuda_device)
     torch.testing.assert_close(got[-1], fresh, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_worker_backend_step_matches_emulated(cuda_device):
+    """Two worker processes sharing the card over host-staged ``gloo`` run
+    one p2p ``varco`` step (``make_train_step(mesh=...)``) that matches
+    the emulated step on the card within 1e-4 (atomic scatters and the
+    all-reduced gradients reorder f32 sums); NCCL with two workers on one
+    card raises instead of switching backend."""
+    from repro_torch import prng
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.nn.gnn import GNNConfig, init_gnn
+    from repro_torch.train import optim
+
+    import torch_dist_cases as cases
+
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="backend='gloo'"):
+            gp.make_worker_mesh(2, backend="nccl")
+    got = gp.spawn_workers(cases.card_step, 2, device=cuda_device,
+                           backend="gloo")
+    g = tiny_graph(n=cases.N, feat_dim=cases.F)
+    pg = partition_graph(g, 2, seed=0)
+    graph = attach_p2p(pg.device_arrays(cuda_device), pg, cuda_device)
+    cfg = GNNConfig(conv="sage", in_dim=cases.F, hidden=cases.HIDDEN,
+                    out_dim=g.num_classes, layers=cases.LAYERS)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0),
+                      device=cuda_device)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    opt = optim.sgd(cases.LR)
+    step = gp.make_train_step(cfg, cases.case_policy("varco:linear:5",
+                                                     "blockmask"), opt, meta)
+    params, _, m = step(params, opt.init(params), graph, 0, prng.key(0))
+    assert abs(got["loss"] - float(m["loss"])) <= 1e-4
+    assert got["halo_bits"] == float(m["halo_bits"])
+    for a, b in zip(got["params"], optim.tree_leaves(params)):
+        torch.testing.assert_close(a, b.cpu(), rtol=0, atol=1e-4)
+    assert all(n > 0 for n in got["launches"].values()), got["launches"]

@@ -79,14 +79,22 @@ def test_entry_points_default_to_cuda():
 
     from repro_torch.dist import make_dp_mesh, make_varco_dp_train_step
 
+    from repro_torch.dist.gnn_parallel import make_worker_mesh, spawn_workers
+
     for fn in (ServingEngine.__init__, attach_p2p, init_gnn,
                centralized_forward, init_halo_cache, init_wire_residuals,
                PartitionedGraph.device_arrays, ShardSet.device_arrays,
                train_gnn, serve, init_lm,
                init_cache, lm_params_from_jax, adamw_state_from_jax,
                incremental_recompute, train_lm, TokenPipeline,
-               make_dp_mesh):
+               make_dp_mesh, make_worker_mesh, spawn_workers):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the worker backend is train_gnn's switch; its group's backend
+    # follows the device (nccl on the card)
+    assert inspect.signature(train_gnn).parameters[
+        "use_shard_map"].default is False
+    assert inspect.signature(make_worker_mesh).parameters[
+        "backend"].default is None
     assert build_parser().get_default("device") == "cuda"
     assert train_parser().get_default("device") == "cuda"
     # the data-parallel step's mesh defaults to one worker on the card
@@ -134,6 +142,14 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_varco_dp_train_step(lm_cfg, make_optimizer(lm_cfg), CommPolicy
                                  .parse("varco:linear:5", 4))
+    from repro_torch.dist.gnn_parallel import make_worker_mesh, spawn_workers
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_worker_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spawn_workers(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_gnn(g, q=2, policy=CommPolicy.parse("full", 1), epochs=1,
+                  hidden=128, layers=2, use_shard_map=True)
     assert serve(lm_cfg, lm_params, np.zeros((1, 4), np.int32), 2,
                  device="cpu").tokens.shape == (1, 2)
     # and the CPU, when asked for, runs
