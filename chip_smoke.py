@@ -123,29 +123,45 @@ Phases, each fatal on failure (exit code 1, no result line):
 6d. dist — the worker backend: ``train_gnn(use_shard_map=True)`` over
    Q = 4 worker processes (``spawn_workers``), each loading only its own
    partition from the resilience phase's shard directory, at the setup's
-   width and seeds: p2p ``full`` and ``varco:linear:5``, dense
-   ``varco:linear:5`` (``randmask``) and packed ``fixed:4``, 3 epochs
-   each.  With four cards the workers run over NCCL; with fewer, all
-   four over ``gloo`` on ``cuda:0`` with every transfer staged through
-   pinned host memory (printed, with ``NCCL unverified: <n> card`` on a
-   line of its own).  Each worker sets its launch counts to 0 before a
-   run and reads them after; summed over the workers, ``ell_spmm``
-   (p2p), ``varco_pack``/``varco_unpack`` (p2p ``varco``, packed) and
-   ``random_mask`` (dense) must have run.  Before the measured runs each
-   worker runs them once more with every call of those four kernels held
-   against the plain version on the same arguments (pack/unpack and the
-   mask bitwise, ELL within 1e-5); that run must make as many calls as
-   the measured run launches, and every signature (shapes, strides,
-   dtypes, 16-byte alignment, scalar arguments) the measured run
-   launches at must have been held so.  Held against the
-   emulated backend's runs of the same settings on the same card: per-epoch
-   losses within 1e-4, the cumulative ledger at rel 1e-6, accuracies
-   within 1e-3; at rate 2 over a 256-wide exchange each worker's p2p
-   compact hop buffer and packed halo equal its slice of the emulated
-   backend's bitwise; one distributed ``sgd(0.1)`` ``full`` step holds
-   the grad-sync identity within 1e-4.  Printed per run: rank 0's step
-   ms median beside the emulated step's, every worker's bytes sent and
-   staged per step, host ms in the transport and peak GB.
+   width and seeds, 3 epochs each: p2p ``full`` and ``varco:linear:5``,
+   dense ``varco:linear:5`` (``randmask``), packed ``fixed:4``, and the
+   closed loop at ``<half>`` (half the full-rate transport of 3 epochs
+   over the shard partition): p2p ``auto:budget:<half>:w8`` (sub-byte
+   hops with error-feedback residuals), p2p ``auto:error:<half>:w8`` and
+   packed ``auto:budget:<half>:w4`` (the sub-byte all-gather), rounded
+   stochastically (the card's default); then one
+   ``make_auto_train_step(mesh=...)`` step under a mixed-width plan (an
+   fp32 pair beside 8- and 4-bit pairs: the value path, whose uniforms
+   ``random_uniform`` draws).  With four cards the workers run over
+   NCCL; with fewer, all four over ``gloo`` on ``cuda:0`` with every
+   transfer staged through pinned host memory (printed, with ``NCCL
+   unverified: <n> card`` on a line of its own).  Each worker sets its
+   launch counts to 0 before a run and reads them after; summed over the
+   workers, ``ell_spmm`` (p2p), ``varco_pack``/``varco_unpack`` (p2p
+   ``varco``, packed, the auto runs), ``random_mask`` (dense), the
+   stochastic codec and ``varco_unpack_quant`` (every auto run whose
+   plans quantise) and ``random_uniform`` (the mixed step, on every
+   worker) must have run, and the rint codec must not (the card rounds
+   stochastically).  Before the measured runs each worker runs them once
+   more with every call of those eight kernels held against the plain
+   version on the same arguments (everything bitwise but ELL, within
+   1e-5: the codecs and uniforms draw the plain version's Threefry
+   stream); that run must make as many calls as the measured run
+   launches, and every signature (shapes, strides, dtypes, 16-byte
+   alignment, scalar arguments) the measured run launches at must have
+   been held so.  Held against the emulated backend's runs of the same
+   settings on the same card: per-epoch losses within 1e-4, the
+   cumulative ledger and ``pair_transport_gf`` at rel 1e-6, the
+   controllers' rates equal, accuracies within 1e-3, the mixed step's
+   loss within 1e-4; over a 256-wide exchange each worker's p2p compact
+   hop buffer and packed halo at rate 2, and under the closed loop's
+   plans (p2p w8, packed w4, the mixed plan; stochastic) its halo and
+   its first error-feedback residual slab, equal its slice of the
+   emulated backend's bitwise; one distributed ``sgd(0.1)`` ``full``
+   step holds the grad-sync identity within 1e-4.  Printed per run:
+   rank 0's step ms median beside the emulated step's, every worker's
+   MB sent and staged (median and per step), host ms in the transport,
+   peak GB and launches.
 6e. update — streaming edge updates on the engine (after the other GNN
    phases: the update changes its graph): a forced refresh, then a seeded
    batch of 256 inserts and 256 deletes of existing edges through
@@ -266,7 +282,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
 no TPU counterpart: its ``replaces`` names the JAX package's XLA draw,
-plus the dist phase's workers' launches;
+plus the dist phase's workers' launches (also of the codecs and
+``random_uniform``);
 from serving for the rint quantised codec (train_gnn rounds
 stochastically on the card); from the training path, the auto phase and
 the update phase's stochastic serving for the stochastic codec and
@@ -1938,21 +1955,59 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, workdir,
 
 DIST_Q = 4
 DIST_EPOCHS = 3
-#: name -> (policy spec, compressor, wire)
+#: name -> (policy spec, compressor, wire); ``{half}`` is half the
+#: full-rate transport of a ``DIST_EPOCHS`` run over the shard directory's
+#: partition (the train phase's ``half``, over this phase's epochs)
 DIST_RUNS = {"p2p_full": ("full", "blockmask", "p2p"),
              "p2p_varco": ("varco:linear:5", "blockmask", "p2p"),
              "dense_varco": ("varco:linear:5", "randmask", "dense"),
-             "packed_fixed4": ("fixed:4", "blockmask", "packed")}
-#: the kernels each run must launch (summed over the workers)
+             "packed_fixed4": ("fixed:4", "blockmask", "packed"),
+             "p2p_auto_w8": ("auto:budget:{half:g}:w8", "blockmask", "p2p"),
+             "p2p_auto_error_w8": ("auto:error:{half:g}:w8", "blockmask",
+                                   "p2p"),
+             "packed_auto_w4": ("auto:budget:{half:g}:w4", "blockmask",
+                                "packed")}
+#: the kernels each run must launch (summed over the workers); an auto
+#: run whose plans quantise also the sub-byte codecs (its rounding, the
+#: card's default, is stochastic)
 DIST_KERNELS = {"p2p_full": ("ell_spmm",),
                 "p2p_varco": ("ell_spmm", "varco_pack", "varco_unpack"),
                 "dense_varco": ("random_mask",),
-                "packed_fixed4": ("varco_pack", "varco_unpack")}
-DIST_LAUNCHES = ("ell_spmm", "varco_pack", "varco_unpack", "random_mask")
+                "packed_fixed4": ("varco_pack", "varco_unpack"),
+                "p2p_auto_w8": ("ell_spmm", "varco_pack", "varco_unpack"),
+                "p2p_auto_error_w8": ("ell_spmm", "varco_pack",
+                                      "varco_unpack"),
+                "packed_auto_w4": ("varco_pack", "varco_unpack"),
+                "p2p_mixed_step": ("ell_spmm", "varco_pack", "varco_unpack",
+                                   "random_uniform")}
+DIST_LAUNCHES = ("ell_spmm", "varco_pack", "varco_unpack", "random_mask",
+                 "varco_pack_quant", "varco_pack_quant_stochastic",
+                 "varco_unpack_quant", "random_uniform")
 DIST_TOL = 1e-4
 DIST_ACC_TOL = 1e-3
 #: seconds any wait on the worker group may take before the run fails
 DIST_TIMEOUT = 300.0
+
+
+def _dist_half(shard_dir, cfg) -> float:
+    from repro_torch.dist.ratectl import exchange_widths
+    from repro_torch.graph.stream import shard_meta
+
+    return 0.5 * 2.0 * 32.0 * shard_meta(shard_dir)["halo_demand"] * \
+        sum(exchange_widths(cfg)) * DIST_EPOCHS
+
+
+def _mixed_plan(q: int):
+    """The mixed-width plan: every pair at rate 2 and 8 bits but pair
+    (3 ← 2) at rate 1, pair (2 ← 3) at 4 bits and pair (0 ← 1) at fp32 —
+    an fp32 pair beside quantised ones, so the hops take the
+    straight-through value path, whose stochastic rounding draws its
+    uniforms with ``random_uniform``."""
+    from repro_torch.dist.ratectl import RatePlan
+
+    rates, widths = _pair_map(q, 2.0, 1.0), _pair_map(q, 8.0, 32.0)
+    rates[3, 2], widths[2, 3], widths[0, 1] = 1.0, 4.0, 32.0
+    return RatePlan(rates, np.zeros((q, q), np.float32), widths)
 
 
 def _signature(args) -> tuple:
@@ -1965,19 +2020,24 @@ def _signature(args) -> tuple:
 
 def _plain_err(kernel: str, out, ref) -> float:
     """Max abs error of a kernel's output against its plain version's
-    (``inf`` on a shape or dtype mismatch; the mask and its kept counts,
-    and pack/unpack, must be bitwise: 0.0 or ``inf``)."""
+    (``inf`` on a shape or dtype mismatch; every kernel but ELL must be
+    bitwise — the mask and its kept counts, pack/unpack, the codecs and
+    the uniforms, which draw the plain version's Threefry stream: 0.0 or
+    ``inf``)."""
     if kernel == "random_mask":
         (out, counts), (ref, ref_counts) = out, ref
         same = _bitwise(out, ref) and (counts is None) == (ref_counts is None)
         if counts is not None:
             same &= torch.equal(counts, ref_counts)
         return 0.0 if same else float("inf")
-    if out.shape != ref.shape or out.dtype != ref.dtype:
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    if any(a.shape != b.shape or a.dtype != b.dtype
+           for a, b in zip(outs, refs)):
         return float("inf")
     if kernel == "ell_spmm":
         return float((out - ref).abs().max()) if out.numel() else 0.0
-    return 0.0 if torch.equal(out, ref) else float("inf")
+    return 0.0 if all(torch.equal(a, b) for a, b in zip(outs, refs)) \
+        else float("inf")
 
 
 @contextlib.contextmanager
@@ -1991,14 +2051,22 @@ def _kernel_calls(seen: dict, compare: bool):
     one the path makes: its launch count moves as without the block."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_spmm import ell_spmm_plain
-    from repro_torch.kernels.randmask import random_mask_plain
-    from repro_torch.kernels.varco_pack import (varco_pack_plain,
-                                                varco_unpack_plain)
+    from repro_torch.kernels.randmask import (random_mask_plain,
+                                              random_uniform_plain)
+    from repro_torch.kernels import varco_pack as vp
 
     routes = {"ell_spmm": ("ell_spmm", ell_spmm_plain),
-              "varco_pack": ("varco_pack", varco_pack_plain),
-              "varco_unpack": ("varco_unpack", varco_unpack_plain),
-              "random_mask": ("random_mask_kernel", random_mask_plain)}
+              "varco_pack": ("varco_pack", vp.varco_pack_plain),
+              "varco_unpack": ("varco_unpack", vp.varco_unpack_plain),
+              "random_mask": ("random_mask_kernel", random_mask_plain),
+              "varco_pack_quant": ("varco_pack_quant",
+                                   vp.varco_pack_quant_plain),
+              "varco_pack_quant_stochastic": (
+                  "varco_pack_quant_stochastic",
+                  vp.varco_pack_quant_stochastic_plain),
+              "varco_unpack_quant": ("varco_unpack_quant",
+                                     vp.varco_unpack_quant_plain),
+              "random_uniform": ("random_uniform", random_uniform_plain)}
     saved = {attr: getattr(ops, attr) for attr, _ in routes.values()}
 
     def wrap(name, kernel, plain):
@@ -2026,38 +2094,131 @@ def _kernel_calls(seen: dict, compare: bool):
 def _dist_halos(mesh, shard_dir, params, seed: int) -> dict:
     """At rate 2 over a 256-wide exchange: this worker's p2p compact hop
     buffer and packed halo against its slice of the emulated backend's
-    (every partition stacked on the same card), bitwise."""
+    (every partition stacked on the same card), bitwise; and under the
+    closed loop's plans, stochastically rounded — p2p every pair at 8 bits
+    (the sub-byte hops), packed at 4 bits (the sub-byte all-gather) and
+    :func:`_mixed_plan` (the value path) — the halo and, on the p2p wire,
+    the error-feedback residual slab the exchange leaves, bitwise."""
     from repro_torch import prng
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.ratectl import RatePlan
     from repro_torch.graph.stream import load_shards
 
-    dev, r = mesh.device, mesh.rank
+    dev, r, q = mesh.device, mesh.rank, mesh.q
     mine = load_shards(shard_dir, parts=[r])
     graph_me = mine.device_arrays(dev)
     graph_all = load_shards(shard_dir).device_arrays(dev)
-    pol = CommPolicy.parse("fixed:2", 1, compressor="blockmask")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     x = torch.randn(graph_all["features"].shape[:2] + (256,), generator=gen,
                     device=dev)
     key = prng.fold_in(prng.key(seed + 3), 256)
+    rate2 = _pair_map(q, 2.0, 1.0)
+    zeros = np.zeros((q, q), np.float32)
+    cases = {"p2p": ("p2p", None), "packed": ("packed", None),
+             "p2p_w8": ("p2p", RatePlan(rate2, zeros,
+                                        _pair_map(q, 8.0, 32.0))),
+             "packed_w4": ("packed", RatePlan(rate2, zeros,
+                                              _pair_map(q, 4.0, 32.0))),
+             "p2p_mixed": ("p2p", _mixed_plan(q))}
     out = {}
-    for wire in ("p2p", "packed"):
+    for name, (wire, plan) in cases.items():
+        pol = CommPolicy.parse("fixed:2" if plan is None else
+                               "auto:budget:1e9:w8", 1,
+                               compressor="blockmask")
         meta = gp.DistMeta.build(mine, params, wire=wire)
-        want = gp.first_halo(graph_all, meta, pol, key, x)
-        got = gp.first_halo(graph_me, meta, pol, key, x[r:r + 1], mesh)
-        out[wire] = bool(torch.equal(got, want[r] if wire == "p2p"
-                                     else want))
+        kw = {} if plan is None else dict(plan=plan, rounding="stochastic")
+        r_all, r_me = [], []
+        want = gp.first_halo(graph_all, meta, pol, key, x, resid_out=r_all,
+                             **kw)
+        got = gp.first_halo(graph_me, meta, pol, key, x[r:r + 1], mesh,
+                            resid_out=r_me, **kw)
+        same = torch.equal(got, want[r] if wire == "p2p" else want)
+        if plan is not None and wire == "p2p":
+            same &= len(r_me) == len(r_all) == 1 and \
+                torch.equal(r_me[0][0], r_all[0][r])
+        out[name] = bool(same)
     return out
 
 
-def _dist_worker(mesh, shard_dir, hidden, layers, params, seed):
-    """One worker of the dist phase: the runs of ``DIST_RUNS`` and the
-    grad-sync identity's one ``sgd(0.1)`` step through ``train_gnn(
-    use_shard_map=True)`` from the shard directory (each worker loads its
-    own partition), launch counts set to 0 before each run and read
-    after, and the rate-2 halo identities.  Returns every worker's
-    records (gathered to rank 0) and rank 0's identity run."""
+def _held_run(fn, counters: dict, on_card: bool, dev) -> tuple:
+    """``fn()`` twice: once with every call of a ``DIST_LAUNCHES`` kernel
+    held against its plain version at this worker's shapes, then —
+    launch counts set to 0 and read after — measured, the plain versions'
+    time and memory out of it.  Returns the measured result and its
+    record: launches, peak GB, the held calls per signature and the
+    signatures the measured run launched at that no check held."""
+    checked = {}
+    with _kernel_calls(checked, compare=True):
+        fn()
+    for c in counters.values():
+        c.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    measured = {}
+    with _kernel_calls(measured, compare=False):
+        res = fn()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    return res, {
+        "launches": {k: counters[k].launches for k in DIST_LAUNCHES},
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card
+        else None,
+        "checked": {k: [{"args": [list(a[0]) if isinstance(a, tuple) else a
+                                  for a in sig],
+                         "calls": n, "max_abs_err": err}
+                        for sig, (n, err) in v.items()]
+                    for k, v in checked.items()},
+        "unchecked": {k: len(set(v) - set(checked[k]))
+                      for k, v in measured.items()}}
+
+
+def _mixed_step(mesh, shard_dir, cfg, params, half: float) -> dict:
+    """One ``make_auto_train_step`` step under :func:`_mixed_plan`, rounded
+    stochastically, from zero error-feedback residuals: on this worker of
+    ``mesh`` over its own shard, or emulated (``mesh=None``) over every
+    shard stacked on the card.  Returns the loss, the step's host ms
+    (ending in the loss read) and, on a worker, the bytes it sent and
+    staged."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.ratectl import (init_wire_residuals,
+                                          make_auto_train_step)
+    from repro_torch.graph.stream import load_shards
+    from repro_torch.nn.gnn import params_to
+    from repro_torch.train.optim import sgd, tree_leaves
+
+    dev = tree_leaves(params)[0].device if mesh is None else mesh.device
+    pg = load_shards(shard_dir, parts=None if mesh is None
+                     else [mesh.rank])
+    graph = pg.device_arrays(dev)
+    params = params_to(params, dev)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    pol = CommPolicy.parse(f"auto:budget:{half:g}:w8", DIST_EPOCHS,
+                           compressor="blockmask")
+    opt = sgd(0.1)
+    step = make_auto_train_step(cfg, pol, opt, meta, mesh=mesh,
+                                rounding="stochastic")
+    cache = init_wire_residuals(meta, cfg, dev, mesh)
+    sent = (mesh.sent_bytes, mesh.staged_bytes) if mesh else (0, 0)
+    t = time.perf_counter()
+    _, _, m, _ = step(params, opt.init(params), graph, prng.key(0),
+                      _mixed_plan(meta.q), cache)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t) * 1e3
+    return {"loss": loss, "step_ms": ms,
+            "sent_bytes": mesh.sent_bytes - sent[0] if mesh else 0,
+            "staged_bytes": mesh.staged_bytes - sent[1] if mesh else 0}
+
+
+def _dist_worker(mesh, shard_dir, cfg, params, seed, half):
+    """One worker of the dist phase: the runs of ``DIST_RUNS`` through
+    ``train_gnn(use_shard_map=True)`` from the shard directory (each
+    worker loads its own partition) and the mixed-width step, each under
+    :func:`_held_run`; the grad-sync identity's one ``sgd(0.1)`` step;
+    and the halo identities.  Returns every worker's records (gathered to
+    rank 0) and rank 0's identity run."""
     import torch.distributed as dist
 
     from repro_torch.core.varco import CommPolicy
@@ -2068,48 +2229,30 @@ def _dist_worker(mesh, shard_dir, hidden, layers, params, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = launch_counters()
-    common = dict(hidden=hidden, layers=layers, seed=seed, eval_every=1,
-                  device=mesh.device, params=params, use_shard_map=True)
+    common = dict(hidden=cfg.hidden, layers=cfg.layers, seed=seed,
+                  eval_every=1, device=mesh.device, params=params,
+                  use_shard_map=True)
 
     def run(spec, comp, wire):
-        return train_gnn(shard_dir, policy=CommPolicy.parse(
-            spec, DIST_EPOCHS, compressor=comp), epochs=DIST_EPOCHS,
-            wire=wire, **common)
+        return lambda: train_gnn(shard_dir, policy=CommPolicy.parse(
+            spec.format(half=half), DIST_EPOCHS, compressor=comp),
+            epochs=DIST_EPOCHS, wire=wire, **common)
 
     runs = {}
     for name, settings in DIST_RUNS.items():
-        # the kernels held against their plain versions at this worker's
-        # shapes, in a run of its own: the plain versions' time and memory
-        # stay out of the measured run below
-        checked = {}
-        with _kernel_calls(checked, compare=True):
-            run(*settings)
-        for fn in counters.values():
-            fn.launches = 0
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(mesh.device)
-        measured = {}
-        with _kernel_calls(measured, compare=False):
-            res = run(*settings)
-        if on_card:
-            torch.cuda.synchronize(mesh.device)
-        runs[name] = {"history": dataclasses.asdict(res.history),
-                      "launches": {k: counters[k].launches
-                                   for k in DIST_LAUNCHES},
-                      "peak_gb": torch.cuda.max_memory_allocated(
-                          mesh.device) / 1e9 if on_card else None,
-                      "checked": {k: [{"args": [list(a[0]) if isinstance(
-                                           a, tuple) else a for a in sig],
-                                       "calls": n, "max_abs_err": err}
-                                      for sig, (n, err) in v.items()]
-                                  for k, v in checked.items()},
-                      "unchecked": {k: len(set(v) - set(checked[k]))
-                                    for k, v in measured.items()}}
+        res, rec = _held_run(run(*settings), counters, on_card,
+                             mesh.device)
+        runs[name] = {"history": dataclasses.asdict(res.history), **rec}
+    mixed, rec = _held_run(lambda: _mixed_step(mesh, shard_dir, cfg,
+                                               params, half),
+                           counters, on_card, mesh.device)
+    mixed.update(rec)
     ident = train_gnn(shard_dir, policy=CommPolicy.parse("full", 1),
                       epochs=1, optimizer=sgd(0.1), wire="p2p", **common)
     halos = _dist_halos(mesh, shard_dir, ident.params, seed)
     every = [None] * mesh.q
-    dist.all_gather_object(every, {"runs": runs, "halos": halos,
+    dist.all_gather_object(every, {"runs": runs, "mixed": mixed,
+                                   "halos": halos,
                                    "device": str(mesh.device)})
     return {"workers": every, "ident": ident if mesh.rank == 0 else None}
 
@@ -2118,12 +2261,50 @@ def _median_ms(step_s) -> float:
     return float(np.median(np.asarray(step_s[1:] or step_s) * 1e3))
 
 
+def _rel_max(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.max(np.abs(got - want) /
+                        np.maximum(np.abs(want), 1e-30), initial=0.0))
+
+
+def _held_checks(name: str, per: list) -> None:
+    """Every signature a worker's measured run launched at was held
+    against the plain version, as many calls held as launched, each
+    within its tolerance (ELL 1e-5, the rest bitwise)."""
+    for w, p in enumerate(per):
+        for k in DIST_LAUNCHES:
+            n = p["unchecked"][k]
+            check(n == 0, f"dist {name}: worker {w} launched {k} at {n} "
+                  f"signature(s) no check held against the plain version")
+            held = sum(c["calls"] for c in p["checked"][k])
+            check(held == p["launches"][k], f"dist {name}: worker {w} held "
+                  f"{held} {k} calls against the plain version, its "
+                  f"measured run launched {p['launches'][k]}")
+            tol = ELL_TOL if k == "ell_spmm" else 0.0
+            for c in p["checked"][k]:
+                check(c["max_abs_err"] <= tol, f"dist {name}: worker {w}'s "
+                      f"{k} at {c['args']} differs from the plain version "
+                      f"by {c['max_abs_err']} > {tol}")
+
+
+def _kernel_checks(per: list) -> dict:
+    return {k: {"signatures": sum(len(p["checked"][k]) for p in per),
+                "calls": sum(c["calls"] for p in per
+                             for c in p["checked"][k]),
+                "max_abs_err": max((c["max_abs_err"] for p in per
+                                    for c in p["checked"][k]), default=None)}
+            for k in DIST_LAUNCHES}
+
+
 def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
     """``train_gnn(use_shard_map=True)`` at full width over Q = 4 worker
-    processes booted from the resilience phase's shard directory, against
-    the emulated backend on the same card.  Returns the launches summed
-    over the workers and runs, and each kernel's largest error against
-    its plain version at the workers' shapes."""
+    processes booted from the resilience phase's shard directory, and one
+    mixed-width auto step through ``make_auto_train_step(mesh=...)``,
+    against the emulated backend on the same card.  Returns the launches
+    summed over the workers and runs, and each kernel's largest error
+    against its plain version at the workers' shapes."""
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist.gnn_parallel import spawn_workers
     from repro_torch.nn.gnn import params_to
@@ -2138,16 +2319,18 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
     if backend == "gloo":
         print(f"NCCL unverified: {cards} card{'s' * (cards != 1)}",
               flush=True)
+    half = _dist_half(shard_dir, cfg)
     common = dict(hidden=cfg.hidden, layers=cfg.layers, seed=seed,
                   eval_every=1, device=eng.device, params=params)
     emulated = {}
     for name, (spec, comp, wire) in DIST_RUNS.items():
         emulated[name] = train_gnn(shard_dir, policy=CommPolicy.parse(
-            spec, DIST_EPOCHS, compressor=comp), epochs=DIST_EPOCHS,
-            wire=wire, **common).history
+            spec.format(half=half), DIST_EPOCHS, compressor=comp),
+            epochs=DIST_EPOCHS, wire=wire, **common).history
+    emulated_mixed = _mixed_step(None, shard_dir, cfg, params, half)
     t = time.perf_counter()
-    out = spawn_workers(_dist_worker, DIST_Q, str(shard_dir), cfg.hidden,
-                        cfg.layers, params_to(params, "cpu"), seed,
+    out = spawn_workers(_dist_worker, DIST_Q, str(shard_dir), cfg,
+                        params_to(params, "cpu"), seed, half,
                         device=eng.device.type, backend=backend,
                         timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t
@@ -2163,47 +2346,63 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
                   for k in DIST_LAUNCHES}
         for k, n in summed.items():
             launches[k] += n
-        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
-                  zip(h["halo_gfloats"] + h["transport_gfloats"],
-                      e.halo_gfloats + e.transport_gfloats))
+        hists = [p["history"] for p in per]
         runs[name] = {
             "loss": h["loss"], "emulated_loss": e.loss,
             "loss_max_abs": float(np.abs(np.asarray(h["loss"]) -
                                          np.asarray(e.loss)).max()),
-            "ledger_max_rel": rel,
+            "ledger_max_rel": _rel_max(
+                h["halo_gfloats"] + h["transport_gfloats"],
+                e.halo_gfloats + e.transport_gfloats),
+            "pair_transport_max_rel": _rel_max(h["pair_transport_gf"],
+                                               e.pair_transport_gf),
+            "rate": h["rate"], "emulated_rate": e.rate, "width": h["width"],
+            "rates_equal": all(x["rate"] == e.rate for x in hists),
             "acc_max_abs": max(
                 abs(a - b) for k in ("train_acc", "val_acc", "test_acc")
                 for a, b in zip(h[k], getattr(e, k))),
             "step_ms_median": _median_ms(h["step_s"]),
             "emulated_step_ms_median": _median_ms(e.step_s),
             "step_ms": [x * 1e3 for x in h["step_s"]],
-            "sent_bytes_per_step": [w["runs"][name]["history"]["sent_bytes"]
-                                    for w in workers],
-            "staged_bytes_per_step": [
-                w["runs"][name]["history"]["staged_bytes"] for w in workers],
+            "sent_mb_median": [float(np.median(x["sent_bytes"])) / 1e6
+                               for x in hists],
+            "staged_mb_median": [float(np.median(x["staged_bytes"])) / 1e6
+                                 for x in hists],
+            "sent_bytes_per_step": [x["sent_bytes"] for x in hists],
+            "staged_bytes_per_step": [x["staged_bytes"] for x in hists],
             # host ms inside the transport: staging, collectives, waits
-            "comm_ms_per_step": [[x * 1e3 for x in w["runs"][name][
-                "history"]["comm_s"]] for w in workers],
+            "comm_ms_per_step": [[s * 1e3 for s in x["comm_s"]]
+                                 for x in hists],
             "peak_gb": [p["peak_gb"] for p in per],
             "launches": summed,
             "launches_per_worker": [p["launches"] for p in per],
             # the per-worker kernel calls held against the plain versions
-            "kernel_checks": {k: {"signatures": sum(
-                len(p["checked"][k]) for p in per), "calls": sum(
-                c["calls"] for p in per for c in p["checked"][k]),
-                "max_abs_err": max(
-                (c["max_abs_err"] for p in per for c in p["checked"][k]),
-                default=None)} for k in DIST_LAUNCHES},
-            "checked": [(w, k, c) for w, p in enumerate(per)
-                        for k in DIST_LAUNCHES for c in p["checked"][k]],
-            "unchecked": [(w, k, p["unchecked"][k]) for w, p in
-                          enumerate(per) for k in DIST_LAUNCHES]}
+            "kernel_checks": _kernel_checks(per)}
         emit({"phase": "dist_run", "run": name, "backend": backend,
-              **{k: v for k, v in runs[name].items()
-                 if k not in ("checked", "unchecked")}})
+              **runs[name]})
+    per = [w["mixed"] for w in workers]
+    mixed_launches = {k: sum(p["launches"][k] for p in per)
+                      for k in DIST_LAUNCHES}
+    for k, n in mixed_launches.items():
+        launches[k] += n
+    mixed = {"loss": [p["loss"] for p in per],
+             "emulated_loss": emulated_mixed["loss"],
+             "loss_max_abs": max(abs(p["loss"] - emulated_mixed["loss"])
+                                 for p in per),
+             "step_ms": [p["step_ms"] for p in per],
+             "emulated_step_ms": emulated_mixed["step_ms"],
+             "sent_mb": [p["sent_bytes"] / 1e6 for p in per],
+             "staged_mb": [p["staged_bytes"] / 1e6 for p in per],
+             "peak_gb": [p["peak_gb"] for p in per],
+             "launches": mixed_launches,
+             "launches_per_worker": [p["launches"] for p in per],
+             "kernel_checks": _kernel_checks(per)}
+    emit({"phase": "dist_run", "run": "p2p_mixed_step", "backend": backend,
+          **mixed})
     summary = {"phase": "dist", "backend": backend, "workers": DIST_Q,
                "cards": cards, "devices": [w["device"] for w in workers],
-               "epochs": DIST_EPOCHS, "wall_s": wall,
+               "epochs": DIST_EPOCHS, "half_budget_bits": half,
+               "wall_s": wall,
                "halo_identity": [w["halos"] for w in workers],
                "grad_sync_identity": ident, "launches": launches,
                "step_ms_median": {k: r["step_ms_median"]
@@ -2212,21 +2411,7 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
                    k: r["emulated_step_ms_median"] for k, r in runs.items()}}
     emit(summary)
     for name, r in runs.items():
-        for w, k, n in r["unchecked"]:
-            check(n == 0, f"dist {name}: worker {w} launched {k} at {n} "
-                  f"signature(s) no check held against the plain version")
-        for w, per_w in enumerate(r["launches_per_worker"]):
-            for k, n in per_w.items():
-                held = sum(c["calls"] for ww, kk, c in r["checked"]
-                           if (ww, kk) == (w, k))
-                check(held == n, f"dist {name}: worker {w} held {held} "
-                      f"{k} calls against the plain version, its measured "
-                      f"run launched {n}")
-        for w, k, case in r["checked"]:
-            tol = ELL_TOL if k == "ell_spmm" else 0.0
-            check(case["max_abs_err"] <= tol, f"dist {name}: worker {w}'s "
-                  f"{k} at {case['args']} differs from the plain version "
-                  f"by {case['max_abs_err']} > {tol}")
+        _held_checks(name, [w["runs"][name] for w in workers])
         check(bool(np.isfinite(r["loss"]).all()), f"dist {name}: non-finite "
               f"loss {r['loss']}")
         check(r["loss_max_abs"] <= DIST_TOL, f"dist {name}: losses differ "
@@ -2237,20 +2422,45 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
               f"differ from the emulated backend's by {r['acc_max_abs']}")
         check(all(min(b) > 0 for b in r["sent_bytes_per_step"]),
               f"dist {name}: a worker shipped nothing")
-        for k in DIST_KERNELS[name]:
+        kernels = DIST_KERNELS[name]
+        if name.startswith(("p2p_auto", "packed_auto")):
+            check(r["rates_equal"], f"dist {name}: the workers' controllers "
+                  f"planned other rates than the emulated one: "
+                  f"{r['rate']} vs {r['emulated_rate']}")
+            check(r["pair_transport_max_rel"] <= 1e-6, f"dist {name}: "
+                  f"pair_transport_gf differs from the emulated backend's "
+                  f"(rel {r['pair_transport_max_rel']})")
+            if min(r["width"]) < 32:             # a sub-byte wire ran
+                kernels += TRAIN_QUANT_KERNELS
+        for k in kernels:
             check(r["launches"][k] > 0, f"dist {name}: {k} never launched "
                   f"by any worker")
+    check(min(runs["p2p_auto_w8"]["width"]) < 32,
+          "dist p2p_auto_w8: no epoch quantised")
     check(runs["dense_varco"]["launches"]["random_mask"] > 0 and
           runs["p2p_full"]["launches"]["varco_pack"] == 0,
           "dist: the wires launched the wrong kernels")
+    check(launches["varco_pack_quant"] == 0, "dist: a worker launched the "
+          "rint codec: the card's default wire rounding is stochastic")
+    _held_checks("p2p_mixed_step", [w["mixed"] for w in workers])
+    check(mixed["loss_max_abs"] <= DIST_TOL, f"dist p2p_mixed_step: losses "
+          f"differ from the emulated step's by {mixed['loss_max_abs']}")
+    for w, per_w in enumerate(mixed["launches_per_worker"]):
+        for k in DIST_KERNELS["p2p_mixed_step"]:
+            check(per_w[k] > 0, f"dist p2p_mixed_step: worker {w} never "
+                  f"launched {k}")
+    want = {k: True for k in ("p2p", "packed", "p2p_w8", "packed_w4",
+                              "p2p_mixed")}
     for r, w in enumerate(workers):
-        check(w["halos"] == {"p2p": True, "packed": True},
-              f"dist: worker {r}'s rate-2 halo differs from the emulated "
-              f"backend's slice: {w['halos']}")
+        check(w["halos"] == want, f"dist: worker {r}'s halo or residual "
+              f"differs from the emulated backend's slice: {w['halos']}")
     check(ident["loss_err"] <= GRAD_TOL and ident["param_err"] <= GRAD_TOL,
           f"dist: grad-sync identity broken: {ident}")
-    worst = {k: max(r["kernel_checks"][k]["max_abs_err"] or 0.0
-                    for r in runs.values()) for k in DIST_LAUNCHES}
+    worst = {}
+    for k in DIST_LAUNCHES:
+        errs = [r["kernel_checks"][k]["max_abs_err"] for r in
+                (*runs.values(), mixed)]
+        worst[k] = max((e for e in errs if e is not None), default=0.0)
     return launches, worst
 
 

@@ -42,9 +42,19 @@ all-reduced and each worker keeps its own slice (``psum(g)[axis_index]``,
 :func:`_all_gather_grad_carrier`), a hop's cotangent rides the inverse
 ring (:func:`_ppermute_grad_carrier`).  Both carriers are zero-valued
 forwards added to the detached received values, so autograd routes each
-cotangent back into the sender's compressor or pack.  Only the
-scalar-rate wires are here: the per-pair rate and width maps, residuals,
-stochastic rounding and byte storage raise ``NotImplementedError``.
+cotangent back into the sender's compressor or pack.
+
+The packed all-gather and the ring also carry the closed loop's channels,
+as the JAX package's do: a per-pair ``[Q, Q]`` rate map (``pair_k``,
+each pair's kept-block count carved out of the sender's kept set by
+column masks), a width map (``pair_w``, the straight-through
+``wire_quant`` on the fp32 value path, rounded half to even or
+stochastically under the per-pair ``round_key`` stream), error-feedback
+residuals on the ring (``resid`` / ``resid_out``) and true sub-byte
+storage (``store_w``): the sender's fused ``pack_quant`` produces a
+uint8 payload and f32 block scales, those two buffers cross the group,
+and the receiver's ``unpack_quant`` rebuilds the rows; their cotangents
+return in f32 at the kept blocks' width (:class:`_DecodedGrad`).
 """
 
 from __future__ import annotations
@@ -60,8 +70,11 @@ import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.compression import Compressor, _nbits
-from repro_torch.kernels.ops import wire_pack, wire_unpack
-from repro_torch.kernels.varco_pack import LANE, worker_block_maps
+from repro_torch.kernels.ops import (pack_quant, per_block_wire_bits,
+                                     qmax_of, round_key, unpack_quant,
+                                     wire_pack, wire_quant, wire_unpack)
+from repro_torch.kernels.varco_pack import (LANE, worker_block_maps,
+                                            worker_block_maps_pos)
 from repro_torch.train.optim import tree_leaves, tree_map
 
 _F32 = torch.float32
@@ -187,11 +200,6 @@ def uncompressed_bits(x) -> torch.Tensor:
 # The activation half: one process per worker
 # ---------------------------------------------------------------------------
 
-#: where the wires these collectives do not carry yet are queued
-NEXT_SLICE = ("ROADMAP.md queue 1 item 4: the closed loop on the worker "
-              "group")
-
-
 @dataclasses.dataclass
 class WorkerMesh:
     """This process's place in the default process group of ``q`` worker
@@ -273,28 +281,37 @@ class WorkerMesh:
             self.sent_bytes += (self.q - 1) * h.numel() * h.element_size()
             return self._in(out)
 
-    def ring_start(self, bufs: torch.Tensor, offsets) -> "RingTransfer":
+    def ring_start(self, bufs, offsets) -> "RingTransfer":
         """Post one batch of hops: ``bufs[i]`` goes to worker ``(rank +
         offsets[i]) mod q`` while slot ``i`` of the returned transfer
-        receives worker ``(rank - offsets[i]) mod q``'s ``bufs[i]``."""
+        receives worker ``(rank - offsets[i]) mod q``'s ``bufs[i]``.
+        ``bufs`` is one ``[D, ...]`` tensor or a tuple of them (the
+        sub-byte wire's payload and scales), each sent whole per hop."""
+        many = isinstance(bufs, tuple)
         with self._timed():
-            send = self._out(bufs)
-            recv = self._empty(send.shape, send.dtype)
+            send = tuple(self._out(b) for b in (bufs if many else (bufs,)))
+            recv = tuple(self._empty(b.shape, b.dtype) for b in send)
             ops = []
-            for i, d in enumerate(offsets):
-                ops.append(dist.P2POp(dist.isend, send[i],
-                                      (self.rank + d) % self.q, tag=i))
-                ops.append(dist.P2POp(dist.irecv, recv[i],
-                                      (self.rank - d) % self.q, tag=i))
-            self.sent_bytes += send.numel() * send.element_size()
-            return RingTransfer(dist.batch_isend_irecv(ops), send, recv)
+            for n, (s, r) in enumerate(zip(send, recv)):
+                for i, d in enumerate(offsets):
+                    tag = n * len(offsets) + i
+                    ops.append(dist.P2POp(dist.isend, s[i],
+                                          (self.rank + d) % self.q, tag=tag))
+                    ops.append(dist.P2POp(dist.irecv, r[i],
+                                          (self.rank - d) % self.q, tag=tag))
+                self.sent_bytes += s.numel() * s.element_size()
+            return RingTransfer(dist.batch_isend_irecv(ops),
+                                send if many else send[0],
+                                recv if many else recv[0])
 
-    def ring_wait(self, transfer: "RingTransfer") -> torch.Tensor:
-        """The received hops of a posted batch, on this worker's
-        device."""
+    def ring_wait(self, transfer: "RingTransfer"):
+        """The received hops of a posted batch, on this worker's device
+        (a tuple when a tuple was posted)."""
         with self._timed():
             for work in transfer.works:
                 work.wait()
+            if isinstance(transfer.recv, tuple):
+                return tuple(self._in(r) for r in transfer.recv)
             return self._in(transfer.recv)
 
 
@@ -304,8 +321,8 @@ class RingTransfer:
     buffers they use (held until the batch is waited on)."""
 
     works: list
-    send: torch.Tensor
-    recv: torch.Tensor
+    send: torch.Tensor | tuple
+    recv: torch.Tensor | tuple
 
 
 class _PpermuteGradCarrier(torch.autograd.Function):
@@ -362,17 +379,66 @@ def _gather(x: torch.Tensor, mesh: WorkerMesh) -> torch.Tensor:
         else out
 
 
-def _scalar_rate_only(op: str, rounding: str = "rint", store_w: int = 0,
-                      **channels) -> None:
-    named = [k for k, v in channels.items() if v is not None]
-    if store_w:
-        named.append("store_w")
-    if rounding != "rint":
-        named.append(f"rounding={rounding!r}")
-    if named:
-        raise NotImplementedError(
-            f"{op}: {', '.join(named)} not ported to the worker group; "
-            f"only the scalar-rate wires are ({NEXT_SLICE})")
+class _DecodedGrad(torch.autograd.Function):
+    """The sub-byte wire's gradient path.  Forward: the rows a receiver
+    rebuilt from uint8 payloads and f32 scales, as they are.  Backward:
+    their cotangent packed to each sender's kept blocks (``varco_pack``),
+    carried back to the senders by ``carry`` (the inverse ring, or the
+    all-gather's all-reduce), and scattered onto this worker's
+    pre-quantisation rows (``varco_unpack``): straight through on kept
+    blocks and zero on dropped ones, as ``ops._QuantHop``, with the
+    cotangent in f32 at the fp32 wire's ``K·128`` columns."""
+
+    @staticmethod
+    def forward(ctx, pre, decoded, carry, kept_src, inv_own):
+        ctx.carry = carry
+        ctx.save_for_backward(kept_src, inv_own)
+        return decoded.view_as(decoded)
+
+    @staticmethod
+    def backward(ctx, g):
+        kept_src, inv_own = ctx.saved_tensors
+        back = ctx.carry(wire_pack(g, kept_src))
+        return wire_unpack(back, inv_own), None, None, None, None
+
+
+def _check_channels(pair_k, pair_w, store_w: int, rounding: str,
+                    resid=None) -> None:
+    """The closed loop's channels ride one another, as in the JAX
+    package: widths the rate map, storage and residuals the widths."""
+    if pair_w is not None and pair_k is None:
+        raise ValueError("pair_w needs pair_k (widths ride the rate map)")
+    if store_w and pair_w is None:
+        raise ValueError("store_w (sub-byte storage) rides the width map; "
+                         "pass pair_w alongside it")
+    if resid is not None and pair_w is None:
+        raise ValueError("error-feedback residuals ride the quantised "
+                         "wire; pass pair_w alongside resid")
+    if rounding not in ("rint", "stochastic"):
+        raise ValueError(f"rounding must be 'rint' or 'stochastic', got "
+                         f"{rounding!r}")
+
+
+def sender_maxima(pair_k, pair_w=None):
+    """``(k_send [Q], w_send [Q] | None)``: what each sender of the packed
+    all-gather ships, whose one payload serves every receiver — the most
+    demanding receiver's kept count (at least one block) and width (32
+    where no receiver names one), the off-diagonal column maxima of the
+    receiver × sender maps."""
+    pair_k = np.asarray(pair_k)
+    eye = np.eye(pair_k.shape[0], dtype=bool)
+    k_send = np.maximum(np.where(eye, 0, pair_k).max(axis=0), 1)
+    if pair_w is None:
+        return k_send, None
+    w_send = np.where(eye, np.float32(0.0), np.asarray(pair_w,
+                                                        np.float32)).max(0)
+    return k_send, np.where(w_send > 0.0, w_send,
+                            np.float32(32.0)).astype(np.float32)
+
+
+def _to(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
 
 
 def compressed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *,
@@ -398,8 +464,7 @@ def compressed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *,
 def _kept_maps(key, q: int, f: int, n_keep: int, device):
     """Every worker's ``(kept [Q, K], inv [Q, F/128])`` on ``device``."""
     kept, inv = worker_block_maps(key, q, f // LANE, n_keep)
-    return (torch.as_tensor(kept, device=device),
-            torch.as_tensor(inv, device=device))
+    return _to(kept, device), _to(inv, device)
 
 
 def _own_maps(kept: torch.Tensor, inv: torch.Tensor, rank: int):
@@ -421,11 +486,29 @@ def packed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *, key,
     map re-derived from the shared ``key`` (``wire_unpack``, zero fill),
     so no index travels and the halo equals the dense ``blockmask`` round
     trip bitwise.  ``K = n_keep``, or ``max(floor((F/128)/rate), 1)``
-    from a static ``rate``.  Returns ``(gathered [Q, B, F],
-    collective_bits)``: every worker's payload, padding rows included,
-    crossing to ``Q - 1`` peers."""
-    _scalar_rate_only("packed_all_gather", rounding, store_w, pair_k=pair_k,
-                      pair_w=pair_w, wire_out=wire_out)
+    from a static ``rate``.
+
+    ``pair_k`` (host ``[Q, Q]`` receiver × sender kept counts, ``n_keep``
+    their static maximum) is a per-pair rate map at this wire's
+    granularity, per sender: one payload serves every receiver, so sender
+    ``j`` keeps its most demanding receiver's count (:func:`sender_maxima`)
+    by zeroing the packed columns past it in its permutation.  ``pair_w``
+    (host ``[Q, Q]`` widths) quantises each sender's surviving columns at
+    its receivers' maximum width through the straight-through
+    ``wire_quant`` (``rounding="stochastic"`` under ``round_key(key,
+    rank)``), and ``store_w`` ships them as sub-byte storage instead: the
+    fused ``pack_quant`` gives a uint8 payload ``[B, K·128·store_w/8]`` and
+    f32 scales ``[B, K]``, both all-gathered, and ``unpack_quant`` rebuilds
+    every sender's rows; gradients return through :class:`_DecodedGrad`.
+    ``wire_out``, a list, receives the ``(payload, scales)`` this worker
+    handed to the transport (``(fp32 payload, None)`` on the value path).
+
+    Returns ``(gathered [Q, B, F], collective_bits)``: every worker's
+    payload, padding rows included, crossing to ``Q - 1`` peers — at
+    :func:`~repro_torch.kernels.ops.per_block_wire_bits` of each sender's
+    width under ``pair_w`` (the same on every worker, computed from the
+    shared maps without a collective)."""
+    _check_channels(pair_k, pair_w, store_w, rounding)
     f = x.shape[-1]
     if f % LANE:
         raise ValueError(f"packed wire needs F % {LANE} == 0, got F={f}")
@@ -433,23 +516,59 @@ def packed_all_gather(x: torch.Tensor, mesh: WorkerMesh, *, key,
         if rate is None:
             raise ValueError("pass n_keep or a static rate")
         n_keep = max(int(f // LANE / max(float(rate), 1.0)), 1)
-    q, me = mesh.q, mesh.rank
-    kept, inv = _kept_maps(key, q, f, n_keep, x.device)
-    packed = wire_pack(x, *_own_maps(kept, inv, me))         # [B, K·128]
-    halo = wire_unpack(_gather(packed, mesh), inv, kept)      # [Q, B, F]
-    payload = packed.numel() * _nbits(packed.dtype)
-    return halo, torch.tensor(float(payload * q * (q - 1)), dtype=_F32)
+    q, me, dev = mesh.q, mesh.rank, x.device
+    kept_np, inv_np, pos_np = worker_block_maps_pos(key, q, f // LANE,
+                                                    n_keep)
+    kept, inv = _to(kept_np, dev), _to(inv_np, dev)
+    kept_me, inv_me = _own_maps(kept, inv, me)
+    bits = float(x.shape[0] * n_keep * LANE * 32 * q * (q - 1))
+    if pair_k is None:
+        halo = wire_unpack(_gather(wire_pack(x, kept_me, inv_me), mesh),
+                           inv, kept)
+        return halo, torch.tensor(bits, dtype=_F32)
+    k_send, w_send = sender_maxima(pair_k, pair_w)
+    rk = round_key(key, me) if pair_w is not None and \
+        rounding == "stochastic" else None
+    if store_w:
+        colmask = np.repeat(pos_np[me] < k_send[me], LANE)[None, :]
+        pre = x * _to(colmask, dev, _F32)
+        payload, scales = pack_quant(pre, kept_me, store_w,
+                                     qmax=qmax_of(w_send[me:me + 1]),
+                                     keys=rk)
+        if wire_out is not None:
+            wire_out.append((payload, scales))
+        halo = unpack_quant(mesh.all_gather(payload),
+                            mesh.all_gather(scales), inv, store_w)
+        if pre.requires_grad:
+            halo = _DecodedGrad.apply(
+                pre, halo, lambda g: mesh.all_reduce(g)[me], kept, inv_me)
+    else:
+        cmask = np.repeat(pos_np[me][kept_np[me]] < k_send[me], LANE)
+        packed = wire_pack(x, kept_me, inv_me) * _to(cmask[None, :], dev,
+                                                     _F32)
+        if pair_w is not None:
+            packed = wire_quant(packed, w_send[me], key=rk)
+        if wire_out is not None:
+            wire_out.append((packed.detach(), None))
+        halo = wire_unpack(_gather(packed, mesh), inv, kept)
+    if pair_w is not None:
+        per = x.shape[0] * n_keep * per_block_wire_bits(w_send)
+        return halo, per.sum() * float(q - 1)
+    return halo, torch.tensor(bits, dtype=_F32)
 
 
 @dataclasses.dataclass
 class PendingHops:
     """The issued half of a neighbour exchange: the hops this worker sent
-    ``[D, H, width]`` (still in autograd's graph), their transfer (None
-    at ``Q = 1``) and the unpacked feature width ``f``."""
+    ``[D, H, ·]``, still in autograd's graph (the on-wire rows, or under
+    ``store_w`` the full-width pre-quantisation rows), their transfer
+    (None at ``Q = 1``), the unpacked feature width ``f`` and the
+    sub-byte storage width (0: the hops are f32 rows)."""
 
     sent: torch.Tensor | None
     transfer: RingTransfer | None
     f: int
+    store_w: int = 0
 
 
 def neighbor_exchange_start(publish: torch.Tensor, send_slot: torch.Tensor,
@@ -468,69 +587,171 @@ def neighbor_exchange_start(publish: torch.Tensor, send_slot: torch.Tensor,
     ``d``, the boundary slots worker ``(rank + d) mod Q`` references and
     their 0/1 padding mask.  With ``n_keep`` the block is packed to its
     kept lane-blocks under ``fold_in(key, rank)`` before the hop rows
-    are sliced out of it.  Returns ``(pending, wire_bits)``: the
-    :class:`PendingHops` that :func:`neighbor_exchange_finish` consumes,
-    and the genuine rows shipped group-wide × on-wire columns × 32
-    (``None``, without the all-reduce, under ``group_bits=False``; see
-    :func:`compressed_all_gather`)."""
-    _scalar_rate_only("neighbor_exchange_start", rounding, store_w,
-                      pair_k=pair_k, pair_w=pair_w, resid=resid,
-                      resid_out=resid_out, wire_out=wire_out)
-    q, f = mesh.q, publish.shape[-1]
+    are sliced out of it.
+
+    ``pair_k`` (host ``[Q, Q]`` receiver × sender kept counts, ``n_keep``
+    their static maximum) masks hop ``d`` down to receiver ``(rank + d)
+    mod Q``'s own count; the hop keeps its ``n_keep`` blocks' shape, as
+    JAX's ``ppermute`` does.  ``pair_w`` (host ``[Q, Q]`` widths)
+    quantises each hop at its pair's width through the straight-through
+    ``wire_quant``; ``rounding="stochastic"`` draws hop ``d``'s uniforms
+    under ``round_key(key, rank, d - 1)``, the emulated backend's stream
+    for this (sender, hop).  ``store_w`` ships each hop as sub-byte
+    storage: ``pack_quant`` at the pair's ``qmax`` gives a uint8 payload
+    ``[D, H, K·128·store_w/8]`` and f32 scales ``[D, H, K]``, the two
+    buffers ride the ring, and :func:`neighbor_exchange_finish` rebuilds
+    the rows with ``unpack_quant``.  ``resid [D, H, F]`` is this worker's
+    error-feedback slab: added (at the pair's live rows and columns)
+    before quantising; the new error ``pre - dequant(sent)`` is appended
+    to ``resid_out`` — under ``store_w`` through one more
+    ``unpack_quant`` of this worker's own payload.  ``wire_out``, a list,
+    receives the ``(payload, scales)`` handed to the transport (``(rows,
+    None)`` for f32 hops).
+
+    Returns ``(pending, wire_bits)``: the :class:`PendingHops` that
+    :func:`neighbor_exchange_finish` consumes, and the genuine rows
+    shipped group-wide × on-wire columns × 32 (each pair's kept blocks at
+    :func:`~repro_torch.kernels.ops.per_block_wire_bits` of its width
+    under ``pair_w``; ``None``, without the all-reduce, under
+    ``group_bits=False``; see :func:`compressed_all_gather`)."""
+    if pair_k is not None and n_keep is None:
+        raise ValueError("pair_k needs n_keep (the map's static maximum)")
+    _check_channels(pair_k, pair_w, store_w, rounding, resid)
+    q, f, me = mesh.q, publish.shape[-1], mesh.rank
     width = f if n_keep is None else n_keep * LANE
-    wire_bits = None
-    if group_bits:
-        wire_bits = torch.zeros((), dtype=_F32) if q == 1 else \
-            mesh.all_reduce(send_valid.sum().to(_F32).reshape(1))[0] * \
-            float(width * 32.0)
     if q == 1:
-        return PendingHops(None, None, f), wire_bits
+        if resid is not None and resid_out is not None:
+            resid_out.append(resid)        # no wire at Q = 1: state carries
+        return PendingHops(None, None, f), \
+            torch.zeros((), dtype=_F32) if group_bits else None
     if n_keep is not None:
         if f % LANE:
             raise ValueError(f"packed p2p hops need F % {LANE} == 0, "
                              f"got F={f}")
         if key is None:
             raise ValueError("n_keep needs the shared exchange key")
-        kept, inv = _kept_maps(key, q, f, n_keep, publish.device)
-        publish = wire_pack(publish, *_own_maps(kept, inv, mesh.rank))
     d_hops, h_w = send_slot.shape
-    rows = publish.index_select(0, send_slot.reshape(-1).long()).reshape(
-        d_hops, h_w, width) * send_valid[..., None]
-    return PendingHops(rows, mesh.ring_start(rows, range(1, q)), f), \
-        wire_bits
+    slot = send_slot.reshape(-1).long()
+    valid = send_valid[..., None]
+    dev = publish.device
+    if pair_k is None:
+        wire_bits = None
+        if group_bits:
+            wire_bits = mesh.all_reduce(send_valid.sum().to(_F32).reshape(
+                1))[0] * float(width * 32.0)
+        if n_keep is not None:
+            kept, inv = _kept_maps(key, q, f, n_keep, dev)
+            publish = wire_pack(publish, *_own_maps(kept, inv, me))
+        rows = publish.index_select(0, slot).reshape(d_hops, h_w,
+                                                     width) * valid
+        return PendingHops(rows, mesh.ring_start(rows, range(1, q)), f), \
+            wire_bits
+    kept_np, inv_np, pos_np = worker_block_maps_pos(key, q, f // LANE,
+                                                    n_keep)
+    kept_me, inv_me = (_to(a[me], dev) for a in (kept_np, inv_np))
+    recv = (me + np.arange(1, q)) % q
+    k_d = np.asarray(pair_k)[recv, me]                         # [D]
+    w_d = None if pair_w is None else \
+        np.asarray(pair_w, np.float32)[recv, me]               # [D]
+    rks = None
+    if pair_w is not None and rounding == "stochastic":
+        rks = np.stack([round_key(key, me, d) for d in range(d_hops)])
+    if store_w:
+        # the sub-byte hops: each quantised at its pair's qmax into
+        # store_w-bit storage by one fused launch for every hop
+        colmask = np.repeat(pos_np[me][None, :] < k_d[:, None], LANE,
+                            axis=-1)[:, None, :]               # [D, 1, F]
+        rows = publish.index_select(0, slot).reshape(d_hops, h_w, f) * valid
+        if resid is not None:
+            rows = rows + resid * valid
+        sent = rows * _to(colmask, dev, _F32)
+        bufs = pack_quant(sent, kept_me.repeat(d_hops, 1), store_w,
+                          qmax=qmax_of(w_d), keys=rks)
+        if resid_out is not None:
+            own = unpack_quant(*bufs, inv_me.repeat(d_hops, 1), store_w)
+            resid_out.append((sent - own).detach())
+        if wire_out is not None:
+            wire_out.append(bufs)
+    else:
+        packed = wire_pack(publish, kept_me, inv_me)
+        cmask = _to(np.repeat(pos_np[me][kept_np[me]][None, :] <
+                              k_d[:, None], LANE, axis=-1)[:, None, :],
+                    dev, _F32)                                 # [D, 1, K·128]
+        sent = packed.index_select(0, slot).reshape(d_hops, h_w,
+                                                    width) * valid * cmask
+        if pair_w is not None:
+            if resid is not None:
+                r_pack = wire_pack(resid.reshape(d_hops * h_w, f), kept_me,
+                                   inv_me).reshape(sent.shape)
+                sent = sent + r_pack * cmask * valid
+            sent_q = wire_quant(sent, _to(w_d[:, None, None], dev), key=rks)
+            if resid_out is not None:
+                err = (sent - sent_q).detach()
+                resid_out.append(wire_unpack(
+                    err.reshape(d_hops * h_w, -1), inv_me, kept_me
+                ).reshape(d_hops, h_w, f))
+            sent = sent_q
+        if wire_out is not None:
+            wire_out.append((sent.detach(), None))
+        bufs = sent
+    wire_bits = None
+    if group_bits:
+        blk = np.float32(LANE * 32.0) if pair_w is None else \
+            per_block_wire_bits(w_d).numpy()
+        per_hop = send_valid.sum(-1).to(_F32) * _to(
+            k_d.astype(np.float32), dev) * _to(blk, dev)
+        wire_bits = mesh.all_reduce(per_hop.sum().reshape(1))[0]
+    return PendingHops(sent, mesh.ring_start(bufs, range(1, q)), f,
+                       store_w), wire_bits
 
 
 def neighbor_exchange_finish(pending: PendingHops, mesh: WorkerMesh, *,
                              key=None, n_keep: int | None = None
                              ) -> torch.Tensor:
     """Completion half of :func:`neighbor_exchange`: wait for the hops,
-    attach the inverse-ring gradient carrier, unpack each hop with its
-    sender's inverse map (hop ``d`` came from worker ``rank - d``) and
-    stack them into the compact ``[(Q-1)·H, F]`` halo (``[1, F]`` zeros
-    at ``Q = 1``)."""
+    attach the inverse-ring gradient path, unpack each hop with its
+    sender's inverse map (hop ``d`` came from worker ``rank - d``; sub-byte
+    hops through ``unpack_quant``) and stack them into the compact
+    ``[(Q-1)·H, F]`` halo (``[1, F]`` zeros at ``Q = 1``)."""
     q, f = mesh.q, pending.f
     if q == 1:
         return torch.zeros((1, f), dtype=_F32, device=mesh.device)
-    offsets = range(1, q)
+    back = tuple(-d for d in range(1, q))
     hops = mesh.ring_wait(pending.transfer)
-    if pending.sent.requires_grad:
-        hops = hops + _ppermute_grad_carrier(pending.sent, mesh, offsets)
+    grad = pending.sent.requires_grad
     if n_keep is None:
+        if grad:
+            hops = hops + _ppermute_grad_carrier(pending.sent, mesh,
+                                                 range(1, q))
         return hops.reshape(-1, f)
-    kept, inv = _kept_maps(key, q, f, n_keep, hops.device)
-    src = torch.as_tensor([(mesh.rank - d) % q for d in offsets],
-                          device=hops.device)
+    dev = pending.sent.device
+    kept, inv = _kept_maps(key, q, f, n_keep, dev)
+    src = torch.as_tensor([(mesh.rank - d) % q for d in range(1, q)],
+                          device=dev)
+    if pending.store_w:
+        out = unpack_quant(*hops, inv[src], pending.store_w)
+        if grad:
+            out = _DecodedGrad.apply(
+                pending.sent, out,
+                lambda g: mesh.ring_wait(mesh.ring_start(g, back)),
+                kept[src], inv[mesh.rank].repeat(q - 1, 1))
+        return out.reshape(-1, f)
+    if grad:
+        hops = hops + _ppermute_grad_carrier(pending.sent, mesh, range(1, q))
     return wire_unpack(hops, inv[src], kept[src]).reshape(-1, f)
 
 
 def neighbor_exchange(publish: torch.Tensor, send_slot: torch.Tensor,
                       send_valid: torch.Tensor, mesh: WorkerMesh, *,
-                      key=None, n_keep: int | None = None):
+                      key=None, n_keep: int | None = None, **channels):
     """Neighbour-only p2p halo exchange over the ring: at offset ``d``
     this worker sends only the rows worker ``(rank + d) mod Q``
-    references.  Returns ``(compact [(Q-1)·H, F], wire_bits)``; see
+    references.  Returns ``(compact [(Q-1)·H, F], wire_bits)``;
+    ``channels`` (``pair_k``, ``pair_w``, ``resid``, ``resid_out``,
+    ``rounding``, ``store_w``, ``wire_out``) as in
     :func:`neighbor_exchange_start`."""
     pending, bits = neighbor_exchange_start(publish, send_slot, send_valid,
-                                            mesh, key=key, n_keep=n_keep)
+                                            mesh, key=key, n_keep=n_keep,
+                                            **channels)
     return neighbor_exchange_finish(pending, mesh, key=key,
                                     n_keep=n_keep), bits

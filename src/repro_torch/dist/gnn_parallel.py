@@ -7,9 +7,10 @@ leading batch dimension.  The worker backend (the JAX package's
 ``shard_map`` path) runs one process per worker over ``torch.
 distributed``: :func:`make_worker_mesh` / :func:`spawn_workers` build the
 group, :func:`shard_graph` keeps a worker's ``[1, ...]`` block, and
-``make_train_step`` / ``make_eval_step`` take ``mesh=`` to run the same
-steps over the collectives of ``repro_torch.core.collectives``.  A
-layer's aggregation is
+``make_train_step`` / ``make_eval_step`` (and the closed loop's
+``ratectl.make_auto_train_step``) take ``mesh=`` to run the same steps
+over the collectives of ``repro_torch.core.collectives``.  A layer's
+aggregation is
 
 * a **local** ELL aggregation over edges whose endpoints are both owned
   (the ``ell_spmm`` kernel, one launch for all partitions; its backward
@@ -68,11 +69,10 @@ import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.collectives import (WorkerMesh, _gather,
-                                          _scalar_rate_only,
                                           compressed_all_gather,
                                           neighbor_exchange_finish,
                                           neighbor_exchange_start,
-                                          packed_all_gather)
+                                          packed_all_gather, sender_maxima)
 from repro_torch.core.varco import FULL_COMM, CommPolicy
 from repro_torch.kernels.ops import (WIRE_WIDTHS, ell_aggregate,
                                      per_block_wire_bits, qmax_of,
@@ -430,6 +430,16 @@ def _pair_ledger(meta: DistMeta, f: int, rate_map, row_bits, pair_err,
                       embed(pair_delta.to(f32))])
 
 
+def _select_maps(rate_map: np.ndarray, width_map, n_layers: int, li: int):
+    """Layer ``li``'s ``(rate map, ledger slice, width map)`` out of ``[Q,
+    Q]`` maps or per-layer ``[L, Q, Q]`` tensors, chosen by their rank."""
+    rm = rate_map if rate_map.ndim == 2 else rate_map[li]
+    wm = None
+    if width_map is not None:
+        wm = width_map if width_map.ndim == 2 else width_map[li]
+    return rm, 0 if n_layers == 1 else li, wm
+
+
 def _dead_mix(meta: DistMeta, dead) -> np.ndarray:
     """Per-receiver fraction of remote halo rows served by DEAD pairs
     (``[Q]`` float32 on the host): the blend weight of the local-only
@@ -640,14 +650,6 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         return _rows_of(rows, graph["p2p_send_slot"], b_sz) * \
             graph["p2p_send_valid"][..., None]
 
-    def select(li):
-        """Layer ``li``'s ``(rate map, ledger slice, width map)``."""
-        rm = rate_map if rate_map.ndim == 2 else rate_map[li]
-        wm = None
-        if width_map is not None:
-            wm = width_map if width_map.ndim == 2 else width_map[li]
-        return rm, 0 if n_layers == 1 else li, wm
-
     def pair_err_of(publish, pos_all, k_jd):
         """Per-pair dropped-block energy ``[Q, Q]``: ``k_jd [Q, D]`` is
         the kept count governing hop ``(j, d)``."""
@@ -662,7 +664,7 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         """The per-pair rate-map hop path: ``(sent [Q, D, H, F], ledger
         vector)``."""
         f = publish.shape[-1]
-        rm, lix, wm = select(li)
+        rm, lix, wm = _select_maps(rate_map, width_map, n_layers, li)
         nb = f // LANE
         n_keep = _keep_of(f, rate, packed_k)
         k_call = prng.fold_in(key, call)
@@ -775,23 +777,18 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         at the maximum of its receivers' kept counts and widths.  Returns
         ``(delivered [Q, B, F], ledger vector)``."""
         f = publish.shape[-1]
-        rm, lix, wm = select(li)
+        rm, lix, wm = _select_maps(rate_map, width_map, n_layers, li)
         nb = f // LANE
         n_keep = _keep_of(f, rate, packed_k)
         k_call = prng.fold_in(key, call)
         kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
         pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
-        eye = np.eye(q, dtype=bool)
         k_pairs = _pair_keep(nb, rm, n_keep)
-        k_send = np.maximum(np.where(eye, 0, k_pairs).max(axis=0), 1)  # [Q]
+        k_send, w_send = sender_maxima(k_pairs, wm)              # [Q]
         kept_t, inv_t = to_dev(kept), to_dev(inv)
-        w_send = rks = None
-        if wm is not None:
-            w_send = np.where(eye, np.float32(0.0), wm).max(axis=0)
-            w_send = np.where(w_send > 0.0, w_send,
-                              np.float32(32.0)).astype(np.float32)  # [Q]
-            if rounding == "stochastic":
-                rks = np.stack([round_key(k_call, j) for j in range(q)])
+        rks = None
+        if wm is not None and rounding == "stochastic":
+            rks = np.stack([round_key(k_call, j) for j in range(q)])
         if wm is not None and store_w:
             # sub-byte all-gather: the fused codec on [Q, B, F], each
             # sender at its own qmax under the storage width
@@ -1081,7 +1078,7 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
                           dead=None, rounding: str = "rint",
                           store_w: int = 0, wire_out: list | None = None):
     """AggregateFn of one worker of ``mesh`` (blocks ``[1, P, F]``): the
-    JAX package's ``_make_aggregate_shard`` for the scalar-rate wires.
+    JAX package's ``_make_aggregate_shard``.
 
     Dense wire: :func:`~repro_torch.core.collectives.compressed_all_gather`
     under the policy's compressor (the ``random_mask`` kernel for the
@@ -1091,20 +1088,28 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
     :func:`~repro_torch.core.collectives.neighbor_exchange_start`, packed
     under a compressing policy, with the local edges on ``ell_spmm``.
     The collectives' own bit counts are skipped (``group_bits=False``):
-    the ledger is the host-computed ``_exchange_bits``.
-    Worker ``i`` draws its kept blocks and masks from ``fold_in(fold_in(
-    key, call), i)``, the emulated backend's streams, so the two backends'
-    halos agree bitwise, and the ledger is the emulated one.
+    the ledger is computed on the host, ``_exchange_bits`` or the
+    per-pair ``_pair_ledger``.  Worker ``i`` draws its kept blocks and
+    masks from ``fold_in(fold_in(key, call), i)``, the emulated backend's
+    streams, so the two backends' halos agree bitwise, and the ledger is
+    the emulated one.
+
+    A host ``[Q, Q]`` (or per-layer ``[L, Q, Q]``) ``rate_map``, with an
+    optional ``width_map`` and ``store_w``, runs the closed loop's
+    channels of the p2p and packed collectives at the emulated backend's
+    kept counts, widths and ``rounding`` streams.  The per-pair ledger's
+    ``pair_err`` is this worker's dropped-block energy per hop,
+    all-gathered into the ``[Q, Q]`` matrix, so every worker's ledger is
+    the same bytes.  ``resid``/``resid_out`` are the error-feedback
+    residuals on the p2p wire: one ``[1, D, H, F]`` slab of this worker
+    per exchange call (its row of the emulated ``[Q, D, H, F]`` state).
+    ``wire_out``, a list, receives this worker's shipped buffers per
+    rate-map exchange.  The fault channel raises ``NotImplementedError``
+    (queue 1 item 5).
 
     The same ``start``/``complete`` split as the emulated oracle: on the
     p2p wire ``start`` posts the hops and ``complete`` runs the ELL local
-    aggregation before it waits for them.  The rate-map, width-map,
-    residual and byte-storage channels and stochastic rounding raise
-    ``NotImplementedError`` (queue 1 item 4), the fault channel too (item
-    5)."""
-    _scalar_rate_only("the worker backend's aggregation", rounding, store_w,
-                      rate_map=rate_map, width_map=width_map, resid=resid,
-                      resid_out=resid_out, wire_out=wire_out)
+    aggregation before it waits for them."""
     faults = [k for k, v in (("fskip", fskip), ("fcache", fcache),
                              ("fcache_out", fcache_out), ("dead", dead))
               if v is not None]
@@ -1117,24 +1122,102 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
                          f"{meta.q}")
     p2p = meta.wire == "p2p"
     packed_wire = meta.wire == "packed"
+    if rate_map is not None and not (p2p or packed_wire):
+        raise ValueError("per-pair rate maps need wire='packed' or 'p2p'; "
+                         "the dense wire keeps the scalar path")
+    if width_map is not None and rate_map is None:
+        raise ValueError("per-pair width maps ride the rate-map wire; pass "
+                         "rate_map alongside width_map")
+    if resid is not None and not (p2p and width_map is not None):
+        raise ValueError("error-feedback residuals ride the quantised p2p "
+                         "wire; pass width_map with wire='p2p'")
+    if store_w and width_map is None:
+        raise ValueError("store_w (sub-byte storage) rides the width map; "
+                         "pass width_map alongside it")
+    n_layers = _rate_tensor_layers(meta, rate_map)
+    if width_map is not None:
+        _rate_tensor_layers(meta, width_map)
+        width_map = np.asarray(width_map, np.float32)
+    if rate_map is not None:
+        rate_map = np.asarray(rate_map, np.float32)
     compressor = policy.compressor() if policy.compresses and \
         meta.wire == "dense" else None
-    q, p_sz, b_sz = meta.q, meta.part_size, meta.halo_size
+    q, p_sz, b_sz, me = meta.q, meta.part_size, meta.halo_size, mesh.rank
+    d_hops = max(q - 1, 1)
     dev = graph["features"].device
     rate = torch.as_tensor(rate, dtype=_F32)
     calls = itertools.count()
 
+    def pair_err_of(publish, pos_me, k_d):
+        """The replicated ``[Q, Q]`` dropped-block energy: this worker's
+        per hop ``[D]`` (``k_d`` the kept count governing each of its
+        hops), all-gathered."""
+        if "p2p_send_slot" not in graph:
+            return torch.zeros((q, q), dtype=_F32, device=dev)
+        energy = _pair_hop_energy(publish.detach()[None],
+                                  graph["p2p_send_slot"],
+                                  graph["p2p_send_valid"])[0]  # [D, nb]
+        dropped = torch.as_tensor(pos_me[None, :] >= k_d[:, None],
+                                  dtype=_F32, device=dev)
+        return _scatter_pairs(mesh.all_gather((energy * dropped).sum(-1)),
+                              q)
+
+    def start_rate_map(li, publish, call):
+        """The rate-map exchange of this worker: ``(token, ledger
+        vector)``."""
+        f = publish.shape[-1]
+        rm, lix, wm = _select_maps(rate_map, width_map, n_layers, li)
+        nb = f // LANE
+        n_keep = _keep_of(f, rate, packed_k)
+        k_call = prng.fold_in(key, call)
+        k_pairs = _pair_keep(nb, rm, n_keep)                     # [Q, Q]
+        pos_me = worker_block_maps_pos(k_call, q, nb, n_keep)[2][me]
+        sw = store_w if wm is not None else 0
+        if p2p:
+            r_out: list = []
+            pending, _ = neighbor_exchange_start(
+                publish, graph["p2p_send_slot"][0],
+                graph["p2p_send_valid"][0], mesh, key=k_call,
+                n_keep=n_keep, pair_k=k_pairs, pair_w=wm,
+                resid=None if resid is None else resid[call][0],
+                resid_out=None if resid is None else r_out,
+                rounding=rounding, store_w=sw, wire_out=wire_out,
+                group_bits=False)
+            if resid is not None and resid_out is not None:
+                resid_out.append(r_out[0][None] if r_out else resid[call])
+            token = (pending, k_call, n_keep)
+            k_d = k_pairs[(me + np.arange(1, d_hops + 1)) % q, me]
+            row_bits = k_pairs.astype(np.float32) * (
+                per_block_wire_bits(wm).numpy() if wm is not None
+                else np.float32(LANE * 32.0))
+        else:
+            halo, _ = packed_all_gather(
+                publish, mesh, key=k_call, n_keep=n_keep, pair_k=k_pairs,
+                pair_w=wm, rounding=rounding, store_w=sw, wire_out=wire_out)
+            token = halo.reshape(q * b_sz, f)
+            k_send, w_send = sender_maxima(k_pairs, wm)
+            k_d = np.full(d_hops, k_send[me])
+            row_bits = np.tile(k_send.astype(np.float32) * (
+                per_block_wire_bits(w_send).numpy() if wm is not None
+                else np.float32(LANE * 32.0)), (q, 1))
+        bits = _pair_ledger(meta, f, rm, row_bits,
+                            pair_err_of(publish, pos_me, k_d),
+                            torch.zeros((q, q), dtype=_F32, device=dev),
+                            li=lix, n_layers=n_layers, width_map=wm)
+        return token, bits
+
     def start(li, x):                                  # x: [1, P, F]
         """Issue layer ``li``'s exchange on this worker.  Returns
-        ``(token, ledger [analytic, transport])``: the posted hops on the
-        p2p wire, the gathered ``[Q·B, F]`` halo on the others."""
-        del li
+        ``(token, ledger)``: the posted hops on the p2p wire, the gathered
+        ``[Q·B, F]`` halo on the others."""
         call = next(calls)
         f = x.shape[-1]
         if not policy.communicates:
             return None, torch.zeros((2,), dtype=_F32, device=dev)
         publish = (_rows_of(x, graph["send_idx"], p_sz) *
                    graph["send_valid"][..., None])[0]  # [B, F]
+        if rate_map is not None:
+            return start_rate_map(li, publish, call)
         n_keep = wire_width = k_call = None
         if packed_wire or (p2p and policy.compresses):
             n_keep = _keep_of(f, rate, packed_k)
@@ -1187,21 +1270,42 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
 
 
 def first_halo(graph: dict, meta: DistMeta, policy: CommPolicy, key,
-               x: torch.Tensor, mesh: WorkerMesh | None = None
-               ) -> torch.Tensor:
+               x: torch.Tensor, mesh: WorkerMesh | None = None, plan=None,
+               rounding: str = "rint",
+               resid_out: list | None = None) -> torch.Tensor:
     """The halo of layer 0's exchange of ``x`` at step 0's rate, without
     autograd: what the two backends' halos are held to each other by.  The
     gathered ``[Q·B, F]`` halo on the all-gather wires; on the p2p wire
     the compact hop buffers, ``[Q, C, F]`` emulated (``mesh=None``), a
-    worker's own ``[C, F]`` under ``mesh``."""
-    rate = policy.rate(0) if policy.communicates else 1.0
-    kb = dict(_packed_k_for(meta, float(rate)))
+    worker's own ``[C, F]`` under ``mesh``.  ``plan`` (a ``RatePlan`` of
+    ``repro_torch.dist.ratectl``) runs the exchange under its rate and
+    width maps instead, as the auto step does, rounded by ``rounding``;
+    ``resid_out``, a list, then receives the error-feedback residual the
+    exchange leaves from zero residuals on the p2p wire (``[Q, D, H, F]``
+    emulated, a worker's ``[1, D, H, F]`` slab) when the plan
+    quantises."""
+    kw: dict = {}
+    if plan is None:
+        rate = policy.rate(0) if policy.communicates else 1.0
+        kb = dict(_packed_k_for(meta, float(rate)))
+    else:
+        from repro_torch.dist.ratectl.driver import plan_widths
+        rate, rm, wm = 1.0, np.asarray(plan.rates, np.float32), \
+            plan_widths(meta, plan)
+        kb = dict(_packed_pair_k_for(meta, rm))
+        kw = dict(rate_map=rm, width_map=wm, rounding=rounding,
+                  store_w=_packed_store_w(meta, wm))
+        if resid_out is not None and wm is not None and meta.wire == "p2p":
+            rows = meta.q if mesh is None else 1
+            kw.update(resid_out=resid_out, resid=(torch.zeros(
+                (rows, max(meta.q - 1, 1), meta.p2p_hop_width,
+                 x.shape[-1]), dtype=_F32, device=x.device),))
     with torch.no_grad():
         if mesh is None:
             return _make_aggregate_emulated(graph, meta, policy, rate, key,
-                                            packed_k=kb).start(0, x)[0]
+                                            packed_k=kb, **kw).start(0, x)[0]
         token = _make_aggregate_shard(graph, meta, policy, rate, key, mesh,
-                                      packed_k=kb).start(0, x)[0]
+                                      packed_k=kb, **kw).start(0, x)[0]
         if meta.wire != "p2p":
             return token
         pending, k_call, n_keep = token
@@ -1282,6 +1386,30 @@ def _optimize(opt: Optimizer, grads, opt_state, params):
         return apply_updates(params, updates), new_state
 
 
+def _synced_update(opt: Optimizer, loss, grads, opt_state, params,
+                   mesh: WorkerMesh | None, sync: str):
+    """One update from this process's loss and gradients: ``(loss,
+    params, opt_state)``.  Emulated (``mesh=None``) they are already the
+    centralized ones.  On a worker the loss is all-reduced and, under
+    ``sync="grad"``, the gradients too (one round trip) before one update;
+    under ``"fedavg"`` the update is local and the floating parameters and
+    optimiser state are averaged over the workers (Algorithm 1's server
+    step)."""
+    if mesh is not None and sync == "grad":
+        # the loss rides the gradients' all-reduce: one round trip
+        summed = _all_reduce_leaves([loss.reshape(1), *tree_leaves(grads)],
+                                    mesh)
+        loss, rest = summed[0][0], iter(summed[1:])
+        grads = tree_map(lambda _: next(rest), grads)
+    elif mesh is not None:
+        loss = mesh.all_reduce(loss.reshape(1))[0]
+    new_params, new_state = _optimize(opt, grads, opt_state, params)
+    if mesh is not None and sync == "fedavg":
+        new_params = _pmean_inexact(new_params, mesh)
+        new_state = _pmean_inexact(new_state, mesh)
+    return loss, new_params, new_state
+
+
 def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
                     meta: DistMeta, mesh: WorkerMesh | None = None,
                     sync: str = "grad"):
@@ -1353,18 +1481,8 @@ def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
             return _local_loss_fn(p, cfg, graph, agg, meta)
 
         (loss, bits), grads = _value_and_grad(loss_fn, params)
-        if mesh is not None and sync == "grad":
-            # the loss rides the gradients' all-reduce: one round trip
-            summed = _all_reduce_leaves([loss.reshape(1),
-                                         *tree_leaves(grads)], mesh)
-            loss, rest = summed[0][0], iter(summed[1:])
-            grads = tree_map(lambda _: next(rest), grads)
-        elif mesh is not None:
-            loss = mesh.all_reduce(loss.reshape(1))[0]
-        new_params, new_state = _optimize(opt, grads, opt_state, params)
-        if mesh is not None and sync == "fedavg":
-            new_params = _pmean_inexact(new_params, mesh)
-            new_state = _pmean_inexact(new_state, mesh)
+        loss, new_params, new_state = _synced_update(
+            opt, loss, grads, opt_state, params, mesh, sync)
         return new_params, new_state, _step_metrics(loss, rate, bits)
 
     return step

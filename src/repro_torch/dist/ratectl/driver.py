@@ -1,13 +1,14 @@
 """Trainer integration: auto policies → controller + per-pair train step.
 
-Counterpart of ``repro/dist/ratectl/driver.py`` (emulated backend):
+Counterpart of ``repro/dist/ratectl/driver.py``, on both backends:
 
 * :func:`make_controller` — instantiate the named controller (``budget``,
   ``error``, ``stale`` or ``qos``) with the shared budget pacing;
 * :func:`make_auto_train_step` — the per-pair-rate Algorithm-1 step on
   the p2p or packed wire: the compression operand is a host ``[Q, Q]``
   (or per-layer ``[L, Q, Q]``) rate map, optional width map and skip
-  mask planned by the controller each step;
+  mask planned by the controller each step; emulated, or with ``mesh=``
+  one worker of a process group;
 * :func:`init_halo_cache` / :func:`init_wire_residuals` — the per-exchange
   buffers the cache channel carries (the ``stale`` controller's and
   serving's hop cache, or the error-feedback residuals of a quantising
@@ -31,10 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.varco import CommPolicy
-from repro_torch.dist.gnn_parallel import (DistMeta, _make_aggregate_emulated,
-                                           _optimize, _packed_pair_k_for,
+from repro_torch.dist.gnn_parallel import (DistMeta, _local_loss_fn,
+                                           _make_aggregate_emulated,
+                                           _make_aggregate_shard,
+                                           _packed_pair_k_for,
                                            _packed_pair_w_for, _packed_store_w,
-                                           _per, _snap_width, _value_and_grad)
+                                           _per, _snap_width, _synced_update,
+                                           _value_and_grad)
 from repro_torch.dist.ratectl.base import RateController, RatePlan, make_pacing
 from repro_torch.dist.ratectl.budget import budget_controller
 from repro_torch.dist.ratectl.error import error_controller
@@ -42,9 +46,13 @@ from repro_torch.dist.ratectl.qos import qos_controller
 from repro_torch.dist.ratectl.stale import stale_controller
 from repro_torch.kernels.ops import default_wire_rounding
 from repro_torch.kernels.varco_pack import LANE
-from repro_torch.nn.gnn import GNNConfig, gnn_forward, masked_loss_and_correct
+from repro_torch.nn.gnn import GNNConfig
 
 _F32 = torch.float32
+#: the JAX package's reason for refusing the stale controller on a mesh
+STALE_ON_MESH = ("hop reuse is emulated-backend only: a shape-uniform SPMD "
+                 "ppermute cannot drop individual pairs' buffers (DESIGN.md "
+                 "§3.6); run the stale controller with mesh=None")
 
 
 def exchange_widths(cfg) -> tuple[int, ...]:
@@ -104,26 +112,28 @@ def make_controller(policy: CommPolicy, meta, cfg, total_steps: int,
     raise ValueError(f"unknown controller {policy.controller!r}")
 
 
-def init_halo_cache(meta, cfg, device="cuda") -> tuple:
+def init_halo_cache(meta, cfg, device="cuda", mesh=None) -> tuple:
     """Zero-initialised per-exchange hop buffers (``[Q, D, H, width]``
     per exchange call; p2p wire) for the ``stale`` controller and
     serving's drift-gated hop cache.  Neither skips before the first
-    exchange fills them, so the zeros are never read."""
+    exchange fills them, so the zeros are never read.  With a worker
+    ``mesh`` each buffer is this worker's ``[1, D, H, width]`` row."""
     d = max(meta.q - 1, 1)
-    return tuple(torch.zeros((meta.q, d, meta.p2p_hop_width, w),
-                             dtype=_F32, device=device)
+    rows = meta.q if mesh is None else 1
+    return tuple(torch.zeros((rows, d, meta.p2p_hop_width, w), dtype=_F32,
+                             device=device)
                  for w in exchange_widths(cfg))
 
 
-def init_wire_residuals(meta, cfg, device="cuda") -> tuple:
+def init_wire_residuals(meta, cfg, device="cuda", mesh=None) -> tuple:
     """Zero-initialised error-feedback residuals for quantising policies
     on the p2p wire (``max_width < 32``, never under ``stale``): one
-    full-width ``[Q, D, H, width]`` buffer per
-    exchange call, the same shapes as :func:`init_halo_cache`.  Each step
-    the residual is added to the pre-quantisation rows and replaced by
-    the new quantisation error, so the wire's rounding error is re-shipped
-    instead of lost."""
-    return init_halo_cache(meta, cfg, device)
+    full-width ``[Q, D, H, width]`` buffer per exchange call (a worker's
+    ``[1, D, H, width]`` slab with ``mesh``), the same shapes as
+    :func:`init_halo_cache`.  Each step the residual is added to the
+    pre-quantisation rows and replaced by the new quantisation error, so
+    the wire's rounding error is re-shipped instead of lost."""
+    return init_halo_cache(meta, cfg, device, mesh)
 
 
 def plan_widths(meta, plan: RatePlan):
@@ -185,16 +195,21 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     ``rounding`` is ``"rint"`` (round half to even) or ``"stochastic"``
     (``floor(v + u)`` under the per-pair ``round_key`` stream); ``None``
     picks by the device each step runs on (``ops.
-    default_wire_rounding``): stochastic on the card, rint on the CPU."""
+    default_wire_rounding``): stochastic on the card, rint on the CPU.
+
+    With a worker ``mesh`` (``gnn_parallel.make_worker_mesh``) the step
+    runs this worker's ``shard_graph`` block over the group's collectives,
+    its ``cache`` this worker's ``[1, D, H, F]`` residual slabs
+    (``init_wire_residuals(..., mesh=mesh)``): the loss all-reduced, and
+    the gradients too under ``sync="grad"``, or under ``"fedavg"`` a local
+    update and the mean of the floating parameters and optimiser state.
+    Every worker's ledger, and so its metrics, are the same bytes, and a
+    controller fed them plans alike on every worker.  The stale
+    controller's hop reuse raises ``ValueError`` there, as in the JAX
+    package."""
     if policy.mode != "auto":
         raise ValueError(f"make_auto_train_step needs an 'auto' policy, "
                          f"got mode {policy.mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the closed loop is not ported to the worker group: "
-            "make_auto_train_step(mesh=...) is ROADMAP.md queue 1 item 4; "
-            "the open-loop policies run there through "
-            "gnn_parallel.make_train_step(mesh=...)")
     if meta.wire not in ("packed", "p2p"):
         raise ValueError(f"per-pair rate maps need wire='packed' or 'p2p', "
                          f"got {meta.wire!r} (the dense wire is "
@@ -211,6 +226,11 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
     if stale and meta.wire != "p2p":
         raise ValueError("the stale controller reuses per-pair hop buffers; "
                          "it needs wire='p2p'")
+    if stale and mesh is not None:
+        raise ValueError(STALE_ON_MESH)
+    if mesh is not None and mesh.q != meta.q:
+        raise ValueError(f"the mesh has {mesh.q} workers, the partitioning "
+                         f"{meta.q}")
     if rounding not in (None, "rint", "stochastic"):
         raise ValueError(f"rounding must be 'rint' or 'stochastic', "
                          f"got {rounding!r}")
@@ -224,24 +244,27 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
         wm = plan_widths(meta, plan)
         ef = use_ef and wm is not None and bool(cache)
         cache_out: list = []
+        kw = dict(packed_k=kb, rate_map=rm, width_map=wm,
+                  resid=cache if ef else None,
+                  resid_out=cache_out if ef else None,
+                  store_w=_packed_store_w(meta, wm), rounding=mode)
+        one = torch.ones((), dtype=_F32)
 
         def loss_fn(p):
-            agg = _make_aggregate_emulated(
-                graph, meta, policy, torch.ones((), dtype=_F32), key,
-                packed_k=kb, rate_map=rm, width_map=wm,
-                skip=np.asarray(plan.skip, np.float32) if stale else None,
-                cache=cache if stale else None,
-                cache_out=cache_out if stale else None,
-                resid=cache if ef else None,
-                resid_out=cache_out if ef else None,
-                store_w=_packed_store_w(meta, wm), rounding=mode)
-            logits, bits = gnn_forward(p, cfg, graph["features"], agg)
-            loss_sum, _ = masked_loss_and_correct(
-                logits, graph["labels"], graph["train_mask"])
-            return loss_sum * _per(meta.n_train), bits
+            if mesh is None:
+                agg = _make_aggregate_emulated(
+                    graph, meta, policy, one, key,
+                    skip=np.asarray(plan.skip, np.float32) if stale
+                    else None, cache=cache if stale else None,
+                    cache_out=cache_out if stale else None, **kw)
+            else:
+                agg = _make_aggregate_shard(graph, meta, policy, one, key,
+                                            mesh, **kw)
+            return _local_loss_fn(p, cfg, graph, agg, meta)
 
         (loss, bits), grads = _value_and_grad(loss_fn, params)
-        new_params, new_state = _optimize(opt, grads, opt_state, params)
+        loss, new_params, new_state = _synced_update(
+            opt, loss, grads, opt_state, params, mesh, sync)
         metrics = _auto_metrics(loss, rm, bits.detach().cpu(), meta.q, n_ex)
         return new_params, new_state, metrics, \
             tuple(cache_out) if cache_out else tuple(cache)

@@ -1,8 +1,8 @@
 """Full-batch distributed GNN trainer (the paper's experimental loop).
 
-Counterpart of ``repro/train/trainer.py`` on the emulated backend: runs
-Algorithm 1 for ``epochs`` steps (full batch, one gradient step per
-epoch) with every partition stacked on one device, tracking the
+Counterpart of ``repro/train/trainer.py``: runs Algorithm 1 for
+``epochs`` steps (full batch, one gradient step per epoch) with every
+partition stacked on one device, or one process per worker, tracking the
 communication ledger so accuracy can be plotted against epochs or
 communicated floats.
 """
@@ -42,11 +42,13 @@ class History:
     epoch) and, under faults, ``cached_pairs``/``dead_pairs`` (the
     ladder's CACHED and DEAD pair counts of the step) and, on the worker
     backend, ``sent_bytes``/``staged_bytes``/``comm_s`` (``WorkerMesh``'s
-    counters for the step: the bytes this worker handed the transport,
-    computed from the payload sizes with an all-reduce counted as a
-    ring's share, not read off the wire; the bytes copied between card
-    and host for them; the host seconds spent in the transport) are the
-    port's additions; ``row()`` keeps the JAX package's CSV columns.
+    counters for the step: the bytes this worker handed the transport —
+    the uint8 payloads and f32 scales of a sub-byte wire, the f32 rows
+    and cotangents otherwise — computed from the payload sizes with an
+    all-reduce counted as a ring's share, not read off the wire; the
+    bytes copied between card and host for them; the host seconds spent
+    in the transport) are the port's additions; ``row()`` keeps the JAX
+    package's CSV columns.  Every column fills alike on both backends.
     """
     epoch: list = dataclasses.field(default_factory=list)
     loss: list = dataclasses.field(default_factory=list)
@@ -230,12 +232,20 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             "varco:linear:5", 3, compressor="blockmask"), epochs=3,
             wire="p2p", device="cpu", use_shard_map=True)
 
-    The worker backend runs the open-loop policies on every wire, under
-    both ``sync`` modes; auto policies, ``faults``, ``checkpoint_dir``
-    and ``resume`` raise ``NotImplementedError`` with it.  Spawned
-    workers receive the arguments pickled: pass ``optimizer=None`` (the
-    AdamW of ``lr``/``weight_decay``) or start the workers yourself, since
-    the optimisers are closures.
+    The worker backend runs the open-loop policies on every wire and the
+    closed loop (``auto:budget``, ``auto:error``, ``auto:qos``, their
+    widths and per-layer plans) on the p2p and packed wires, under both
+    ``sync`` modes: every worker runs the controller on the same
+    replicated metrics and so plans alike, each holds its own
+    error-feedback residual slabs, and a quantised hop crosses the
+    process boundary as its uint8 payload and f32 scales.
+    ``auto:stale`` raises ``ValueError`` there, as in the JAX package (a
+    shape-uniform ring cannot drop a pair's buffer); ``faults``,
+    ``checkpoint_dir`` and ``resume`` raise ``NotImplementedError``
+    (ROADMAP.md queue 1 item 5).  Spawned workers receive the arguments
+    pickled: pass ``optimizer=None`` (the AdamW of ``lr``/
+    ``weight_decay``) or start the workers yourself, since the optimisers
+    are closures.
 
     An auto policy's quantised wire rounds by the device's default (``ops.
     default_wire_rounding``): stochastically on the card, as the JAX
@@ -256,15 +266,17 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     fault = faults is not None
     mesh = None
     if use_shard_map:
-        for what, asked, item in (
-                ("an auto policy", auto, 4), ("faults=", fault, 5),
-                ("checkpoint_dir=", checkpoint_dir, 5),
-                ("resume=True", resume, 5)):
+        for what, asked in (("faults=", fault),
+                            ("checkpoint_dir=", checkpoint_dir),
+                            ("resume=True", resume)):
             if asked:
                 raise NotImplementedError(
                     f"train_gnn(use_shard_map=True) with {what} is not "
                     f"ported to the worker group (ROADMAP.md queue 1 item "
-                    f"{item})")
+                    f"5)")
+        if auto and policy.controller == "stale":
+            from repro_torch.dist.ratectl.driver import STALE_ON_MESH
+            raise ValueError(STALE_ON_MESH)
         if not (dist.is_available() and dist.is_initialized()):
             kwargs = dict(q=q, scheme=scheme, policy=policy, epochs=epochs,
                           lr=lr, weight_decay=weight_decay, hidden=hidden,
@@ -358,7 +370,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             return init_halo_cache(meta_, cfg, device)
         if policy.max_width < 32 and meta_.wire == "p2p":
             # the cache channel carries error-feedback residuals instead
-            return init_wire_residuals(meta_, cfg, device)
+            # (a worker holds its own slab)
+            return init_wire_residuals(meta_, cfg, device, mesh)
         return ()
 
     def _make_step(meta_):
@@ -366,7 +379,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             return faultlib.make_fault_train_step(cfg, policy, opt, meta_,
                                                   sync=sync)
         if auto:
-            return make_auto_train_step(cfg, policy, opt, meta_, sync=sync)
+            return make_auto_train_step(cfg, policy, opt, meta_, mesh=mesh,
+                                        sync=sync)
         return make_train_step(cfg, policy, opt, meta_, mesh=mesh, sync=sync)
 
     ctl = ctl_state = None

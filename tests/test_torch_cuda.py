@@ -1068,3 +1068,45 @@ def test_cuda_worker_backend_step_matches_emulated(cuda_device):
     for a, b in zip(got["params"], optim.tree_leaves(params)):
         torch.testing.assert_close(a, b.cpu(), rtol=0, atol=1e-4)
     assert all(n > 0 for n in got["launches"].values()), got["launches"]
+
+
+@pytest.mark.cuda
+def test_cuda_worker_backend_auto_step_matches_emulated(cuda_device):
+    """Two worker processes on the card over ``gloo``: one p2p
+    ``auto:budget:…:w8`` step (``make_auto_train_step(mesh=...)``) under a
+    w8 plan, rounded stochastically (the card's default), launches the
+    stochastic codec and ``varco_unpack_quant`` in the worker, leaves the
+    emulated step's first residual slab bitwise (the same per-row keys)
+    and its loss within 1e-4."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.dist.ratectl import (init_wire_residuals,
+                                          make_auto_train_step)
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.nn.gnn import GNNConfig, init_gnn
+    from repro_torch.train import optim
+
+    import torch_dist_cases as cases
+
+    got = gp.spawn_workers(cases.card_auto_step, 2, device=cuda_device,
+                           backend="gloo")
+    g = tiny_graph(n=cases.N, feat_dim=cases.F)
+    pg = partition_graph(g, 2, seed=0)
+    graph = attach_p2p(pg.device_arrays(cuda_device), pg, cuda_device)
+    cfg = GNNConfig(conv="sage", in_dim=cases.F, hidden=cases.HIDDEN,
+                    out_dim=g.num_classes, layers=cases.LAYERS)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0),
+                      device=cuda_device)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    opt = optim.sgd(cases.LR)
+    step = make_auto_train_step(cfg, CommPolicy.parse("auto:budget:1e9:w8",
+                                                      1), opt, meta)
+    _, _, m, cache = step(params, opt.init(params), graph, prng.key(0),
+                          cases.fixed_plan("w8", 2),
+                          init_wire_residuals(meta, cfg, cuda_device))
+    assert abs(got["loss"] - float(m["loss"])) <= 1e-4
+    assert torch.equal(got["resid"][0], cache[0][0].cpu())
+    assert all(n > 0 for n in got["launches"].values()), got["launches"]

@@ -16,8 +16,11 @@ emulated wires and against the JAX package's collectives under
   another order; the hops' exact);
 * the same outputs bitwise and bits exactly against JAX's
   ``compressed_all_gather`` / ``packed_all_gather`` / ``neighbor_exchange``
-  under ``shard_map`` on 2 and 4 virtual CPU devices, in one subprocess;
-* the wires the group does not carry yet raise ``NotImplementedError``.
+  under ``shard_map`` on 2 and 4 virtual CPU devices, in one subprocess.
+
+The closed loop's channels of the same collectives (rate and width maps,
+residuals, stochastic rounding, sub-byte storage) are held in
+``tests/test_torch_dist_auto.py``.
 
 Each Q's group is spawned once, in a module-scoped fixture.
 """
@@ -34,7 +37,6 @@ import pytest
 import torch
 
 from repro_torch import prng
-from repro_torch.core import collectives as col
 from repro_torch.core.compression import get_compressor
 from repro_torch.dist import gnn_parallel as gp
 from repro_torch.kernels.ops import wire_pack, wire_unpack
@@ -184,19 +186,3 @@ def test_collective_matches_jax_shard_map(dist_out, jax_out, q, case):
         out, bits, _ = dist_out[q][r][case]
         np.testing.assert_array_equal(out.numpy(), want[r])
         assert bits == float(jax_out[f"{q}_{case}_bits"]), (q, case, bits)
-
-
-@pytest.mark.parametrize("kw", [{"pair_k": np.ones((2, 2))},
-                                {"pair_w": np.ones((2, 2))},
-                                {"wire_out": []}, {"store_w": 4},
-                                {"rounding": "stochastic"}])
-def test_closed_loop_channels_raise_for_the_next_slice(kw):
-    mesh = col.WorkerMesh(q=2, rank=0, device=torch.device("cpu"),
-                          backend="gloo")
-    x = torch.zeros((4, 256))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        col.packed_all_gather(x, mesh, key=prng.key(0), n_keep=1, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        col.neighbor_exchange_start(x, torch.zeros((1, 2), dtype=torch.int32),
-                                    torch.ones((1, 2)), mesh,
-                                    key=prng.key(0), n_keep=1, **kw)

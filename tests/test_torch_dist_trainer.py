@@ -7,9 +7,9 @@ CPU, one ``gloo`` process per worker, against the emulated backend.
   floats equal, and every worker shipped bytes each step;
 * the same run booted from a shard directory, each worker loading only
   its own partition's file;
-* the refusals: auto policies, ``faults=``, ``checkpoint_dir=`` and
-  ``resume=True`` with ``use_shard_map`` (``NotImplementedError``, named
-  for the next slices), ``backend="nccl"`` on the CPU, a worker group
+* the refusals: ``faults=``, ``checkpoint_dir=`` and ``resume=True``
+  with ``use_shard_map`` (``NotImplementedError``, named for the next
+  slice), ``backend="nccl"`` on the CPU, a worker group
   without a process group, an argument the workers cannot receive (an
   optimiser closure), ``shard_graph`` on an unstacked leaf; and a
   worker's exception re-raised in the parent.
@@ -76,10 +76,10 @@ def test_train_gnn_worker_backend_from_shards(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"policy": CommPolicy.parse("auto:budget:1e9", EPOCHS)}, 4),
     ({"faults": FaultSchedule(q=Q, drop_rate=0.25)}, 5),
     ({"checkpoint_dir": "ck"}, 5),
-    ({"checkpoint_dir": "ck", "resume": True}, 5)])
+    ({"checkpoint_dir": "ck", "resume": True}, 5)],
+    ids=["extra1-5", "extra2-5", "extra3-5"])
 def test_worker_backend_refuses_the_next_slices(extra, item):
     g = tiny_graph(n=64, feat_dim=128)
     with pytest.raises(NotImplementedError,

@@ -241,25 +241,24 @@ def test_hand_made_mixed_width_plan_matches_jax(setup, fp32_pair):
 
 
 def test_port_steps_refuse_unported_options(setup):
-    """The closed loop on the worker group still raises; the open-loop
-    step runs there (its parity: tests/test_torch_dist_train.py), and
-    refuses a mesh of another size.  Stochastic rounding and the
+    """The open-loop and closed-loop steps run on the worker group (their
+    parity: tests/test_torch_dist_train.py, test_torch_dist_auto.py) and
+    refuse a mesh of another size.  Stochastic rounding and the
     ``error``/``stale`` controllers are ported now, so the same calls
     build a step or controller and run it once (their parity with the
     JAX package: tests/test_torch_ratectl.py, test_torch_auto_wires.py)."""
     from repro_torch.core.collectives import WorkerMesh
 
     s = setup
+    two = WorkerMesh(q=2, rank=0, device=torch.device("cpu"),
+                     backend="gloo")
     with pytest.raises(ValueError, match="mesh has 2 workers"):
         tgp.make_train_step(s["ct"], CommPolicy.parse("full", 1),
-                            toptim.sgd(0.1), s["meta_t"],
-                            mesh=WorkerMesh(q=2, rank=0,
-                                            device=torch.device("cpu"),
-                                            backend="gloo"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+                            toptim.sgd(0.1), s["meta_t"], mesh=two)
+    with pytest.raises(ValueError, match="mesh has 2 workers"):
         trc.make_auto_train_step(s["ct"], CommPolicy.parse(
             "auto:budget:1e9:w8", 1), toptim.sgd(0.1), s["meta_t"],
-            mesh=object())
+            mesh=two)
     p0 = _port(s["pj"])
     ot = toptim.sgd(0.1)
     step = trc.make_auto_train_step(s["ct"], CommPolicy.parse(

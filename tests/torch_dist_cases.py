@@ -9,6 +9,7 @@ workers start quickly and the card's test file can use it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,12 +21,17 @@ from repro_torch.core.compression import get_compressor
 from repro_torch.core.varco import CommPolicy
 from repro_torch.dist import gnn_parallel as gp
 from repro_torch.dist.halo import attach_p2p
+from repro_torch.dist.ratectl import (RatePlan, init_wire_residuals,
+                                      make_auto_train_step, make_controller)
 from repro_torch.graph.partition import partition_graph
 from repro_torch.graph.synthetic import tiny_graph
 from repro_torch.kernels.ell_spmm import ell_spmm
-from repro_torch.kernels.varco_pack import varco_pack, varco_unpack
+from repro_torch.kernels.varco_pack import (varco_pack,
+                                            varco_pack_quant_stochastic,
+                                            varco_unpack, varco_unpack_quant)
 from repro_torch.nn import gnn as tgnn
 from repro_torch.train import optim
+from repro_torch.train.trainer import train_gnn
 
 #: the collectives' shared key, and the packed wires' rate
 KEY, RATE_MASK, RATE_PACK = 11, 4.0, 2.0
@@ -208,3 +214,205 @@ def card_step(mesh, spec: str = "varco:linear:5") -> dict:
             "params": [t.cpu() for t in optim.tree_leaves(params)],
             "launches": {fn.__name__: fn.launches for fn in (
                 ell_spmm, varco_pack, varco_unpack)}}
+
+
+# ---------------------------------------------------------------------------
+# The closed loop on the worker group
+# ---------------------------------------------------------------------------
+
+#: auto runs: STEPS steps each, the controllers paced over STEPS
+AUTO_STEPS = STEPS
+
+
+def half_budget(pg) -> float:
+    """Half the full-rate transport of an ``AUTO_STEPS`` run of the
+    ``train_setup`` model (``halo_demand`` × every exchanged width × 32
+    bits, both ways)."""
+    widths = F + HIDDEN * (LAYERS - 1)
+    return 0.5 * 2.0 * 32.0 * pg.halo_demand * widths * AUTO_STEPS
+
+
+def fixed_plan(kind: str, q: int, seed: int = 3):
+    """A seeded ``RatePlan`` (rates {1, 2, 3} off the diagonal): ``mixed``
+    widths {4, 8, 32} with pair (0, 1) at 32 — an fp32 pair beside
+    quantised ones, the straight-through value path — or ``w<b>`` every
+    pair at ``b`` bits; ``per_layer`` adds a leading ``[L]`` axis with a
+    rate map per layer."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(q, dtype=bool)
+    lead = (LAYERS,) if kind.endswith("per_layer") else ()
+    rates = np.where(eye, 1.0, rng.choice([1.0, 2.0, 3.0], lead + (q, q)))
+    if kind.startswith("mixed"):
+        widths = np.where(eye, 32.0, rng.choice([4.0, 8.0, 32.0], (q, q)))
+        widths[0, 1] = 32.0
+    else:
+        widths = np.where(eye, 32.0, float(kind[1:].split("_")[0]))
+    return RatePlan(rates.astype(np.float32), np.zeros((q, q), np.float32),
+                    widths.astype(np.float32))
+
+
+def _np(t):
+    return None if t is None else np.asarray(
+        t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def auto_case_policy(spec: str, pg):
+    return CommPolicy.parse(spec.format(half=half_budget(pg)), AUTO_STEPS)
+
+
+def run_auto_case(pg, graph, cfg, params, case: dict, mesh=None) -> dict:
+    """``AUTO_STEPS`` auto steps of ``case`` (``wire``, ``spec`` with
+    ``{half}`` for :func:`half_budget`, ``sync``, ``rounding``, ``plan``:
+    ``"ctl"`` for the policy's controller, else a :func:`fixed_plan`
+    kind) from ``params`` under SGD with momentum, emulated
+    (``mesh=None``) or on this worker.  Records per step the loss, the
+    ledger, the pair matrices and the plan; the controller state, the
+    residual caches after the first step and the last, the final
+    parameters, and layer 0's halo under the first plan."""
+    meta = gp.DistMeta.build(pg, params, wire=case["wire"])
+    pol = auto_case_policy(case["spec"], pg)
+    q = meta.q
+    lr = LR / q if mesh is None and case["sync"] == "fedavg" else LR
+    opt = optim.sgd(lr, momentum=0.9)
+    step = make_auto_train_step(cfg, pol, opt, meta, mesh=mesh,
+                                sync=case["sync"], rounding=case["rounding"])
+    ctl = make_controller(pol, meta, cfg, AUTO_STEPS)
+    cstate = ctl.init()
+    cache = init_wire_residuals(meta, cfg, "cpu", mesh) \
+        if pol.max_width < 32 and meta.wire == "p2p" else ()
+    state = opt.init(params)
+    rec = {k: [] for k in ("loss", "rate", "halo_bits", "transport_bits",
+                           "pair_transport", "pair_err", "rates",
+                           "widths")}
+    plans = []
+    for t in range(AUTO_STEPS):
+        if case["plan"] == "ctl":
+            plan, cstate = ctl.plan(cstate, t)
+        else:
+            plan = fixed_plan(case["plan"], q)
+        plans.append(plan)
+        params, state, m, cache = step(params, state, graph, prng.key(t),
+                                       plan, cache)
+        cstate = ctl.observe(cstate, m)
+        for k in ("loss", "rate", "halo_bits", "transport_bits",
+                  "pair_transport", "pair_err"):
+            rec[k].append(_np(m[k]))
+        rec["rates"].append(_np(plan.rates))
+        rec["widths"].append(_np(plan.widths))
+        if t == 0:
+            rec["resid_first"] = [_np(c) for c in cache]
+    rec["resid_last"] = [_np(c) for c in cache]
+    rec["ctl_state"] = [_np(v) for v in optim.tree_leaves(cstate)]
+    rec["params"] = [_np(t) for t in optim.tree_leaves(params)]
+    rec["halo"] = _np(gp.first_halo(graph, meta, pol,
+                                    prng.key(HALO_KEY), graph["features"],
+                                    mesh, plan=plans[0],
+                                    rounding=case["rounding"]))
+    return rec
+
+
+def capture_wire(pg, graph, cfg, params, wire: str, width: int,
+                 mesh=None) -> dict:
+    """One forward with every pair at rate 2 and ``width`` bits, capturing
+    the buffers each exchange handed to the transport (``wire_out``):
+    their byte counts over the genuine rows, per (receiver, sender) pair
+    (this worker's hops only under ``mesh``), and the ledger's per-pair
+    transport bits."""
+    q = pg.q
+    eye = np.eye(q, dtype=bool)
+    rm = np.where(eye, 1.0, 2.0).astype(np.float32)
+    wm = np.where(eye, 32.0, float(width)).astype(np.float32)
+    meta = gp.DistMeta.build(pg, params, wire=wire)
+    pol = CommPolicy.parse("fixed:2", 1, compressor="blockmask")
+    cap: list = []
+    kw = dict(packed_k=dict(gp._packed_pair_k_for(meta, rm)), rate_map=rm,
+              width_map=wm, store_w=gp._packed_store_w(meta, wm),
+              wire_out=cap)
+    one = torch.ones(())
+    with torch.no_grad():
+        agg = gp._make_aggregate_emulated(graph, meta, pol, one,
+                                          prng.key(7), **kw) \
+            if mesh is None else \
+            gp._make_aggregate_shard(graph, meta, pol, one, prng.key(7),
+                                     mesh, **kw)
+        _, bits = tgnn.gnn_forward(params, cfg, graph["features"], agg)
+    valid = graph["p2p_send_valid"].numpy()                # [Q|1, D, H]
+    senders = range(q) if mesh is None else [mesh.rank]
+    meas = np.zeros((q, q))
+    per_row = []
+    for payload, scales in cap:
+        if mesh is not None:                       # this worker's buffers
+            payload = payload[None]
+            scales = None if scales is None else scales[None]
+        # one row: of the first sender's payload, or of its first hop
+        lead = (0,) * (payload.dim() - 1)
+        per_row.append(payload[lead].numel() * payload.element_size() + (
+            0 if scales is None else scales[lead].numel() * 4))
+        if wire != "p2p":
+            continue
+        for i, j in enumerate(senders):
+            for d in range(q - 1):
+                sel = torch.from_numpy(valid[i, d] > 0)
+                n = payload[i, d][sel].numel() * payload.element_size()
+                if scales is not None:
+                    n += scales[i, d][sel].numel() * 4
+                meas[(j + d + 1) % q, j] += n
+    return {"meas": meas, "per_row": per_row,
+            "pair_t": bits[2:2 + q * q].numpy().astype(np.float64).reshape(
+                q, q), "n_exchanges": len(cap)}
+
+
+def auto_cases(mesh, cases: dict, captures: tuple, params_np) -> dict:
+    """Every auto case through this worker (:func:`run_auto_case`), the
+    ``(wire, width)`` captures (:func:`capture_wire`), and
+    ``train_gnn(use_shard_map=True)`` under ``auto:budget:<half>:w8`` on
+    the group already running, each worker's records gathered to rank
+    0."""
+    pg, host, cfg, params = train_setup(mesh.q, params_np)
+    graph = gp.shard_graph(host, mesh)
+    out = {"runs": {name: run_auto_case(pg, graph, cfg, params, case, mesh)
+                    for name, case in cases.items()},
+           "capture": {c: capture_wire(pg, graph, cfg, params, *c, mesh)
+                       for c in captures}}
+    res = train_gnn(tiny_graph(n=N, feat_dim=F), q=mesh.q,
+                    **auto_train_kwargs(pg), use_shard_map=True)
+    out["train_gnn"] = dataclasses.asdict(res.history)
+    every = [None] * mesh.q
+    dist.all_gather_object(every, out)
+    return every
+
+
+def auto_train_kwargs(pg) -> dict:
+    """``train_gnn``'s arguments of the auto run the worker group is held
+    to the emulated backend by."""
+    return dict(policy=auto_case_policy("auto:budget:{half:g}:w8", pg),
+                epochs=AUTO_STEPS, wire="p2p", device="cpu", hidden=HIDDEN,
+                layers=LAYERS, eval_every=1)
+
+
+
+def card_auto_step(mesh) -> dict:
+    """One p2p ``auto:budget:…:w8`` step on the card through the worker
+    backend under :func:`fixed_plan` ``"w8"`` (the tiny graph, seeded
+    parameters, the card's default rounding: stochastic), from zero
+    error-feedback residuals: loss, the first exchange's new residual
+    slab and the codec launches (moved to the CPU)."""
+    g = tiny_graph(n=N, feat_dim=F)
+    pg = partition_graph(g, mesh.q, seed=0)
+    host = attach_p2p(pg.device_arrays("cpu"), pg, "cpu")
+    cfg = tgnn.GNNConfig(conv="sage", in_dim=F, hidden=HIDDEN,
+                         out_dim=g.num_classes, layers=LAYERS)
+    params = tgnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                           device=mesh.device)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    opt = optim.sgd(LR)
+    step = make_auto_train_step(cfg, CommPolicy.parse("auto:budget:1e9:w8",
+                                                      1), opt, meta,
+                                mesh=mesh)
+    _, _, m, cache = step(params, opt.init(params),
+                          gp.shard_graph(host, mesh), prng.key(0),
+                          fixed_plan("w8", mesh.q),
+                          init_wire_residuals(meta, cfg, mesh.device, mesh))
+    return {"loss": float(m["loss"]), "resid": cache[0].cpu(),
+            "launches": {fn.__name__: fn.launches for fn in (
+                varco_pack_quant_stochastic, varco_unpack_quant)}}
