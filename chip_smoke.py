@@ -161,7 +161,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    step holds the grad-sync identity within 1e-4.  Printed per run:
    rank 0's step ms median beside the emulated step's, every worker's
    MB sent and staged (median and per step), host ms in the transport,
-   peak GB and launches.
+   peak GB and launches.  Then faults on the group, from the same
+   shards under R2's schedule and 6 epochs: ``varco:linear:5`` at
+   staleness caps 2 and 1 through ``train_gnn(use_shard_map=True,
+   faults=...)`` (worker 1's crash at epoch 3 shrinks the group to 3
+   processes: the crashed one must return ``None``) against R2's
+   emulated runs (losses within 1e-4, CACHED / DEAD counts equal per
+   epoch, Q = 3 from epoch 3, a DEAD pair at cap 1); one fault step a
+   worker with CACHED and DEAD pairs from a seeded random cache against
+   the emulated step (loss within 1e-4; the first exchange's served
+   cache bitwise, the CACHED pairs' rows equal to the cache, the rest
+   within 1e-4: the remote scatter's atomics); the cap-2 run stopped
+   after epoch 4 into a checkpoint (one file, 3 live workers), resumed
+   over 3 spawned workers and on the emulated backend, both within 1e-4
+   of the uninterrupted group run.  Every kernel call of these runs is
+   held against its plain version as above.  Printed: step ms, the
+   crash epoch's ms, MB sent a step, the checkpoint's write ms and
+   bytes, peak GB a worker and launches.
 6e. update — streaming edge updates on the engine (after the other GNN
    phases: the update changes its graph): a forced refresh, then a seeded
    batch of 256 inserts and 256 deletes of existing edges through
@@ -1726,7 +1742,8 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, workdir,
     uninterrupted one, and a save→restore round trip of card tensors.
     Launch counts are set to 0 before each part and read after.  The
     store, the shards (which the dist phase boots from) and the
-    checkpoints go under ``workdir``."""
+    checkpoints go under ``workdir``.  Returns R2's runs (the dist
+    phase's references for its faulted runs)."""
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist import faults as fl
     from repro_torch.dist.halo import attach_p2p
@@ -1946,7 +1963,7 @@ def resilience_phase(g, cfg, params, eng, varco_in_memory, workdir,
                                    for n, v in r2_launches.items()},
                             "R3": {k: r3_launches[k] for k in RES_KERNELS}}}
     emit(summary)
-    return summary
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1979,7 +1996,10 @@ DIST_KERNELS = {"p2p_full": ("ell_spmm",),
                                       "varco_unpack"),
                 "packed_auto_w4": ("varco_pack", "varco_unpack"),
                 "p2p_mixed_step": ("ell_spmm", "varco_pack", "varco_unpack",
-                                   "random_uniform")}
+                                   "random_uniform"),
+                # the faulted runs, the fault step, the checkpointed run
+                # and its resume over the three survivors
+                "faults": ("ell_spmm", "varco_pack", "varco_unpack")}
 DIST_LAUNCHES = ("ell_spmm", "varco_pack", "varco_unpack", "random_mask",
                  "varco_pack_quant", "varco_pack_quant_stochastic",
                  "varco_unpack_quant", "random_uniform")
@@ -1987,6 +2007,12 @@ DIST_TOL = 1e-4
 DIST_ACC_TOL = 1e-3
 #: seconds any wait on the worker group may take before the run fails
 DIST_TIMEOUT = 300.0
+#: the faulted runs on the group, from the resilience phase's shards under
+#: its schedule and epochs: name -> staleness cap; R2's emulated runs of
+#: the same names are their references
+DIST_FAULT_RUNS = {"varco": RES_MAX_STALE, "varco_stale1": 1}
+#: the group's checkpoint: after epoch 4, past the crash
+DIST_STOP = 4
 
 
 def _dist_half(shard_dir, cfg) -> float:
@@ -2212,7 +2238,194 @@ def _mixed_step(mesh, shard_dir, cfg, params, half: float) -> dict:
             "staged_bytes": mesh.staged_bytes - sent[1] if mesh else 0}
 
 
-def _dist_worker(mesh, shard_dir, cfg, params, seed, half):
+def _fault_kwargs(cfg, params, seed: int, dev, max_stale: int) -> dict:
+    """``train_gnn``'s arguments of R2's faulted ``varco`` run (its
+    schedule, epochs, staleness cap ``max_stale``)."""
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist.faults import FaultSchedule
+
+    return dict(policy=CommPolicy.parse("varco:linear:5", RES_EPOCHS,
+                                        compressor="blockmask"),
+                epochs=RES_EPOCHS, faults=FaultSchedule(**RES_SCHED),
+                fault_max_stale=max_stale, hidden=cfg.hidden,
+                layers=cfg.layers, wire="p2p", seed=seed, eval_every=1,
+                device=dev, params=params)
+
+
+def _fault_masks(q: int) -> tuple:
+    """The fault step's ladder: pairs (2 <- 0) and (1 <- 3) CACHED, (0 <-
+    1) and (3 <- 2) DEAD."""
+    fskip, dead = np.zeros((q, q), np.float32), np.zeros((q, q), np.float32)
+    fskip[2, 0] = fskip[1, 3] = 1.0
+    dead[0, 1] = dead[3, 2] = 1.0
+    return fskip, dead
+
+
+def _fault_step(mesh, shard_dir, cfg, params, seed: int) -> dict:
+    """One ``varco:linear:5`` fault step at rate 2 under
+    :func:`_fault_masks`, from a seeded random sender-major fault cache:
+    on this worker of ``mesh`` (its receiver-major row of the cache, its
+    row of the shard set) or emulated (``mesh=None``, every shard stacked
+    on the card).  Returns the loss, the step's host ms (ending in the
+    loss read), the bytes sent, the fault cache it started from and the
+    one it served."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.faults import (_cache_send_to_recv,
+                                         make_fault_train_step)
+    from repro_torch.dist.ratectl import exchange_widths, uniform_plan
+    from repro_torch.graph.stream import load_shards
+    from repro_torch.nn.gnn import params_to
+    from repro_torch.train.optim import sgd, tree_leaves
+
+    dev = tree_leaves(params)[0].device if mesh is None else mesh.device
+    pg = load_shards(shard_dir)
+    params = params_to(params, dev)
+    graph = pg.device_arrays(dev) if mesh is None else \
+        gp.shard_graph(pg.device_arrays("cpu"), mesh)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    q = meta.q
+    opt = sgd(0.1)
+    step = make_fault_train_step(cfg, CommPolicy.parse(
+        "varco:linear:5", RES_EPOCHS, compressor="blockmask"), opt, meta,
+        mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    fcache = tuple(torch.randn((q, q - 1, meta.p2p_hop_width, w),
+                               generator=gen, device=dev)
+                   for w in exchange_widths(cfg))
+    if mesh is not None:
+        fcache = tuple(_cache_send_to_recv(c, q)[mesh.rank:mesh.rank + 1]
+                       .clone() for c in fcache)
+    fskip, dead = _fault_masks(q)
+    sent = mesh.sent_bytes if mesh else 0
+    t = time.perf_counter()
+    _, _, m, _, served = step(params, opt.init(params), graph,
+                              prng.key(seed), uniform_plan(q, 2.0), fskip,
+                              dead, (), fcache)
+    loss = float(m["loss"])
+    return {"loss": loss, "step_ms": (time.perf_counter() - t) * 1e3,
+            "sent_bytes": mesh.sent_bytes - sent if mesh else 0,
+            "fcache": fcache, "served": served}
+
+
+def _fault_reference(shard_dir, cfg, params, seed: int, out: Path) -> dict:
+    """The emulated :func:`_fault_step` on the card, its served cache
+    written under ``out`` as each worker's receiver-major rows
+    (``rank<r>.pt``), for the workers to hold theirs against."""
+    from repro_torch.dist.faults import _cache_send_to_recv
+
+    ref = _fault_step(None, shard_dir, cfg, params, seed)
+    out.mkdir(parents=True, exist_ok=True)
+    q = ref["served"][0].shape[0]
+    for r in range(q):
+        torch.save([_cache_send_to_recv(c, q)[r:r + 1].cpu()
+                    for c in ref["served"]], out / f"rank{r}.pt")
+    return {"loss": ref["loss"], "step_ms": ref["step_ms"]}
+
+
+@contextlib.contextmanager
+def _timed_saves(rec: list):
+    """Within the block, each ``save_train_state`` call (rank 0 of the
+    mesh writes) appends its ms and the file's bytes to ``rec``."""
+    from repro_torch.train import checkpoint as ckpt
+
+    save = ckpt.save_train_state
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        path = save(*args, **kw)
+        rec.append({"ms": (time.perf_counter() - t) * 1e3,
+                    "bytes": os.path.getsize(path)})
+        return path
+
+    ckpt.save_train_state = timed
+    try:
+        yield rec
+    finally:
+        ckpt.save_train_state = save
+
+
+def _dist_fault_worker(mesh, shard_dir, cfg, params, seed, counters,
+                       on_card, fault_ref: Path, ck: str) -> dict:
+    """This worker's faulted runs: each of ``DIST_FAULT_RUNS`` through
+    ``train_gnn(use_shard_map=True, faults=...)`` under :func:`_held_run`
+    (``None`` for the history of the worker that crashes), one
+    :func:`_fault_step` under it, held against the emulated step's served
+    rows in ``fault_ref``, and the ``varco`` run stopped after
+    ``DIST_STOP`` epochs into ``ck`` with every kernel call held and each
+    checkpoint write timed."""
+    from repro_torch.train.trainer import train_gnn
+
+    dev = mesh.device
+    runs = {}
+    for name, max_stale in DIST_FAULT_RUNS.items():
+        kw = _fault_kwargs(cfg, params, seed, dev, max_stale)
+        res, rec = _held_run(lambda: train_gnn(
+            shard_dir, use_shard_map=True, **kw), counters, on_card, dev)
+        runs[name] = {"history": None if res is None else
+                      dataclasses.asdict(res.history),
+                      "q": None if res is None else res.meta.q, **rec}
+    step, rec = _held_run(lambda: _fault_step(mesh, shard_dir, cfg, params,
+                                              seed), counters, on_card, dev)
+    ref = torch.load(fault_ref / f"rank{mesh.rank}.pt", map_location=dev)
+    fskip, _ = _fault_masks(mesh.q)
+    src = (mesh.rank - np.arange(1, mesh.q)) % mesh.q
+    cached = [d for d in range(mesh.q - 1) if fskip[mesh.rank, src[d]]]
+    served = step.pop("served")
+    start = step.pop("fcache")
+    step.update(rec, cached_hops=cached,
+                first_exchange_bitwise=torch.equal(served[0], ref[0]),
+                served_max_abs=[float((a - b).abs().max())
+                                for a, b in zip(served, ref)],
+                cached_rows_bitwise=all(
+                    torch.equal(a[0, d], b[0, d])
+                    for a, b in zip(served, start) for d in cached))
+    del served, start, ref
+    for c in counters.values():
+        c.launches = 0
+    saves, held = [], {}
+    with _timed_saves(saves), _kernel_calls(held, compare=True):
+        part = train_gnn(shard_dir, use_shard_map=True, checkpoint_dir=ck,
+                         stop_after=DIST_STOP,
+                         **_fault_kwargs(cfg, params, seed, dev,
+                                         RES_MAX_STALE))
+    if on_card:
+        torch.cuda.synchronize(dev)
+    return {"runs": runs, "step": step,
+            "ckpt": {"saves": saves, "stopped": None if part is None
+                     else len(part.history.loss),
+                     "launches": {k: counters[k].launches
+                                  for k in DIST_LAUNCHES},
+                     "checked": {k: sum(n for n, _ in v.values())
+                                 for k, v in held.items()},
+                     "max_abs_err": {k: max((e for _, e in v.values()),
+                                            default=None)
+                                     for k, v in held.items()}}}
+
+
+def _dist_resume_worker(mesh, shard_dir, cfg, params, seed, ck) -> dict:
+    """A worker of the group that resumes ``ck`` (the checkpoint of the
+    run that shrank, so one worker fewer): the resumed ``varco`` run under
+    :func:`_held_run`, every worker's record gathered."""
+    import torch.distributed as dist
+
+    from repro_torch.train.trainer import train_gnn
+
+    on_card = mesh.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = _fault_kwargs(cfg, params, seed, mesh.device, RES_MAX_STALE)
+    res, rec = _held_run(lambda: train_gnn(
+        shard_dir, use_shard_map=True, checkpoint_dir=ck, resume=True, **kw),
+        launch_counters(), on_card, mesh.device)
+    every = [None] * mesh.q
+    dist.all_gather_object(every, rec)
+    return {"workers": every, "history": dataclasses.asdict(res.history),
+            "q": res.meta.q}
+
+
+def _dist_worker(mesh, shard_dir, cfg, params, seed, half, fault_ref, ck):
     """One worker of the dist phase: the runs of ``DIST_RUNS`` through
     ``train_gnn(use_shard_map=True)`` from the shard directory (each
     worker loads its own partition) and the mixed-width step, each under
@@ -2250,9 +2463,11 @@ def _dist_worker(mesh, shard_dir, cfg, params, seed, half):
     ident = train_gnn(shard_dir, policy=CommPolicy.parse("full", 1),
                       epochs=1, optimizer=sgd(0.1), wire="p2p", **common)
     halos = _dist_halos(mesh, shard_dir, ident.params, seed)
+    fault = _dist_fault_worker(mesh, shard_dir, cfg, params, seed, counters,
+                               on_card, fault_ref, ck)
     every = [None] * mesh.q
     dist.all_gather_object(every, {"runs": runs, "mixed": mixed,
-                                   "halos": halos,
+                                   "halos": halos, "fault": fault,
                                    "device": str(mesh.device)})
     return {"workers": every, "ident": ident if mesh.rank == 0 else None}
 
@@ -2298,7 +2513,188 @@ def _kernel_checks(per: list) -> dict:
             for k in DIST_LAUNCHES}
 
 
-def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
+def _dist_faults(workers, r2, ref_step, shard_dir, cfg, params, eng, seed,
+                 ck, backend) -> tuple:
+    """The dist phase's faulted part, from each worker's
+    :func:`_dist_fault_worker` record: the faulted runs against R2's
+    emulated runs (``r2``), the fault step against the emulated step
+    (``ref_step``), and the checkpoint after the crash resumed over three
+    spawned workers and on the emulated backend.  Returns the launches
+    summed over the workers and runs, and each kernel's largest error
+    against its plain version."""
+    from repro_torch.dist.gnn_parallel import spawn_workers
+    from repro_torch.nn.gnn import params_to
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import train_gnn
+
+    launches = {k: 0 for k in DIST_LAUNCHES}
+    worst = {k: 0.0 for k in DIST_LAUNCHES}
+
+    def count(per):
+        summed = {k: sum(p["launches"][k] for p in per)
+                  for k in DIST_LAUNCHES}
+        for k, n in summed.items():
+            launches[k] += n
+        for k, c in _kernel_checks(per).items():
+            worst[k] = max(worst[k], c["max_abs_err"] or 0.0)
+        return summed
+
+    crash_ep = RES_SCHED["crash_at"][0][0]
+    runs = {}
+    for name in DIST_FAULT_RUNS:
+        per = [w["fault"]["runs"][name] for w in workers]
+        # the result of rank 0 of the final mesh: the lowest survivor
+        lead = next(p for p in per if p["history"] is not None)
+        h, e = lead["history"], r2[name].history
+        step_ms = [x * 1e3 for x in h["step_s"]]
+        runs[name] = {
+            "loss": h["loss"], "emulated_loss": e.loss,
+            "loss_max_abs": float(np.abs(np.asarray(h["loss"]) -
+                                         np.asarray(e.loss)).max()),
+            "cached": h["cached_pairs"], "emulated_cached": e.cached_pairs,
+            "dead": h["dead_pairs"], "emulated_dead": e.dead_pairs,
+            "pairs": [len(x) for x in h["pair_transport_gf"]],
+            "q": lead["q"],
+            "returned_none": [p["history"] is None for p in per],
+            "step_ms": step_ms,
+            "step_ms_median": float(np.median(
+                [x for ep, x in enumerate(step_ms) if ep not in
+                 (0, crash_ep)])),
+            "crash_epoch_ms": step_ms[crash_ep],
+            "emulated_step_ms": [x * 1e3 for x in e.step_s],
+            "sent_mb_per_step": [None if p["history"] is None else
+                                 [b / 1e6 for b in p["history"]["sent_bytes"]]
+                                 for p in per],
+            "staged_mb_per_step": [
+                None if p["history"] is None else
+                [b / 1e6 for b in p["history"]["staged_bytes"]]
+                for p in per],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "launches": count(per),
+            "launches_per_worker": [p["launches"] for p in per],
+            "kernel_checks": _kernel_checks(per)}
+        emit({"phase": "dist_fault_run", "run": name, "backend": backend,
+              "max_stale": DIST_FAULT_RUNS[name], **runs[name]})
+    per = [w["fault"]["step"] for w in workers]
+    step = {"loss": [p["loss"] for p in per],
+            "emulated_loss": ref_step["loss"],
+            "loss_max_abs": max(abs(p["loss"] - ref_step["loss"])
+                                for p in per),
+            "step_ms": [p["step_ms"] for p in per],
+            "emulated_step_ms": ref_step["step_ms"],
+            "sent_mb": [p["sent_bytes"] / 1e6 for p in per],
+            "cached_hops": [p["cached_hops"] for p in per],
+            "first_exchange_bitwise": [p["first_exchange_bitwise"]
+                                       for p in per],
+            "cached_rows_bitwise": [p["cached_rows_bitwise"] for p in per],
+            "served_max_abs": [p["served_max_abs"] for p in per],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "launches": count(per),
+            "kernel_checks": _kernel_checks(per)}
+    emit({"phase": "dist_fault_step", "backend": backend, **step})
+    cks = [w["fault"]["ckpt"] for w in workers]
+    extra = ckpt.peek(ckpt.latest_checkpoint(ck))
+    t = time.perf_counter()
+    resumed = spawn_workers(_dist_resume_worker, DIST_Q - 1, str(shard_dir),
+                            cfg, params_to(params, "cpu"), seed, ck,
+                            device=eng.device.type, backend=backend,
+                            timeout=DIST_TIMEOUT)
+    resume_wall = time.perf_counter() - t
+    whole = next(p for p in (w["fault"]["runs"]["varco"] for w in workers)
+                 if p["history"] is not None)["history"]["loss"]
+    emu = train_gnn(shard_dir, checkpoint_dir=ck, resume=True,
+                    **_fault_kwargs(cfg, params, seed, eng.device,
+                                    RES_MAX_STALE)).history
+    rh = resumed["history"]
+    ck_launches = {k: sum(c["launches"][k] for c in cks)
+                   for k in DIST_LAUNCHES}
+    for k, n in ck_launches.items():
+        launches[k] += n
+        worst[k] = max([worst[k]] + [c["max_abs_err"][k] for c in cks
+                                     if c["max_abs_err"][k] is not None])
+    rec = {"checkpoint_step": extra["step"], "alive": extra["alive"],
+           "stopped": [c["stopped"] for c in cks],
+           "saves": [s for c in cks for s in c["saves"]],
+           "resume_workers": resumed["q"], "resume_wall_s": resume_wall,
+           "resumed_loss": rh["loss"], "uninterrupted_loss": whole[DIST_STOP:],
+           "resume_vs_uninterrupted_max_abs": float(np.abs(
+               np.asarray(rh["loss"]) - np.asarray(whole[DIST_STOP:])).max()),
+           "resume_step_ms": [x * 1e3 for x in rh["step_s"]],
+           "emulated_resume_loss": emu.loss,
+           "emulated_resume_vs_group_max_abs": float(np.abs(
+               np.asarray(emu.loss) - np.asarray(whole[DIST_STOP:])).max()),
+           "checkpointed_run_launches": ck_launches,
+           "checkpointed_run_held_calls": [c["checked"] for c in cks],
+           "resume_launches": count(resumed["workers"]),
+           "resume_kernel_checks": _kernel_checks(resumed["workers"])}
+    emit({"phase": "dist_checkpoint", "backend": backend, **rec})
+
+    must = DIST_KERNELS["faults"]
+    for name, r in runs.items():
+        _held_checks(f"faults {name}", [w["fault"]["runs"][name]
+                                        for w in workers])
+        check(bool(np.isfinite(r["loss"]).all()), f"dist faults {name}: "
+              f"non-finite loss {r['loss']}")
+        check(r["loss_max_abs"] <= DIST_TOL, f"dist faults {name}: losses "
+              f"differ from R2's emulated run by {r['loss_max_abs']}")
+        check(r["cached"] == r["emulated_cached"] and
+              r["dead"] == r["emulated_dead"], f"dist faults {name}: the "
+              f"ladder differs from R2's: {r['cached']}/{r['dead']} vs "
+              f"{r['emulated_cached']}/{r['emulated_dead']}")
+        check(r["q"] == 3 and r["pairs"] == [16] * crash_ep + [9] * (
+            RES_EPOCHS - crash_ep), f"dist faults {name}: Q is not 3 from "
+            f"epoch {crash_ep} on: {r['q']}, {r['pairs']}")
+        check(r["returned_none"] == [w == 1 for w in range(DIST_Q)],
+              f"dist faults {name}: the crashed worker, and only it, must "
+              f"return None: {r['returned_none']}")
+        for k in must:
+            check(r["launches"][k] > 0, f"dist faults {name}: {k} never "
+                  f"launched")
+    check(sum(runs["varco_stale1"]["dead"]) > 0,
+          "dist faults: no pair reached DEAD at max_stale 1")
+    _held_checks("fault step", per)
+    check(step["loss_max_abs"] <= DIST_TOL, f"dist fault step: losses "
+          f"differ from the emulated step's by {step['loss_max_abs']}")
+    check(all(step["first_exchange_bitwise"]), "dist fault step: a worker's "
+          "first served cache differs from its rows of the emulated one")
+    check(all(step["cached_rows_bitwise"]) and
+          step["cached_hops"][1] and step["cached_hops"][2],
+          "dist fault step: a CACHED pair was not served its cache rows")
+    check(max(max(x) for x in step["served_max_abs"]) <= DIST_TOL,
+          f"dist fault step: served caches differ from the emulated step's "
+          f"by {step['served_max_abs']}")
+    for k in must:
+        check(step["launches"][k] > 0, f"dist fault step: {k} never "
+              f"launched")
+    check(extra["step"] == DIST_STOP and extra["alive"] == [0, 2, 3] and
+          len(rec["saves"]) == 1, f"dist checkpoint: not the shrunk run's "
+          f"single file after epoch {DIST_STOP}: {extra}, {rec['saves']}")
+    check(resumed["q"] == 3, "dist checkpoint: the resume did not run 3 "
+          "workers")
+    check(rec["resume_vs_uninterrupted_max_abs"] <= DIST_TOL,
+          f"dist checkpoint: the group's resume differs from the "
+          f"uninterrupted group run by "
+          f"{rec['resume_vs_uninterrupted_max_abs']}")
+    check(rec["emulated_resume_vs_group_max_abs"] <= DIST_TOL,
+          f"dist checkpoint: the emulated resume of the group's file "
+          f"differs from the group run by "
+          f"{rec['emulated_resume_vs_group_max_abs']}")
+    for c, k in ((c, k) for c in cks for k in DIST_LAUNCHES):
+        check(c["checked"][k] == c["launches"][k], f"dist checkpoint: "
+              f"{c['checked'][k]} {k} calls held, {c['launches'][k]} "
+              f"launched")
+        tol = ELL_TOL if k == "ell_spmm" else 0.0
+        check((c["max_abs_err"][k] or 0.0) <= tol, f"dist checkpoint: {k} "
+              f"differs from its plain version by {c['max_abs_err'][k]}")
+    _held_checks("faults resume", resumed["workers"])
+    for k in must:
+        check(rec["checkpointed_run_launches"][k] > 0 and
+              rec["resume_launches"][k] > 0, f"dist checkpoint: {k} never "
+              f"launched")
+    return launches, worst
+
+
+def dist_phase(g, cfg, params, eng, shard_dir, r2, seed: int = 0) -> dict:
     """``train_gnn(use_shard_map=True)`` at full width over Q = 4 worker
     processes booted from the resilience phase's shard directory, and one
     mixed-width auto step through ``make_auto_train_step(mesh=...)``,
@@ -2328,9 +2724,12 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
             spec.format(half=half), DIST_EPOCHS, compressor=comp),
             epochs=DIST_EPOCHS, wire=wire, **common).history
     emulated_mixed = _mixed_step(None, shard_dir, cfg, params, half)
+    fault_ref, ck = Path(shard_dir).parent / "dist_fault_ref", \
+        str(Path(shard_dir).parent / "dist_ck")
+    ref_step = _fault_reference(shard_dir, cfg, params, seed, fault_ref)
     t = time.perf_counter()
     out = spawn_workers(_dist_worker, DIST_Q, str(shard_dir), cfg,
-                        params_to(params, "cpu"), seed, half,
+                        params_to(params, "cpu"), seed, half, fault_ref, ck,
                         device=eng.device.type, backend=backend,
                         timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t
@@ -2461,6 +2860,12 @@ def dist_phase(g, cfg, params, eng, shard_dir, seed: int = 0) -> dict:
         errs = [r["kernel_checks"][k]["max_abs_err"] for r in
                 (*runs.values(), mixed)]
         worst[k] = max((e for e in errs if e is not None), default=0.0)
+    fault_launches, fault_worst = _dist_faults(
+        workers, r2, ref_step, shard_dir, cfg, params, eng, seed, ck,
+        backend)
+    for k in DIST_LAUNCHES:
+        launches[k] += fault_launches[k]
+        worst[k] = max(worst[k], fault_worst[k])
     return launches, worst
 
 
@@ -3550,10 +3955,11 @@ def run(args, work) -> int:
         launches["varco_pack_quant"] = serving["varco_pack_quant"]
         for name, n in auto_phase(eng, params, cfg).items():
             launches[name] += n          # train_gnn's + the auto phase's
-        resilience_phase(g, cfg, params, eng, runs["varco"], work)
+        r2 = resilience_phase(g, cfg, params, eng, runs["varco"], work)
         del runs
         dist_launches, dist_errs = dist_phase(g, cfg, params, eng,
-                                              Path(work) / "shards")
+                                              Path(work) / "shards", r2)
+        del r2
         for name, n in dist_launches.items():
             launches[name] += n          # the worker processes' launches
             main_recs[name]["max_abs_err"] = max(

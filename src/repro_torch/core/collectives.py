@@ -61,8 +61,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import time
 from collections.abc import Iterable
+from typing import Any
 
 import numpy as np
 import torch
@@ -202,10 +204,15 @@ def uncompressed_bits(x) -> torch.Tensor:
 
 @dataclasses.dataclass
 class WorkerMesh:
-    """This process's place in the default process group of ``q`` worker
-    processes: its ``rank``, its ``device`` and the group's
-    ``torch.distributed`` ``backend``, built by
-    ``repro_torch.dist.gnn_parallel.make_worker_mesh``.
+    """This process's place in a process group of ``q`` worker processes:
+    its ``rank``, its ``device`` and the group's ``torch.distributed``
+    ``backend``, built by ``repro_torch.dist.gnn_parallel.
+    make_worker_mesh`` over the default group.  ``group`` is a subgroup
+    of the job instead (``None``: the default group) and ``ranks`` the
+    job-wide ranks of its members in rank order (``None``: ``0..q-1``);
+    ``gnn_parallel.shrink_mesh`` builds such a mesh for the workers that
+    survive a crash, with the per-operation ``timeout`` of the job's group
+    (``None``: ``torch.distributed``'s default).
 
     Its methods are the transport under the collectives.  Under ``gloo``
     with a CUDA device (``staged``) every send, receive and reduction goes
@@ -226,6 +233,16 @@ class WorkerMesh:
     sent_bytes: int = 0
     staged_bytes: int = 0
     comm_s: float = 0.0
+    group: Any = None
+    ranks: tuple | None = None
+    timeout: datetime.timedelta | None = None
+
+    def __post_init__(self):
+        self.ranks = tuple(range(self.q)) if self.ranks is None else \
+            tuple(int(r) for r in self.ranks)
+        if len(self.ranks) != self.q:
+            raise ValueError(f"a mesh of {self.q} workers needs {self.q} "
+                             f"member ranks, got {self.ranks}")
 
     @contextlib.contextmanager
     def _timed(self):
@@ -267,7 +284,7 @@ class WorkerMesh:
             h = self._out(t)
             if not self.staged:
                 h = h.clone()                 # reduced in place
-            dist.all_reduce(h)
+            dist.all_reduce(h, group=self.group)
             self.sent_bytes += (2 * (self.q - 1) * h.numel() *
                                 h.element_size()) // self.q
             return self._in(h)
@@ -277,9 +294,14 @@ class WorkerMesh:
         with self._timed():
             h = self._out(t)
             out = self._empty((self.q, *h.shape), h.dtype)
-            dist.all_gather(list(out.unbind(0)), h)
+            dist.all_gather(list(out.unbind(0)), h, group=self.group)
             self.sent_bytes += (self.q - 1) * h.numel() * h.element_size()
             return self._in(out)
+
+    def barrier(self) -> None:
+        """Wait until every worker of the mesh reaches this call."""
+        with self._timed():
+            dist.barrier(group=self.group)
 
     def ring_start(self, bufs, offsets) -> "RingTransfer":
         """Post one batch of hops: ``bufs[i]`` goes to worker ``(rank +
@@ -295,10 +317,14 @@ class WorkerMesh:
             for n, (s, r) in enumerate(zip(send, recv)):
                 for i, d in enumerate(offsets):
                     tag = n * len(offsets) + i
-                    ops.append(dist.P2POp(dist.isend, s[i],
-                                          (self.rank + d) % self.q, tag=tag))
-                    ops.append(dist.P2POp(dist.irecv, r[i],
-                                          (self.rank - d) % self.q, tag=tag))
+                    ops.append(dist.P2POp(
+                        dist.isend, s[i],
+                        self.ranks[(self.rank + d) % self.q],
+                        group=self.group, tag=tag))
+                    ops.append(dist.P2POp(
+                        dist.irecv, r[i],
+                        self.ranks[(self.rank - d) % self.q],
+                        group=self.group, tag=tag))
                 self.sent_bytes += s.numel() * s.element_size()
             return RingTransfer(dist.batch_isend_irecv(ops),
                                 send if many else send[0],

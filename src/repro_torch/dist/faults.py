@@ -314,6 +314,28 @@ def shrink_shards(shards, dead: int):
     return new
 
 
+def _cache_send_to_recv(c: torch.Tensor, q: int) -> torch.Tensor:
+    """Sender-major hop cache ``[Q, D, H, F]`` (the emulated layout: row
+    ``j``, hop ``d`` = what sender ``j`` ships at ring offset ``d``) ->
+    receiver-major (row ``i``, hop ``d`` = what receiver ``i`` got from
+    ``(i - d) mod Q``): the layout whose row ``i`` worker ``i`` of a
+    group holds."""
+    if q <= 1:
+        return c
+    i = torch.arange(q, device=c.device)[:, None]
+    d = torch.arange(1, q, device=c.device)[None, :]
+    return c[(i - d) % q, d - 1]
+
+
+def _cache_recv_to_send(c: torch.Tensor, q: int) -> torch.Tensor:
+    """Inverse of :func:`_cache_send_to_recv`."""
+    if q <= 1:
+        return c
+    j = torch.arange(q, device=c.device)[:, None]
+    d = torch.arange(1, q, device=c.device)[None, :]
+    return c[(j + d) % q, d - 1]
+
+
 def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
                           sync: str = "grad"):
     """A train step with the fault channel threaded through — the
@@ -329,8 +351,20 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
     and ``cache`` the stale-controller XOR error-feedback channel exactly
     as in the auto step.  When every pair quantises, the hops ride the
     fused sub-byte codec kernels, as the auto step's do.  Requires
-    ``wire == 'p2p'``, ``Q >= 2`` and a communicating policy; the
-    ``shard_map`` backend (``mesh=``) is not ported.
+    ``wire == 'p2p'``, ``Q >= 2`` and a communicating policy.
+
+    With a worker ``mesh`` (``gnn_parallel.make_worker_mesh``) the step
+    runs this worker's ``shard_graph`` block, as the JAX package's
+    ``shard_map`` worker does: ``fcache`` holds this worker's ``[1, D, H,
+    F]`` receiver-major blocks (row ``rank`` of
+    :func:`_cache_send_to_recv`; ``init_halo_cache(..., mesh=mesh)``
+    shapes), served on the receiver's side, and ``fcache'`` returns them
+    alike; the loss and gradients are all-reduced (or FedAvg-averaged
+    under ``sync="fedavg"``).  As in the JAX package the worker runs no
+    error feedback (``cache`` passes through unchanged), ships quantised
+    hops on the fp32 value path rather than sub-byte storage, and rounds
+    them half to even; the stale controller's hop reuse raises
+    ``ValueError``.
 
     Example::
 
@@ -340,21 +374,18 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
             params, opt_state, graph, prng.key(t), plan, fskip, dead,
             cache, fcache)
     """
-    from repro_torch.dist.gnn_parallel import (_F32, _make_aggregate_emulated,
-                                               _optimize, _packed_pair_k_for,
-                                               _packed_store_w, _per,
+    from repro_torch.dist.gnn_parallel import (_F32, _local_loss_fn,
+                                               _make_aggregate_emulated,
+                                               _make_aggregate_shard,
+                                               _packed_pair_k_for,
+                                               _packed_store_w,
+                                               _synced_update,
                                                _value_and_grad)
     from repro_torch.dist.ratectl.driver import (_auto_metrics,
                                                  exchange_widths,
                                                  plan_widths)
     from repro_torch.kernels.varco_pack import LANE
-    from repro_torch.nn.gnn import gnn_forward, masked_loss_and_correct
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the fault channel is not ported to the worker group: its "
-            "receiver-major hop cache under make_fault_train_step(mesh="
-            "...) is ROADMAP.md queue 1 item 5")
     if meta.wire != "p2p":
         raise ValueError("fault-tolerant training serves dropped links "
                          "from per-pair hop caches; it needs wire='p2p', "
@@ -372,12 +403,19 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
             raise ValueError(
                 f"the fault channel rides the rate-map wire; every "
                 f"exchanged width must be divisible by {LANE}, got {f_}")
+    if mesh is not None and mesh.q != meta.q:
+        raise ValueError(f"the mesh has {mesh.q} workers, the partitioning "
+                         f"{meta.q}")
     q = meta.q
     n_ex = len(exchange_widths(cfg))
     auto = policy.mode == "auto"
     stale_ch = auto and policy.controller == "stale"
+    if stale_ch and mesh is not None:
+        raise ValueError("hop reuse is emulated-backend only; run the "
+                         "stale controller with mesh=None")
     # error feedback and hop reuse share the cache channel: stale XOR EF
-    use_ef = auto and policy.max_width < 32 and not stale_ch
+    use_ef = auto and policy.max_width < 32 and not stale_ch and \
+        mesh is None
 
     def step(params, opt_state, graph, key, plan, fskip, dead, cache=(),
              fcache=()):
@@ -395,27 +433,32 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
         fcache = tuple(fcache)
         cache_out: list = []
         fcache_out: list = []
+        rate_t = torch.tensor(rate_s, dtype=_F32)
 
         def loss_fn(p):
-            agg = _make_aggregate_emulated(
-                graph, meta, policy, torch.tensor(rate_s, dtype=_F32), key,
-                packed_k=kb, rate_map=rm, width_map=wm,
-                skip=np.asarray(plan.skip, np.float32) if stale_ch
-                else None,
-                cache=cache if stale_ch else None,
-                cache_out=cache_out if stale_ch else None,
-                resid=cache if ef else None,
-                resid_out=cache_out if ef else None,
-                store_w=_packed_store_w(meta, wm),
-                fskip=fskip, fcache=fcache, fcache_out=fcache_out,
-                dead=dead)
-            logits, bits = gnn_forward(p, cfg, graph["features"], agg)
-            loss_sum, _ = masked_loss_and_correct(
-                logits, graph["labels"], graph["train_mask"])
-            return loss_sum * _per(meta.n_train), bits
+            if mesh is not None:
+                agg = _make_aggregate_shard(
+                    graph, meta, policy, rate_t, key, mesh, packed_k=kb,
+                    rate_map=rm, width_map=wm, fskip=fskip, fcache=fcache,
+                    fcache_out=fcache_out, dead=dead)
+            else:
+                agg = _make_aggregate_emulated(
+                    graph, meta, policy, rate_t, key, packed_k=kb,
+                    rate_map=rm, width_map=wm,
+                    skip=np.asarray(plan.skip, np.float32) if stale_ch
+                    else None,
+                    cache=cache if stale_ch else None,
+                    cache_out=cache_out if stale_ch else None,
+                    resid=cache if ef else None,
+                    resid_out=cache_out if ef else None,
+                    store_w=_packed_store_w(meta, wm),
+                    fskip=fskip, fcache=fcache, fcache_out=fcache_out,
+                    dead=dead)
+            return _local_loss_fn(p, cfg, graph, agg, meta)
 
         (loss, bits), grads = _value_and_grad(loss_fn, params)
-        new_params, new_state = _optimize(opt, grads, opt_state, params)
+        loss, new_params, new_state = _synced_update(
+            opt, loss, grads, opt_state, params, mesh, sync)
         metrics = _auto_metrics(loss, rm, bits.detach().cpu(), q, n_ex)
         # an exact step carries the EF residuals unchanged
         return new_params, new_state, metrics, \

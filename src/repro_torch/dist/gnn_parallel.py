@@ -62,6 +62,7 @@ import itertools
 import os
 import pickle
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -938,8 +939,9 @@ def _group_backend(q: int, device: torch.device, backend: str | None
     return backend
 
 
-def make_worker_mesh(q: int, device="cuda",
-                     backend: str | None = None) -> WorkerMesh:
+def make_worker_mesh(q: int, device="cuda", backend: str | None = None,
+                     timeout: datetime.timedelta | None = None
+                     ) -> WorkerMesh:
     """This process's :class:`~repro_torch.core.collectives.WorkerMesh` in
     the initialised default process group of world size ``q`` (from
     ``torchrun`` or :func:`spawn_workers`): the JAX package's
@@ -949,7 +951,9 @@ def make_worker_mesh(q: int, device="cuda",
     "cuda"``), the given card, or the CPU.  ``backend`` defaults to the
     group's; ``"gloo"`` with CUDA tensors stages every transfer through
     pinned host buffers, and ``"nccl"`` with two workers on one card
-    raises.
+    raises.  ``timeout`` is the per-operation timeout the group was
+    started with, which the subgroups of :func:`shrink_mesh` take too
+    (``None``: ``torch.distributed``'s default).
 
     Example (under ``torchrun --nproc_per_node 4``)::
 
@@ -973,27 +977,104 @@ def make_worker_mesh(q: int, device="cuda",
     rank = dist.get_rank()
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rank % torch.cuda.device_count())
-    return WorkerMesh(q=q, rank=rank, device=device, backend=backend)
+    return WorkerMesh(q=q, rank=rank, device=device, backend=backend,
+                      timeout=timeout)
+
+
+def shrink_mesh(mesh: WorkerMesh, dead: int) -> WorkerMesh | None:
+    """The mesh of the workers that survive the crash of worker ``dead``
+    (its rank in ``mesh``): every process of ``mesh`` calls it, the
+    crashed one too, since ``torch.distributed`` creates the survivors'
+    subgroup collectively over the whole job.  Survivors are renumbered
+    ``r - (r > dead)``, as ``repro_torch.dist.faults.shrink_shards``
+    renumbers the partitions, and keep the transport counters; the
+    crashed worker gets ``None``.  The subgroup ``mesh`` ran on, if any,
+    is destroyed.  A process that left an earlier mesh takes part in the
+    later subgroups through :func:`follow_shrink`, and every process ends
+    the run with :func:`leave_group`.
+
+    Example::
+
+        mesh = shrink_mesh(mesh, crash)
+        if mesh is None:
+            ...                      # this worker crashed: it trains no more
+    """
+    if not 0 <= dead < mesh.q:
+        raise ValueError(f"dead worker {dead} out of range for a mesh of "
+                         f"{mesh.q}")
+    if mesh.q < 2:
+        raise ValueError("cannot shrink a mesh below one worker")
+    survivors, group = follow_shrink(mesh.ranks, dead, mesh.timeout)
+    if mesh.group is not None:
+        dist.destroy_process_group(mesh.group)
+    if mesh.rank == dead:
+        return None
+    return dataclasses.replace(
+        mesh, q=mesh.q - 1, rank=survivors.index(mesh.ranks[mesh.rank]),
+        group=group, ranks=survivors)
+
+
+def follow_shrink(ranks: tuple, dead: int,
+                  timeout: datetime.timedelta | None = None) -> tuple:
+    """``(survivors' job-wide ranks, their subgroup)`` when worker
+    ``dead`` of a mesh with job-wide ``ranks`` crashes.  A process that is
+    no longer a worker of the mesh (it crashed earlier) calls it at each
+    later crash of the run: ``torch.distributed`` creates every subgroup
+    over the whole job and names it by a count each process keeps.  (A
+    subgroup its members create alone is named by a hash of their ranks
+    instead; that name returns when the same workers survive a later
+    run's crash, and under ``gloo`` the new group then reads the
+    destroyed one's addresses from the store and hangs.)"""
+    survivors = ranks[:dead] + ranks[dead + 1:]
+    return survivors, dist.new_group(ranks=list(survivors), timeout=timeout)
+
+
+#: the job-store key by which rank 0 of a shrunk mesh tells the crashed
+#: workers that the run is over
+_RUN_DONE = "repro_torch/run_done"
+
+
+def leave_group(mesh: WorkerMesh | None) -> None:
+    """End a run on the worker group: every process of the job calls it,
+    a crashed worker with ``None``.  The crashed workers stay until the
+    survivors are done (the job's store may live in any process), but not
+    in an operation on the group, which its timeout would end however long
+    the survivors still train: they poll the store for :data:`_RUN_DONE`,
+    which rank 0 of a shrunk mesh sets, and need no bound of their own
+    (the spawner or launcher ends the job when a survivor fails).  Then
+    every process meets in one barrier of the job, and the survivors
+    destroy their subgroup."""
+    store = dist.distributed_c10d._get_default_store()
+    shrunk = mesh is None or mesh.q < dist.get_world_size()
+    if mesh is None:
+        while not store.check([_RUN_DONE]):
+            time.sleep(0.05)
+    elif shrunk and mesh.rank == 0:
+        store.set(_RUN_DONE, "1")
+    dist.barrier()
+    if mesh is not None:
+        if mesh.group is not None:
+            dist.destroy_process_group(mesh.group)
+        if shrunk and mesh.rank == 0:
+            store.delete_key(_RUN_DONE)     # every crashed worker has read it
 
 
 def _spawned_worker(rank: int, fn, q: int, args: tuple, device: str,
                     backend: str, timeout: float, tmp: str) -> None:
     """One spawned worker: join the group, run ``fn(mesh, *args)``, leave
-    rank 0's result (or this worker's exception) in ``tmp``."""
+    its result (unless ``None``) or its exception in ``tmp``."""
     torch.set_num_threads(1)
+    timeout = datetime.timedelta(seconds=timeout)
     dist.init_process_group(
         backend, init_method="file://" + os.path.join(tmp, "store"),
-        rank=rank, world_size=q,
-        timeout=datetime.timedelta(seconds=timeout))
+        rank=rank, world_size=q, timeout=timeout)
     try:
-        mesh = make_worker_mesh(q, device, backend)
+        mesh = make_worker_mesh(q, device, backend, timeout)
         if mesh.device.type == "cuda":
             torch.cuda.set_device(mesh.device)   # before any collective
         out = fn(mesh, *args)
-        if rank == 0:
-            torch.save(out, os.path.join(tmp, "result.part"))
-            os.replace(os.path.join(tmp, "result.part"),
-                       os.path.join(tmp, "result"))
+        if out is not None:
+            torch.save(out, os.path.join(tmp, f"result_{rank}"))
     except BaseException as exc:
         try:
             with open(os.path.join(tmp, f"error_{rank}"), "wb") as fh:
@@ -1009,8 +1090,10 @@ def spawn_workers(fn, q: int, *args, device="cuda",
                   backend: str | None = None, timeout: float = 60.0):
     """Run ``fn(mesh, *args)`` in ``q`` new worker processes, one per
     worker (``torch.multiprocessing.spawn``), joined in a process group
-    through a ``file://`` store in a temporary directory, and return rank
-    0's result.
+    through a ``file://`` store in a temporary directory, and return the
+    result of the lowest rank whose ``fn`` returned something other than
+    ``None`` (else ``None``): under ``train_gnn``, that of rank 0 of the
+    final mesh, since a worker that crashed returns ``None``.
 
     ``fn`` must be importable by name (the workers start from a fresh
     interpreter) and ``args`` picklable.  ``device``/``backend`` are
@@ -1043,7 +1126,11 @@ def spawn_workers(fn, q: int, *args, device="cuda",
                 with open(errors[0].path, "rb") as fh:
                     raise pickle.load(fh) from err
             raise
-        return torch.load(os.path.join(tmp, "result"), weights_only=False)
+        first = min((e for e in os.scandir(tmp)
+                     if e.name.startswith("result_")),
+                    key=lambda e: int(e.name[len("result_"):]), default=None)
+        return None if first is None else \
+            torch.load(first.path, weights_only=False)
 
 
 def shard_graph(graph: dict, mesh: WorkerMesh) -> dict:
@@ -1104,19 +1191,25 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
     residuals on the p2p wire: one ``[1, D, H, F]`` slab of this worker
     per exchange call (its row of the emulated ``[Q, D, H, F]`` state).
     ``wire_out``, a list, receives this worker's shipped buffers per
-    rate-map exchange.  The fault channel raises ``NotImplementedError``
-    (queue 1 item 5).
+    rate-map exchange.
+
+    ``fskip``/``fcache``/``fcache_out``/``dead`` are the fault channel on
+    the p2p rate-map wire, served on the receiver's side after
+    ``neighbor_exchange_finish``: the ring still posts every hop (a fault
+    means delivery failed, not that the hop was never posted), and this
+    worker replaces the rows of a CACHED pair (``fskip[rank, src]``) by
+    its ``fcache[call][0]`` block and zeroes a DEAD pair's, while the
+    ledger charges neither.  ``fcache`` holds this worker's ``[1, D, H,
+    F]`` receiver-major block per exchange call (hop ``d`` what it got
+    from worker ``(rank - d) mod Q``: row ``rank`` of ``faults.
+    _cache_send_to_recv`` of the emulated sender-major cache), and each
+    call appends the served block, before DEAD pairs are zeroed, to
+    ``fcache_out``.  DEAD pairs blend this worker's ELL weights toward the
+    isolated ones by ``_dead_mix``, as on the emulated backend.
 
     The same ``start``/``complete`` split as the emulated oracle: on the
     p2p wire ``start`` posts the hops and ``complete`` runs the ELL local
     aggregation before it waits for them."""
-    faults = [k for k, v in (("fskip", fskip), ("fcache", fcache),
-                             ("fcache_out", fcache_out), ("dead", dead))
-              if v is not None]
-    if faults:
-        raise NotImplementedError(
-            f"the fault channel ({', '.join(faults)}) is not ported to the "
-            f"worker group (ROADMAP.md queue 1 item 5)")
     if mesh.q != meta.q:
         raise ValueError(f"the mesh has {mesh.q} workers, the partitioning "
                          f"{meta.q}")
@@ -1134,6 +1227,14 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
     if store_w and width_map is None:
         raise ValueError("store_w (sub-byte storage) rides the width map; "
                          "pass width_map alongside it")
+    if (fskip is not None or fcache is not None or dead is not None) and \
+            not (p2p and rate_map is not None):
+        raise ValueError("the fault channel rides the p2p rate-map wire; "
+                         "pass rate_map with wire='p2p'")
+    if fcache is not None and fskip is None:
+        raise ValueError("fcache is served through fskip; pass both")
+    fskip = None if fskip is None else np.asarray(fskip, np.float32)
+    dead = None if dead is None else np.asarray(dead, np.float32)
     n_layers = _rate_tensor_layers(meta, rate_map)
     if width_map is not None:
         _rate_tensor_layers(meta, width_map)
@@ -1185,7 +1286,7 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
                 group_bits=False)
             if resid is not None and resid_out is not None:
                 resid_out.append(r_out[0][None] if r_out else resid[call])
-            token = (pending, k_call, n_keep)
+            token = (pending, k_call, n_keep, call)
             k_d = k_pairs[(me + np.arange(1, d_hops + 1)) % q, me]
             row_bits = k_pairs.astype(np.float32) * (
                 per_block_wire_bits(wm).numpy() if wm is not None
@@ -1203,8 +1304,31 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
         bits = _pair_ledger(meta, f, rm, row_bits,
                             pair_err_of(publish, pos_me, k_d),
                             torch.zeros((q, q), dtype=_F32, device=dev),
+                            live=_fault_live(q, fskip, dead, None),
                             li=lix, n_layers=n_layers, width_map=wm)
         return token, bits
+
+    def serve_faults(hops, call):
+        """The fault channel on this worker's received ``[D, H, F]`` hops
+        (hop ``d`` from worker ``(rank - d - 1) mod Q``): CACHED pairs
+        served from the cache, the served block kept, DEAD pairs
+        zeroed."""
+        src = (me - np.arange(1, q)) % q
+        if fcache is not None:
+            fsk = fskip[me, src]
+            if fsk.any():
+                hops = torch.where(torch.as_tensor(
+                    fsk[:, None, None] > 0.0, device=dev),
+                    fcache[call][0], hops)
+        if fcache_out is not None:
+            fcache_out.append(hops.detach()[None])
+        if dead is not None:
+            dd = dead[me, src]
+            if dd.any():
+                hops = torch.where(torch.as_tensor(
+                    dd[:, None, None] > 0.0, device=dev),
+                    torch.zeros((), dtype=hops.dtype, device=dev), hops)
+        return hops
 
     def start(li, x):                                  # x: [1, P, F]
         """Issue layer ``li``'s exchange on this worker.  Returns
@@ -1230,7 +1354,7 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
                 publish, graph["p2p_send_slot"][0],
                 graph["p2p_send_valid"][0], mesh, key=k_call,
                 n_keep=n_keep, group_bits=False)
-            return (pending, k_call, n_keep), bits
+            return (pending, k_call, n_keep, call), bits
         if packed_wire:
             halo, _ = packed_all_gather(publish, mesh, key=k_call,
                                         n_keep=n_keep)
@@ -1254,10 +1378,17 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
             local = _scatter_rows(x, graph["local_dst"], graph["local_src"],
                                   _local_w_for(graph, policy, rate), p_sz)
             return local + _gathered_remote(graph, token, 1, p_sz)
-        pending, k_call, n_keep = token
-        loc = _ell_local(graph, x, _ell_w_for(graph, policy, rate))
+        pending, k_call, n_keep, call = token
+        ell_w = _ell_w_for(graph, policy, rate)
+        if dead is not None:
+            mix = torch.as_tensor(_dead_mix(meta, dead)[me], device=dev)
+            ell_w = ell_w + mix * (graph["ell_w_iso"] - ell_w)
+        loc = _ell_local(graph, x, ell_w)
         halo = neighbor_exchange_finish(pending, mesh, key=k_call,
                                         n_keep=n_keep)
+        if q > 1 and (fcache is not None or dead is not None):
+            halo = serve_faults(halo.reshape(d_hops, -1, halo.shape[-1]),
+                                call).reshape(halo.shape)
         return loc + _p2p_remote(graph, halo[None], p_sz)
 
     def aggregate(li, x):
@@ -1308,7 +1439,7 @@ def first_halo(graph: dict, meta: DistMeta, policy: CommPolicy, key,
                                       packed_k=kb, **kw).start(0, x)[0]
         if meta.wire != "p2p":
             return token
-        pending, k_call, n_keep = token
+        pending, k_call, n_keep, _ = token
         return neighbor_exchange_finish(pending, mesh, key=k_call,
                                         n_keep=n_keep)
 

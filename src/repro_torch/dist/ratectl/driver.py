@@ -116,8 +116,15 @@ def init_halo_cache(meta, cfg, device="cuda", mesh=None) -> tuple:
     """Zero-initialised per-exchange hop buffers (``[Q, D, H, width]``
     per exchange call; p2p wire) for the ``stale`` controller and
     serving's drift-gated hop cache.  Neither skips before the first
-    exchange fills them, so the zeros are never read.  With a worker
-    ``mesh`` each buffer is this worker's ``[1, D, H, width]`` row."""
+    exchange fills them, so the zeros are never read; the fault channel
+    (``repro_torch.dist.faults``) keeps its hop cache in the same shapes.
+    The emulated buffers are sender-major: row ``j``, hop ``d`` is what
+    worker ``j`` ships at ring offset ``d``.  With a worker ``mesh`` each
+    buffer is this worker's ``[1, D, H, width]`` block: its own sent hops
+    (the sender-major row ``rank``) for the error-feedback residuals of
+    :func:`init_wire_residuals`, the hops it received (hop ``d`` from
+    worker ``(rank - d) mod Q``: row ``rank`` of ``faults.
+    _cache_send_to_recv``) for the fault cache."""
     d = max(meta.q - 1, 1)
     rows = meta.q if mesh is None else 1
     return tuple(torch.zeros((rows, d, meta.p2p_hop_width, w), dtype=_F32,

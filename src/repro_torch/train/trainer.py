@@ -19,10 +19,11 @@ import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.varco import CommPolicy
-from repro_torch.dist.gnn_parallel import (DistMeta, make_eval_step,
+from repro_torch.dist.gnn_parallel import (DistMeta, follow_shrink,
+                                           leave_group, make_eval_step,
                                            make_train_step,
                                            make_worker_mesh, shard_graph,
-                                           spawn_workers)
+                                           shrink_mesh, spawn_workers)
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.nn.gnn import GNNConfig, init_gnn, params_to
 from repro_torch.train.optim import Optimizer, adamw
@@ -140,14 +141,44 @@ def _wire_counters(mesh) -> tuple:
     return mesh.sent_bytes, mesh.staged_bytes, mesh.comm_s
 
 
-def _world_size(g, q: int) -> int:
+def _world_size(g, q: int, peeked: dict | None = None) -> int:
     """The worker count a run over ``g`` needs: its partitioning's, else
-    ``q``."""
+    ``q``; resuming (``peeked``, the checkpoint's metadata) a run that
+    recorded its live workers, their count."""
     from repro_torch.graph.stream import is_shard_dir, shard_meta
 
+    alive = None if peeked is None else peeked.get("alive")
+    if alive is not None:
+        return len(alive)
     if is_shard_dir(g):
         return int(shard_meta(g)["q"])
     return int(getattr(g, "q", q))
+
+
+def _peek_checkpoint(checkpoint_dir) -> dict:
+    """The metadata of the checkpoint a resumed run starts from."""
+    from repro_torch.train import checkpoint as ckpt
+
+    if not checkpoint_dir:
+        raise ValueError("resume=True needs checkpoint_dir")
+    path = ckpt.latest_checkpoint(checkpoint_dir)
+    if path is None:
+        raise FileNotFoundError(
+            f"resume=True but no checkpoint under {checkpoint_dir!r}")
+    return ckpt.peek(path)
+
+
+def _follow_crashes(sched, ranks: tuple, epoch: int, end: int) -> None:
+    """A crashed worker's part in the rest of its run: the survivors'
+    subgroup of every later crash before epoch ``end``
+    (:func:`~repro_torch.dist.gnn_parallel.follow_shrink`); ``sched`` and
+    ``ranks`` are the schedule and job-wide ranks after its own crash at
+    ``epoch``."""
+    for ep in range(epoch + 1, end):
+        crash = sched.crash_at_step(ep)
+        if crash is not None:
+            ranks, _ = follow_shrink(ranks, crash)
+            sched = sched.shrink(crash)
 
 
 def train_gnn(g, *, q: int = 8, scheme: str = "random",
@@ -225,8 +256,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     alone from a shard directory — and returns its result (the same
     parameters on every rank).  Without a group it spawns Q workers
     (:func:`~repro_torch.dist.gnn_parallel.spawn_workers`, ``nccl`` on
-    the card, ``gloo`` on the CPU) and returns rank 0's result, so one
-    call in one interpreter works::
+    the card, ``gloo`` on the CPU) and returns the result of rank 0 of
+    the final mesh, so one call in one interpreter works::
 
         res = train_gnn(g, q=4, policy=CommPolicy.parse(
             "varco:linear:5", 3, compressor="blockmask"), epochs=3,
@@ -240,10 +271,22 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     error-feedback residual slabs, and a quantised hop crosses the
     process boundary as its uint8 payload and f32 scales.
     ``auto:stale`` raises ``ValueError`` there, as in the JAX package (a
-    shape-uniform ring cannot drop a pair's buffer); ``faults``,
-    ``checkpoint_dir`` and ``resume`` raise ``NotImplementedError``
-    (ROADMAP.md queue 1 item 5).  Spawned workers receive the arguments
-    pickled: pass ``optimizer=None`` (the AdamW of ``lr``/
+    shape-uniform ring cannot drop a pair's buffer).  Under ``faults``
+    every worker runs the ladder on the same replicated schedule and
+    serves its CACHED and DEAD pairs on its own side of the ring from its
+    receiver-major fault-cache block; as in the JAX package's
+    ``shard_map`` worker it runs no error feedback and ships quantised
+    hops on the fp32 value path, rounded half to even.  A crash shrinks
+    the group (:func:`~repro_torch.dist.gnn_parallel.shrink_mesh`): the
+    survivors, renumbered as ``shrink_shards`` renumbers the partitions
+    (a worker then loads every partition on the host, to re-wire the
+    halo), train on in a subgroup, and the crashed worker leaves the
+    epoch loop, waits for the others at the end and returns ``None``.  A
+    checkpoint gathers every worker's caches into the emulated backend's
+    tree (the fault cache sender-major), written by rank 0 of the mesh,
+    so a file written by either backend resumes on the other; resuming a
+    run that shrank spawns its live workers.  Spawned workers receive the
+    arguments pickled: pass ``optimizer=None`` (the AdamW of ``lr``/
     ``weight_decay``) or start the workers yourself, since the optimisers
     are closures.
 
@@ -264,16 +307,9 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             "the plain versions on the CPU")
     auto = policy.mode == "auto"
     fault = faults is not None
+    peeked = _peek_checkpoint(checkpoint_dir) if resume else None
     mesh = None
     if use_shard_map:
-        for what, asked in (("faults=", fault),
-                            ("checkpoint_dir=", checkpoint_dir),
-                            ("resume=True", resume)):
-            if asked:
-                raise NotImplementedError(
-                    f"train_gnn(use_shard_map=True) with {what} is not "
-                    f"ported to the worker group (ROADMAP.md queue 1 item "
-                    f"5)")
         if auto and policy.controller == "stale":
             from repro_torch.dist.ratectl.driver import STALE_ON_MESH
             raise ValueError(STALE_ON_MESH)
@@ -283,21 +319,28 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                           layers=layers, conv=conv, seed=seed,
                           eval_every=eval_every, optimizer=optimizer,
                           sync=sync, wire=wire, device=str(device),
+                          faults=faults, fault_max_stale=fault_max_stale,
+                          fault_backoff_cap=fault_backoff_cap,
+                          checkpoint_dir=checkpoint_dir,
+                          checkpoint_every=checkpoint_every, resume=resume,
                           stop_after=stop_after, log_fn=log_fn,
                           params=None if params is None else
                           params_to(params, "cpu"))
-            return spawn_workers(_train_worker, _world_size(g, q), g, kwargs,
-                                 device=device)
-        if log_fn is not None and dist.get_rank() != 0:
-            log_fn = None              # one log: rank 0's
-        mesh = make_worker_mesh(_world_size(g, q), device)
+            return spawn_workers(_train_worker, _world_size(g, q, peeked),
+                                 g, kwargs, device=device)
+        mesh = make_worker_mesh(_world_size(g, q, peeked), device)
         device = mesh.device
     if (auto or fault) and wire == "dense":
         wire = "p2p"                   # per-pair rates need a per-pair wire
     sched = faults
+    alive = None if peeked is None else peeked.get("alive")
+    shrunk = alive is not None and len(alive) < _world_size(g, q)
     if is_shard_dir(g):
-        # a worker reads its own partition's file alone
-        g = load_shards(g, parts=None if mesh is None else [mesh.rank])
+        # a worker reads its own partition's file alone, unless a crash
+        # re-wires the halo (shrink_shards needs every partition)
+        own_part = mesh is not None and not shrunk and \
+            not (fault and faults.crash_at)
+        g = load_shards(g, parts=[mesh.rank] if own_part else None)
     elif isinstance(g, (str, bytes)):
         raise FileNotFoundError(f"{g!r} is no shard directory (no "
                                 f"shards.json)")
@@ -325,17 +368,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             from repro_torch.dist.halo import attach_p2p
             graph = attach_p2p(graph, pg, stack_on)
     q = pg.q
-    if mesh is not None and not own:
-        graph = shard_graph(graph, mesh)
     if resume:
-        if not checkpoint_dir:
-            raise ValueError("resume=True needs checkpoint_dir")
-        path = ckpt.latest_checkpoint(checkpoint_dir)
-        if path is None:
-            raise FileNotFoundError(
-                f"resume=True but no checkpoint under {checkpoint_dir!r}")
-        peeked = ckpt.peek(path)
-        alive = peeked.get("alive")
         if alive is not None and len(alive) < q:
             # the checkpointed run had already shrunk: replay the shrinks
             # so the like-tree (and every step closure) matches its world
@@ -347,13 +380,15 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                 pg = faultlib.shrink_shards(pg, cur.index(w))
                 cur.remove(w)
             q = pg.q
-            graph = pg.device_arrays(device)
+            graph = pg.device_arrays(stack_on)
             if sched is not None:
                 sched = dataclasses.replace(
                     sched, alive=tuple(int(a) for a in alive))
         if int(peeked.get("q", q)) != q:
             raise ValueError(f"checkpoint world size {peeked['q']} does "
                              f"not match this run's q={q}")
+    if mesh is not None and not own:
+        graph = shard_graph(graph, mesh)
     meta = DistMeta.build(pg, params, wire=wire)
     opt = optimizer or adamw(lr, weight_decay=weight_decay)
     opt_state = opt.init(params)
@@ -377,7 +412,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     def _make_step(meta_):
         if fault:
             return faultlib.make_fault_train_step(cfg, policy, opt, meta_,
-                                                  sync=sync)
+                                                  mesh=mesh, sync=sync)
         if auto:
             return make_auto_train_step(cfg, policy, opt, meta_, mesh=mesh,
                                         sync=sync)
@@ -388,7 +423,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
         ctl = make_controller(policy, meta, cfg, total_steps=epochs)
         ctl_state = ctl.init()
     cache = _init_cache(meta)
-    fcache = init_halo_cache(meta, cfg, device) if fault else ()
+    fcache = init_halo_cache(meta, cfg, device, mesh) if fault else ()
     dstate = faultlib.init_degrade(q) if fault else None
     step = _make_step(meta)
     evaluate = make_eval_step(cfg, meta, mesh=mesh)
@@ -406,6 +441,31 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             tree["cache"] = tuple(cache)
         if fault:
             tree["fcache"] = tuple(fcache)
+        return tree
+
+    def _ck_tree():
+        """The train state as the emulated backend holds it, so either
+        backend resumes the file: on a worker every worker's residual
+        slabs and fault-cache blocks are gathered, the fault cache turned
+        sender-major."""
+        tree = _state_tree()
+        if mesh is not None:
+            if cache:
+                tree["cache"] = tuple(mesh.all_gather(c[0]) for c in cache)
+            if fault:
+                tree["fcache"] = tuple(faultlib._cache_recv_to_send(
+                    mesh.all_gather(c[0]), q) for c in fcache)
+        return tree
+
+    def _ck_like():
+        """:func:`_ck_tree`'s shapes to restore into (a worker's caches
+        on the host: it keeps its own rows)."""
+        tree = _state_tree()
+        if mesh is not None:
+            if cache:
+                tree["cache"] = init_wire_residuals(meta, cfg, "cpu")
+            if fault:
+                tree["fcache"] = init_halo_cache(meta, cfg, "cpu")
         return tree
 
     def _ck_extra():
@@ -428,14 +488,17 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
 
     if resume:
         tree, start_epoch, ext = ckpt.restore_train_state(checkpoint_dir,
-                                                          _state_tree())
+                                                          _ck_like())
         params, opt_state = tree["params"], tree["opt"]
         if auto:
             ctl_state = tree["ctl"]
         if "cache" in tree:
-            cache = tree["cache"]
+            cache = tree["cache"] if mesh is None else tuple(
+                c[mesh.rank:mesh.rank + 1].to(device) for c in tree["cache"])
         if fault:
-            fcache = tree["fcache"]
+            fcache = tree["fcache"] if mesh is None else tuple(
+                faultlib._cache_send_to_recv(c, q)[mesh.rank:mesh.rank + 1]
+                .to(device) for c in tree["fcache"])
             dg = ext.get("degrade")
             if dg is not None:
                 dstate = faultlib.DegradeState(
@@ -450,6 +513,7 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
         if ext.get("layer") is not None:
             layer_bits_cum = np.asarray(ext["layer"], np.float64)
 
+    crashed = False
     t0 = time.time()
     for epoch in range(start_epoch, epochs):
         t_step = time.perf_counter()
@@ -470,17 +534,29 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
                 q_old = q
                 pg = faultlib.shrink_shards(pg, crash)
                 q = pg.q
-                graph = pg.device_arrays(device)
                 meta = DistMeta.build(pg, params, wire=wire)
                 sched = sched.shrink(crash)
                 dstate = faultlib.migrate_degrade_state(dstate, crash)
+                if mesh is None:
+                    graph = pg.device_arrays(device)
+                else:
+                    ranks = mesh.ranks
+                    mesh = shrink_mesh(mesh, crash)
+                    if mesh is None:    # this worker crashed: it trains no
+                        crashed = True  # more, and returns None
+                        _follow_crashes(sched,
+                                        ranks[:crash] + ranks[crash + 1:],
+                                        epoch, epochs if stop_after is None
+                                        else min(epochs, stop_after))
+                        break
+                    graph = shard_graph(pg.device_arrays("cpu"), mesh)
                 if auto:
                     ctl = make_controller(policy, meta, cfg,
                                           total_steps=epochs)
                     ctl_state = faultlib.migrate_controller_state(
                         ctl_state, crash, q_old)
                 cache = _init_cache(meta)   # stale/EF buffers restart cold
-                fcache = init_halo_cache(meta, cfg, device)
+                fcache = init_halo_cache(meta, cfg, device, mesh)
                 step = _make_step(meta)
                 evaluate = make_eval_step(cfg, meta, mesh=mesh)
                 # keep cumulative pair splits shaped [..., Q, Q]: the dead
@@ -558,14 +634,22 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
             if layer_bits_cum is not None:
                 hist.layer_transport_gf.append(tuple(
                     layer_bits_cum.ravel() / 32.0 / 1e9))
-            if log_fn:
+            if log_fn and (mesh is None or mesh.rank == 0):
                 log_fn(hist.row(len(hist.epoch) - 1))
         done = epoch + 1
         if checkpoint_dir and (
                 (checkpoint_every and done % checkpoint_every == 0)
                 or done == stop_after):
-            ckpt.save_train_state(checkpoint_dir, _state_tree(), done,
-                                  extra=_ck_extra())
+            tree = _ck_tree()
+            if mesh is None or mesh.rank == 0:
+                ckpt.save_train_state(checkpoint_dir, tree, done,
+                                      extra=_ck_extra())
+            if mesh is not None:
+                mesh.barrier()         # no worker reads it before the rename
         if stop_after is not None and done >= stop_after:
             break
+    if use_shard_map:
+        leave_group(mesh)              # a crashed worker too, with None
+        if crashed:
+            return None
     return TrainResult(hist, params, meta, policy.describe())

@@ -1110,3 +1110,53 @@ def test_cuda_worker_backend_auto_step_matches_emulated(cuda_device):
     assert abs(got["loss"] - float(m["loss"])) <= 1e-4
     assert torch.equal(got["resid"][0], cache[0][0].cpu())
     assert all(n > 0 for n in got["launches"].values()), got["launches"]
+
+
+@pytest.mark.cuda
+def test_cuda_worker_backend_fault_step_matches_emulated(cuda_device):
+    """Two worker processes on the card over ``gloo``: one p2p ``varco``
+    fault step (``make_fault_train_step(mesh=...)``) with a CACHED and a
+    DEAD pair launches ``ell_spmm``, ``varco_pack`` and ``varco_unpack``
+    in the worker, matches the emulated step's loss within 1e-4, and
+    serves rank 0's cache as the emulated step does: the first exchange
+    bitwise, the second within 1e-4 (its input comes through the remote
+    scatter's atomics)."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.faults import (_cache_send_to_recv,
+                                         make_fault_train_step)
+    from repro_torch.dist.halo import attach_p2p
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import tiny_graph
+    from repro_torch.nn.gnn import init_gnn
+    from repro_torch.train import optim
+
+    import torch_dist_cases as cases
+
+    got = gp.spawn_workers(cases.card_fault_step, 2, device=cuda_device,
+                           backend="gloo")
+    g = tiny_graph(n=cases.N, feat_dim=cases.F)
+    pg = partition_graph(g, 2, seed=0)
+    graph = attach_p2p(pg.device_arrays(cuda_device), pg, cuda_device)
+    cfg = cases.fault_cfg(g.num_classes)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0),
+                      device=cuda_device)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    opt = optim.sgd(cases.LR)
+    spec = "varco:linear:5"
+    step = make_fault_train_step(cfg, CommPolicy.parse(
+        spec, cases.FAULT_EPOCHS, compressor="blockmask"), opt, meta)
+    fskip, dead = cases.fault_masks(2)[0]
+    _, _, m, _, served = step(
+        params, opt.init(params), graph, prng.key(0),
+        cases.fault_plan(spec, 2), fskip, dead, (),
+        tuple(c.to(cuda_device) for c in cases.random_fcache(meta, cfg)))
+    assert abs(got["loss"] - float(m["loss"])) <= 1e-4
+    for e, (a, b) in enumerate(zip(got["fcache"], served, strict=True)):
+        want = _cache_send_to_recv(b, 2)[0:1].cpu()
+        if e == 0:
+            assert torch.equal(a, want)
+        else:
+            torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
+    assert all(n > 0 for n in got["launches"].values()), got["launches"]

@@ -7,12 +7,12 @@ CPU, one ``gloo`` process per worker, against the emulated backend.
   floats equal, and every worker shipped bytes each step;
 * the same run booted from a shard directory, each worker loading only
   its own partition's file;
-* the refusals: ``faults=``, ``checkpoint_dir=`` and ``resume=True``
-  with ``use_shard_map`` (``NotImplementedError``, named for the next
-  slice), ``backend="nccl"`` on the CPU, a worker group
-  without a process group, an argument the workers cannot receive (an
-  optimiser closure), ``shard_graph`` on an unstacked leaf; and a
-  worker's exception re-raised in the parent.
+* the refusals: ``backend="nccl"`` on the CPU, a worker group without a
+  process group, an argument the workers cannot receive (an optimiser
+  closure), ``shard_graph`` on an unstacked leaf; and a worker's
+  exception re-raised in the parent.  (Faults, checkpoints and resume on
+  the group: ``tests/test_torch_dist_faults.py`` and
+  ``tests/test_torch_dist_resume.py``.)
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import torch
 from repro_torch.core.varco import CommPolicy
 from repro_torch.core.collectives import WorkerMesh
 from repro_torch.dist import gnn_parallel as gp
-from repro_torch.dist.faults import FaultSchedule
 from repro_torch.graph import stream as st
 from repro_torch.graph.synthetic import tiny_graph
 from repro_torch.train.optim import sgd
@@ -73,18 +72,6 @@ def test_train_gnn_worker_backend_from_shards(tmp_path):
         emu = train_gnn(shards, **_kw())
     dist = train_gnn(shards, use_shard_map=True, **_kw())
     _assert_same_run(dist, emu)
-
-
-@pytest.mark.parametrize("extra,item", [
-    ({"faults": FaultSchedule(q=Q, drop_rate=0.25)}, 5),
-    ({"checkpoint_dir": "ck"}, 5),
-    ({"checkpoint_dir": "ck", "resume": True}, 5)],
-    ids=["extra1-5", "extra2-5", "extra3-5"])
-def test_worker_backend_refuses_the_next_slices(extra, item):
-    g = tiny_graph(n=64, feat_dim=128)
-    with pytest.raises(NotImplementedError,
-                       match=f"worker group.*queue 1 item {item}"):
-        train_gnn(g, q=Q, use_shard_map=True, **{**_kw(), **extra})
 
 
 def test_group_refusals():

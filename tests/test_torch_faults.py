@@ -291,9 +291,12 @@ def test_fault_step_rejects_bad_setups(world):
     with pytest.raises(ValueError, match="communicating"):
         tf.make_fault_train_step(ct, CommPolicy.parse("none", 1), opt,
                                  world["meta_t"])
-    with pytest.raises(NotImplementedError):
+    from repro_torch.core.collectives import WorkerMesh
+    two = WorkerMesh(q=2, rank=0, device=torch.device("cpu"),
+                     backend="gloo")
+    with pytest.raises(ValueError, match="mesh has 2 workers"):
         tf.make_fault_train_step(ct, CommPolicy.parse("full", 1), opt,
-                                 world["meta_t"], mesh=object())
+                                 world["meta_t"], mesh=two)
     import dataclasses
     with pytest.raises(ValueError, match="p2p"):
         tf.make_fault_train_step(ct, CommPolicy.parse("full", 1), opt,

@@ -115,10 +115,11 @@ def test_train_gnn_reuses_a_partitioned_graph_and_refuses_unported(
     a = train_gnn(g, q=2, scheme="random", **kw).history
     b = train_gnn(pg, q=7, scheme="metis-like", **kw).history
     assert a.loss == b.loss and a.transport_gfloats == b.transport_gfloats
-    # the worker backend runs (tests/test_torch_dist_trainer.py), but not
-    # with checkpoints yet
-    with pytest.raises(NotImplementedError, match="worker group"):
-        train_gnn(pg, **{**kw, "use_shard_map": True,
+    # the worker backend runs with checkpoints too (tests/
+    # test_torch_dist_resume.py); resuming it reads the checkpoint before
+    # any worker starts, so a missing one is refused in this process
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        train_gnn(pg, **{**kw, "use_shard_map": True, "resume": True,
                          "checkpoint_dir": str(tmp_path / "ck")})
     # ported since: resume needs a checkpoint directory, a path must be a
     # shard directory, and checkpointed and faulted runs train (their

@@ -416,3 +416,339 @@ def card_auto_step(mesh) -> dict:
     return {"loss": float(m["loss"]), "resid": cache[0].cpu(),
             "launches": {fn.__name__: fn.launches for fn in (
                 varco_pack_quant_stochastic, varco_unpack_quant)}}
+
+
+# ---------------------------------------------------------------------------
+# Faults, elastic shrink and checkpoints on the worker group
+# ---------------------------------------------------------------------------
+
+#: the fault world: the tiny graph cut ``metis-like`` into a shard set,
+#: a 2-layer SAGE (the second exchange has two lane-blocks, so rate maps
+#: pick kept counts per pair), runs of FAULT_EPOCHS epochs
+FAULT_LAYERS, FAULT_EPOCHS = 2, 6
+#: drops and latency spikes; the runs add their crash
+FAULT_SCHED = dict(q=4, seed=0, drop_rate=0.25, spike_rate=0.05)
+
+
+def write_fault_shards(root, q: int = 4) -> str:
+    """The fault world's shard directory under ``root``."""
+    from repro_torch.graph import stream as st
+
+    store = st.write_graph_store(tiny_graph(n=N, feat_dim=F), root / "store")
+    st.write_shards(store, st.stream_partition(store, q, "metis-like",
+                                               seed=0), root / "shards")
+    return str(root / "shards")
+
+
+def fault_cfg(num_classes: int):
+    return tgnn.GNNConfig(conv="sage", in_dim=F, hidden=HIDDEN,
+                          out_dim=num_classes, layers=FAULT_LAYERS)
+
+
+def fault_setup(shard_dir: str, params_np, device="cpu"):
+    """Every partition of the shard set, its stacked host arrays, the
+    config and the starting parameters (``params_np``: the JAX package's
+    initialisation as numpy)."""
+    from repro_torch.graph.stream import load_shards
+
+    pg = load_shards(shard_dir)
+    return pg, pg.device_arrays("cpu"), fault_cfg(pg.num_classes), \
+        tgnn.params_from_jax(params_np, device)
+
+
+def fault_masks(q: int, seed: int = 7) -> list:
+    """Two seeded ``(fskip, dead)`` ladders' masks: every fourth
+    off-diagonal pair CACHED, every fifth of the rest DEAD, and at least
+    one of each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        u = rng.random((q, q))
+        np.fill_diagonal(u, 1.0)
+        fskip = (u < 0.25).astype(np.float32)
+        dead = ((u >= 0.25) & (u < 0.45)).astype(np.float32)
+        fskip[1, 0], dead[0, 1] = 1.0, 1.0
+        fskip[0, 1], dead[1, 0] = 0.0, 0.0
+        out.append((fskip, dead))
+    return out
+
+
+def random_fcache(meta, cfg, seed: int = 9) -> tuple:
+    """A seeded sender-major fault cache (``init_halo_cache`` shapes)."""
+    from repro_torch.dist.ratectl import init_halo_cache
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=tuple(c.shape)).astype(
+        np.float32)) for c in init_halo_cache(meta, cfg, "cpu"))
+
+
+def fault_plan(spec: str, q: int):
+    """The step's plan: the policy's uniform rate at epoch 1, or under
+    an auto policy a seeded map of rates {1, 2} with every pair at 8
+    bits."""
+    from repro_torch.dist.ratectl import uniform_plan
+
+    pol = CommPolicy.parse(spec, FAULT_EPOCHS, compressor="blockmask")
+    if pol.mode != "auto":
+        return uniform_plan(q, float(pol.rate(1)) if pol.compresses else 1.0)
+    rng = np.random.default_rng(11)
+    rates = rng.choice([1.0, 2.0], (q, q)).astype(np.float32)
+    np.fill_diagonal(rates, 1.0)
+    widths = np.full((q, q), 8.0, np.float32)
+    np.fill_diagonal(widths, 32.0)
+    return RatePlan(rates, np.zeros((q, q), np.float32), widths)
+
+
+def run_fault_case(pg, graph, cfg, params, spec: str, sync: str,
+                   mesh=None) -> dict:
+    """Two fault steps of ``spec`` from ``params`` under SGD with
+    momentum: step 0 under the first :func:`fault_masks` from
+    :func:`random_fcache`, step 1 under the second from step 0's
+    ``fcache'``; emulated with ``cache=()`` (``mesh=None``, FedAvg at
+    ``lr / Q``) or on this worker, from its receiver-major row of the
+    cache.  Records per step the loss, the ledger, the pair matrices and
+    ``fcache'`` (a worker's ``[1, D, H, F]`` blocks), and the final
+    parameters."""
+    from repro_torch.dist.faults import (_cache_send_to_recv,
+                                         make_fault_train_step)
+
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    q = meta.q
+    pol = CommPolicy.parse(spec, FAULT_EPOCHS, compressor="blockmask")
+    opt = optim.sgd(LR / q if mesh is None and sync == "fedavg" else LR,
+                    momentum=0.9)
+    step = make_fault_train_step(cfg, pol, opt, meta, mesh=mesh, sync=sync)
+    fcache = random_fcache(meta, cfg)
+    if mesh is not None:
+        fcache = tuple(_cache_send_to_recv(c, q)[mesh.rank:mesh.rank + 1]
+                       for c in fcache)
+    plan, state = fault_plan(spec, q), opt.init(params)
+    rec = {k: [] for k in ("loss", "rate", "halo_bits", "transport_bits",
+                           "pair_transport", "pair_err", "fcache")}
+    for t, (fskip, dead) in enumerate(fault_masks(q)):
+        params, state, m, cache, fcache = step(
+            params, state, graph, prng.key(t), plan, fskip, dead, (), fcache)
+        assert cache == ()
+        for k in ("loss", "rate", "halo_bits", "transport_bits",
+                  "pair_transport", "pair_err"):
+            rec[k].append(_np(m[k]))
+        rec["fcache"].append([_np(c) for c in fcache])
+    rec["params"] = [_np(t) for t in optim.tree_leaves(params)]
+    return rec
+
+
+def _fault_forward(graph, meta, cfg, params, fskip, dead, fcache, mesh,
+                   spec: str = "full"):
+    """One forward through the fault channel at full rate: logits, the
+    ledger vector and the served caches."""
+    pol = CommPolicy.parse(spec, 1)
+    rm = np.ones((meta.q, meta.q), np.float32)
+    served: list = []
+    kw = dict(packed_k=dict(gp._packed_pair_k_for(meta, rm)), rate_map=rm,
+              fskip=fskip, fcache=fcache, fcache_out=served, dead=dead)
+    if spec == "none":
+        kw = {}
+    with torch.no_grad():
+        agg = gp._make_aggregate_shard(graph, meta, pol, torch.ones(()),
+                                       prng.key(3), mesh, **kw)
+        logits, bits = tgnn.gnn_forward(params, cfg, graph["features"], agg)
+    return logits, bits.numpy().astype(np.float64), tuple(served)
+
+
+def fault_identities(pg, graph, cfg, params, mesh) -> dict:
+    """On this worker: a fresh forward; the same forward with pair
+    (2 <- 0) CACHED from the fresh forward's served cache (logits and
+    served blocks bitwise, the pair charged nothing); every off-diagonal
+    pair DEAD against the No-Comm forward."""
+    from repro_torch.dist.ratectl import init_halo_cache
+
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    q, lq2 = meta.q, FAULT_LAYERS * meta.q * meta.q
+    zeros = np.zeros((q, q), np.float32)
+    cold = init_halo_cache(meta, cfg, "cpu", mesh)
+    l0, b0, fresh = _fault_forward(graph, meta, cfg, params, zeros, zeros,
+                                   cold, mesh)
+    fskip = zeros.copy()
+    fskip[2, 0] = 1.0
+    l1, b1, served = _fault_forward(graph, meta, cfg, params, fskip, zeros,
+                                    fresh, mesh)
+    dead = 1.0 - np.eye(q, dtype=np.float32)
+    ld, bd, _ = _fault_forward(graph, meta, cfg, params, zeros, dead, cold,
+                               mesh)
+    liso, _, _ = _fault_forward(graph, meta, cfg, params, None, None, None,
+                                mesh, spec="none")
+    t0 = b0[2:2 + lq2].reshape(FAULT_LAYERS, q, q)
+    t1 = b1[2:2 + lq2].reshape(FAULT_LAYERS, q, q)
+    return {"cached_logits_equal": torch.equal(l0, l1),
+            "served_equal": all(torch.equal(a, b)
+                                for a, b in zip(served, fresh)),
+            "fresh_pair_bits": float(t0[:, 2, 0].sum()),
+            "cached_pair_bits": float(t1[:, 2, 0].sum()),
+            "transport_drop": float(b0[1] - b1[1]),
+            "dead_vs_none": float((ld - liso).abs().max()),
+            "dead_bits": (float(bd[0]), float(bd[1]))}
+
+
+def fault_train_kwargs(params_np, spec: str, crashes: tuple,
+                       max_stale: int) -> dict:
+    """``train_gnn``'s arguments of a faulted run of the fault world
+    (AdamW, every epoch logged): ``spec`` under :data:`FAULT_SCHED` with
+    the ``crashes``, ``(epoch, worker)`` events."""
+    from repro_torch.dist.faults import FaultSchedule
+
+    return dict(policy=CommPolicy.parse(spec, FAULT_EPOCHS,
+                                        compressor="blockmask"),
+                epochs=FAULT_EPOCHS, wire="p2p", device="cpu",
+                hidden=HIDDEN, layers=FAULT_LAYERS, eval_every=1,
+                faults=FaultSchedule(**FAULT_SCHED, crash_at=crashes),
+                fault_max_stale=max_stale,
+                params=tgnn.params_from_jax(params_np, "cpu"))
+
+
+def run_record(res) -> dict | None:
+    """What a ``train_gnn`` call left this process: ``None`` on a worker
+    that crashed, else the history, the final Q and parameters."""
+    if res is None:
+        return None
+    return {"history": dataclasses.asdict(res.history), "q": res.meta.q,
+            "params": [_np(t) for t in optim.tree_leaves(res.params)]}
+
+
+def fault_group_cases(mesh, shard_dir: str, params_np, steps: dict,
+                      runs: dict) -> list:
+    """Every fault-step case ``name -> (spec, sync)`` on this worker
+    (:func:`run_fault_case`), the fault identities, and each faulted
+    ``train_gnn(use_shard_map=True)`` run ``name -> (spec, crashes,
+    max_stale)`` on the group already running; every worker's records
+    gathered."""
+    pg, host, cfg, params = fault_setup(shard_dir, params_np)
+    graph = gp.shard_graph(host, mesh)
+    out = {"steps": {name: run_fault_case(pg, graph, cfg, params, *case,
+                                          mesh=mesh)
+                     for name, case in steps.items()},
+           "ident": fault_identities(pg, graph, cfg, params, mesh),
+           "runs": {}}
+    for name, (spec, crashes, max_stale) in runs.items():
+        res = train_gnn(shard_dir, use_shard_map=True,
+                        **fault_train_kwargs(params_np, spec, crashes,
+                                             max_stale))
+        out["runs"][name] = run_record(res)
+    out["slow"] = slow_crash_run(shard_dir, params_np)
+    # every subgroup a shrink created is gone again: only the job's remains
+    out["groups_left"] = len(dist.distributed_c10d._world.pg_map)
+    every = [None] * mesh.q
+    dist.all_gather_object(every, out)
+    return every
+
+
+#: the job's per-operation timeout during :func:`slow_crash_run`, and the
+#: seconds every optimiser update sleeps there
+SLOW_TIMEOUT_S, SLOW_PAUSE_S = 2.0, 1.0
+
+
+def slow_crash_run(shard_dir: str, params_np) -> dict | None:
+    """A faulted ``varco`` run with worker 1 crashing at epoch 1 whose
+    later epochs outlast the job's per-operation timeout (cut to
+    :data:`SLOW_TIMEOUT_S` for the run; every optimiser update sleeps
+    :data:`SLOW_PAUSE_S`): the crashed worker must wait out the run
+    without a timed operation."""
+    import datetime
+    import time
+
+    from torch.distributed import distributed_c10d as c10d
+
+    base = optim.adamw(5e-3)
+
+    def update(grads, state, params):
+        time.sleep(SLOW_PAUSE_S)
+        return base.update(grads, state, params)
+
+    default = c10d._get_default_group()
+    was = default._get_backend(torch.device("cpu")).options._timeout
+    c10d._set_pg_timeout(datetime.timedelta(seconds=SLOW_TIMEOUT_S))
+    try:
+        res = train_gnn(shard_dir, use_shard_map=True,
+                        optimizer=optim.Optimizer(base.init, update),
+                        **fault_train_kwargs(params_np, "varco:linear:5",
+                                             ((1, 1),), 2))
+    finally:
+        c10d._set_pg_timeout(was)
+    return run_record(res)
+
+
+def resume_kwargs(params_np, spec: str, faulted: bool) -> dict:
+    """``train_gnn``'s arguments of the resume tests' runs: ``spec`` over
+    the fault world, under :data:`FAULT_SCHED` with worker 1 crashing at
+    epoch 3 when ``faulted``."""
+    kw = fault_train_kwargs(params_np, spec, ((3, 1),), 2)
+    if not faulted:
+        del kw["faults"], kw["fault_max_stale"]
+    return kw
+
+
+def resume_group_cases(mesh, shard_dir: str, ck_root: str, params_np,
+                       runs: dict) -> list:
+    """On the group already running, for each run ``name -> (spec,
+    faulted, stops)``: the uninterrupted run, and for each ``stop`` in
+    ``stops`` the run stopped after ``stop`` epochs into
+    ``ck_root/<name>_<stop>`` then, when the checkpoint's live workers
+    are this group's, resumed from it.  A resume the group cannot serve
+    (the checkpoint of a run that shrank) records its ``ValueError``;
+    every worker's records gathered."""
+    import os
+
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    for name, (spec, faulted, stops) in runs.items():
+        kw = resume_kwargs(params_np, spec, faulted)
+        rec = {"whole": run_record(train_gnn(shard_dir, use_shard_map=True,
+                                             **kw))}
+        for stop in stops:
+            ck = os.path.join(ck_root, f"{name}_{stop}")
+            rec[f"stop{stop}"] = run_record(train_gnn(
+                shard_dir, use_shard_map=True, checkpoint_dir=ck,
+                stop_after=stop, **kw))
+            alive = ckpt.peek(ckpt.latest_checkpoint(ck)).get("alive")
+            try:
+                rec[f"resume{stop}"] = run_record(train_gnn(
+                    shard_dir, use_shard_map=True, checkpoint_dir=ck,
+                    resume=True, **kw))
+            except ValueError as err:
+                assert alive is not None and len(alive) < mesh.q
+                rec[f"resume{stop}"] = str(err)
+        out[name] = rec
+    every = [None] * mesh.q
+    dist.all_gather_object(every, out)
+    return every
+
+
+def card_fault_step(mesh, spec: str = "varco:linear:5") -> dict:
+    """One p2p fault step of ``spec`` on the card through the worker
+    backend (the tiny graph cut into ``mesh.q``, a 2-layer SAGE, seeded
+    parameters) under the first :func:`fault_masks`, from this worker's
+    row of :func:`random_fcache`: loss, the served cache blocks and the
+    kernels' launches (moved to the CPU)."""
+    from repro_torch.dist.faults import (_cache_send_to_recv,
+                                         make_fault_train_step)
+
+    g = tiny_graph(n=N, feat_dim=F)
+    pg = partition_graph(g, mesh.q, seed=0)
+    host = attach_p2p(pg.device_arrays("cpu"), pg, "cpu")
+    cfg = fault_cfg(g.num_classes)
+    params = tgnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                           device=mesh.device)
+    meta = gp.DistMeta.build(pg, params, wire="p2p")
+    opt = optim.sgd(LR)
+    step = make_fault_train_step(cfg, CommPolicy.parse(
+        spec, FAULT_EPOCHS, compressor="blockmask"), opt, meta, mesh=mesh)
+    fcache = tuple(_cache_send_to_recv(c, mesh.q)[mesh.rank:mesh.rank + 1]
+                   .to(mesh.device) for c in random_fcache(meta, cfg))
+    fskip, dead = fault_masks(mesh.q)[0]
+    _, _, m, _, served = step(params, opt.init(params),
+                              gp.shard_graph(host, mesh), prng.key(0),
+                              fault_plan(spec, mesh.q), fskip, dead, (),
+                              fcache)
+    return {"loss": float(m["loss"]), "fcache": [c.cpu() for c in served],
+            "launches": {fn.__name__: fn.launches for fn in (
+                ell_spmm, varco_pack, varco_unpack)}}
