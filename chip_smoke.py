@@ -13,8 +13,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build   — compiles every CUDA kernel of the port from ``src/repro_torch/
    csrc`` with ``nvcc`` (one process per source, in parallel) and prints
    the build seconds, each library's register/spill report and, where the
-   toolkit has ``cuobjdump``, the count of ``HGMMA`` instructions in the
-   tensor-core flash library's SASS (it must not be 0).
+   toolkit has ``cuobjdump``, the count of ``HGMMA``, ``HMMA`` and
+   ``FFMA`` instructions in the three flash libraries' SASS (the wgmma
+   library must hold HGMMA, the narrow-head one HMMA, the CUDA-core one
+   FFMA and no tensor-core instruction), and the CUDA-core and
+   narrow-head kernels' tiles and resident blocks per SM at every head
+   dim they take (at least 2 at D <= 128).
 3. setup   — the OGBN-Arxiv analogue ``citation_graph(n=169_343,
    feat_dim=128)``, cut ``metis-like`` into Q = 4 partitions stacked on the
    card, and a ``ServingEngine`` over GraphSAGE at the paper's width (in
@@ -204,22 +208,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``[8, 32, 2048, 128]`` kv 4, qwen3 and jamba ``[8, 64, 2048, 128]`` kv
    8, llama4 ``[8, 40, 2048, 128]`` kv 8, qwen2-vl ``[8, 12, 2048, 128]``
    kv 2), at D = 128 and D = 256,
-   with a window, at a ragged S — all on the tensor-core kernel — and in
-   f32 and bf16 at D = 32 on the CUDA-core kernel (each case checks that
-   the counter of its kernel, and only that one, moved; the record's
-   ``path`` names it); ``ssd_chunk`` at mamba2-130m's (x ``[8, 8, 256,
-   24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
+   with a window, at a ragged S — all on the tensor-core kernel — in f32
+   at granite's widths and at D = 32 on the CUDA-core kernel, and in bf16
+   at D = 32 and 16 on the narrow-head tensor-core kernel (each case
+   checks that the counter of its kernel, and only that one, moved; the
+   record's ``path`` names it; a bf16 narrow call takes about as long in
+   the host's Python as on the card, so those cases time kernel and
+   library alike by replaying a CUDA graph of ``NARROW_REPS`` calls,
+   their eager times beside); ``ssd_chunk`` at mamba2-130m's (x ``[8, 8,
+   256, 24, 64]``, B/C ``[8, 8, 256, 1, 128]``, f32, strided like the conv
    output), at jamba's (H = 256: x ``[8, 8, 256, 256, 64]``), at a
    two-group ragged shape and at G = 2, H/G = 3, Q = 100.
    Flash attention also runs with explicit positions (a shifted and a
-   left-padded batch, the JAX package's prefill mask) on both kernels,
+   left-padded batch, the JAX package's prefill mask) on all three
+   kernels,
    its bound from the (query, key) pairs the positions leave unmasked
    (counted on the host) and its library time that of
    ``scaled_dot_product_attention`` with the boolean position mask,
    built outside the timing.
    Each against its plain version (flash within 2e-5 in f32 and 2e-2 in
-   bf16, one ulp of the rounded output; SSD within 1e-5 relative + 1e-4
-   absolute), with kernel, plain and library times (flash: ``scaled_dot_
+   bf16, one ulp of the rounded output; in bf16 also each output row
+   within 2e-2 of its largest value, a limit that a control, the plain
+   version with the window cut by 16 keys, must fail; SSD within 1e-5
+   relative + 1e-4 absolute), with kernel, plain and library times
+   (flash: ``scaled_dot_
    product_attention(is_causal=True, enable_gqa=True)``, or with a
    boolean ``attn_mask`` built outside the timing for the window, held to
    the plain version in bf16 and timed here only; SSD: none) and the bound (bf16 products against the 989 TFLOP/s
@@ -237,7 +249,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    with an MoE of 16 experts); ``LM_SERVE`` holds the cuts.  Launch
    counts are set to 0 before each ``serve`` and read right after: each
    prefill must launch flash once per attention layer (on the kernel
-   ``kernel_for`` picks: tensor-core for every bf16 config) and
+   ``kernel_for`` picks: wgmma for every full-size bf16 config) and
    ``ssd_chunk`` once per mamba layer, and decode neither.  Each
    kernel-path prefill's logits must match the plain path's (the same
    call with the plain versions swapped in) within 5e-2 of the largest
@@ -250,8 +262,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    logit (granite's bf16 weights run in f32 for this check; mamba2 at S
    = 256, since 2047 is no multiple of its chunk).  Granite's f32 check
    is the CUDA-core flash kernel's path: counts are set to 0 before it
-   and read after (two prefills: 80 launches of it, none of the
-   tensor-core kernel).  Granite's prefill with explicit positions,
+   and read after (two prefills: 80 launches of it, none of the other
+   two).  Granite's prefill with explicit positions,
    kernel path against plain path within 5e-2: a shifted batch at S =
    2048 (masked by index, as the JAX package's chunked branch) and a
    left-padded one at S = 2000 (masked by position).  Then qwen2-moe at
@@ -260,7 +272,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    decode consistency within 1e-3 at ``capacity_factor=8.0`` on 2 rows
    (the JAX package's consistency test gives MoE the same headroom: a
    decode step routes 2 tokens, the prefill 4096, and the capacities
-   then differ).
+   then differ).  The narrow-head bf16 path: granite's and yi's SMOKE
+   configs (head dims 16 and 32) in bf16, served at batch 8 × 2048 + 32
+   tokens with counts set to 0 before and read after (one launch of the
+   narrow-head kernel per attention layer, none of the others), prefill
+   logits against the plain path within 5e-2 of the largest.
 9. lm_train — launch counts set to 0, then LM training through
    ``make_train_step`` (AdamW, lr 3e-4, ``TokenPipeline`` batches):
    granite-3-2b at full size (40 bf16 layers, remat, f32 moments), batch 8
@@ -306,7 +322,8 @@ the update phase's stochastic serving for the stochastic codec and
 ``random_uniform``; from granite's one-worker VARCO run for
 ``random_mask_bf16``;
 from qwen2-moe-a2.7b's prefill for tensor-core flash, mamba2-130m's for
-``ssd_chunk`` and granite's f32 check for the CUDA-core flash kernel);
+``ssd_chunk``, granite's f32 check for the CUDA-core flash kernel and
+the bf16 SMOKE serving runs for the narrow-head one);
 the last line is ``{"ok": true, "device": {...}}``.  ``--lm-only`` runs
 the device, build, lm_kernels, lm and lm_train phases alone and prints
 neither.
@@ -341,10 +358,18 @@ FRESH_TOL = 1e-4
 GRAD_TOL = 1e-4
 TRAIN_EPOCHS = 5
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: bf16 flash: the worst output row's largest error over that row's
+#: largest value, and the control that shows the limit catches a wrong
+#: kernel (the plain version with the window cut by this many keys: the
+#: last rows lose their oldest keys, within FLASH_TOL in absolute terms)
+FLASH_ROW_TOL = 2e-2
+FLASH_CONTROL_KEYS = 16
 SSD_RTOL, SSD_ATOL = 1e-5, 1e-4
 #: kernel path against plain path, of the largest logit, by param dtype
 PLAIN_PATH_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 CONSISTENCY_TOL = 1e-3
+#: calls in the replayed graph that times the narrow-head bf16 flash cases
+NARROW_REPS = 100
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
 #: the lm phase's architectures, in order, each at full width: ``cut``
 #: overrides cut the depth to fit one 80 GB card beside the phase's
@@ -398,6 +423,9 @@ KERNELS = {
     "flash_attention_simt": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108"},
+    "flash_attention_mma": {
+        "source": "src/repro_torch/csrc/flash_attention_mma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:108"},
     "ssd_chunk": {"source": "src/repro_torch/csrc/ssd_chunk.cu",
                   "replaces": "src/repro/kernels/ssd_chunk.py:77"},
     # no TPU kernel: the JAX package draws this mask through XLA at the
@@ -436,9 +464,16 @@ TRAIN_QUANT_KERNELS = ("varco_pack_quant_stochastic", "varco_unpack_quant")
 #: kernel -> the arch whose serving run gives the summary's launches (one
 #: per attention / mamba layer of a prefill); the CUDA-core flash kernel
 #: serves no full-size arch: its launches come from granite served in f32
-#: (the decode-consistency check's path)
+#: (the decode-consistency check's path), and the narrow-head one's from
+#: the SMOKE configs served in bf16 (``NARROW_SERVE``)
 LM_KERNELS = {"flash_attention": "qwen2-moe-a2.7b", "ssd_chunk": "mamba2-130m",
-              "flash_attention_simt": None}
+              "flash_attention_simt": None, "flash_attention_mma": None}
+#: the narrow-head bf16 path: SMOKE configs (dense) served in bf16 at head
+#: dims 16 (granite) and 32 (yi)
+NARROW_SERVE = ("granite-3-2b", "yi-6b")
+#: the counter name of each flash kernel, by ``kernel_for``'s answer
+FLASH_NAMES = {"wgmma": "flash_attention", "mma": "flash_attention_mma",
+               "simt": "flash_attention_simt"}
 
 
 class _Counter:
@@ -460,7 +495,8 @@ class _Counter:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.ell_spmm import ell_spmm
-    from repro_torch.kernels.flash_attention import (flash_attention_simt,
+    from repro_torch.kernels.flash_attention import (flash_attention_mma,
+                                                     flash_attention_simt,
                                                      flash_attention_wgmma)
     from repro_torch.kernels.randmask import random_mask, random_uniform
     from repro_torch.kernels.ssd_chunk import ssd_chunk
@@ -472,6 +508,7 @@ def launch_counters() -> dict:
             "varco_unpack_quant": vp.varco_unpack_quant,
             "flash_attention": flash_attention_wgmma,
             "flash_attention_simt": flash_attention_simt,
+            "flash_attention_mma": flash_attention_mma,
             "ssd_chunk": ssd_chunk, "random_mask": random_mask,
             "varco_pack_quant_stochastic": vp.varco_pack_quant_stochastic,
             "random_uniform": random_uniform,
@@ -503,6 +540,32 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls captured once in a
+    CUDA graph and replayed, by CUDA events: the device's time without the
+    host's launch gaps, for calls whose host time rivals their device
+    time.  Warmed up on a side stream first, as capture requires."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -563,9 +626,9 @@ def device_phase():
     return card
 
 
-def _hgmma_count(lib: Path):
-    """Number of ``HGMMA`` (wgmma) instructions in a built library's SASS,
-    or None where the toolkit has no ``cuobjdump``."""
+def _sass(lib: Path):
+    """A built library's SASS text, or None where the toolkit has no
+    ``cuobjdump``."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -574,23 +637,56 @@ def _hgmma_count(lib: Path):
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120)
     check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
-    return sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+    return sass.stdout
+
+
+def _op_count(sass, opcode: str):
+    """Instructions of ``opcode`` (``HGMMA``, ``HMMA``, ``FFMA``, ...) in
+    SASS text, or None without it."""
+    if sass is None:
+        return None
+    return sum(f" {opcode}." in ln or f" {opcode} " in ln
+               for ln in sass.splitlines())
 
 
 def build_phase():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     MMA_HEAD_DIMS,
+                                                     kernel_config)
 
     res = _build.build()
     # per library: each kernel's registers and spills (ptxas -v)
     ptxas = {name: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in res["log"].items()}
-    hgmma = _hgmma_count(_build.library_path("flash_attention_wgmma"))
+    sass = {name: _sass(_build.library_path(name))
+            for name in ("flash_attention_wgmma", "flash_attention_mma",
+                         "flash_attention")}
+    ops = {name: {op: _op_count(text, op)
+                  for op in ("HGMMA", "HMMA", "FFMA")}
+           for name, text in sass.items()}
+    # the CUDA-core and narrow-head flash kernels' tiles and occupancy
+    tiling = {(kind, d): kernel_config(kind, d)
+              for kind, dims in (("simt", HEAD_DIMS), ("mma", MMA_HEAD_DIMS))
+              for d in dims}
     emit({"phase": "build", "seconds": res["seconds"],
           "built": sorted(res["log"]), "ptxas": ptxas,
-          "flash_attention_wgmma_hgmma": hgmma})
-    check(hgmma is None or hgmma > 0, "no HGMMA instruction in the "
-          "tensor-core flash library's SASS")
+          "flash_sass_ops": ops,
+          "flash_tiling": {f"{k}_d{d}": t for (k, d), t in tiling.items()}})
+    wg, mma, simt = (ops[n] for n in ("flash_attention_wgmma",
+                                      "flash_attention_mma",
+                                      "flash_attention"))
+    check(wg["HGMMA"] is None or wg["HGMMA"] > 0, "no HGMMA instruction in "
+          "the tensor-core flash library's SASS")
+    check(mma["HMMA"] is None or mma["HMMA"] > 0, "no HMMA instruction in "
+          "the narrow-head flash library's SASS")
+    check(simt["HMMA"] is None or simt["HMMA"] == simt["HGMMA"] == 0 <
+          simt["FFMA"], "the CUDA-core flash library is not f32 FMA only")
+    for (kind, d), t in tiling.items():   # 2 blocks an SM at D <= 128
+        check(t["blocks_per_sm"] >= (2 if d <= 128 else 1),
+              f"flash {kind} at D = {d} holds {t['blocks_per_sm']} blocks "
+              f"per SM")
 
 
 # ---------------------------------------------------------------------------
@@ -3019,6 +3115,29 @@ def _within(got, want, rtol, atol) -> bool:
                 .all())
 
 
+def _row_rel_err(out, ref) -> float:
+    """The worst row's ``max |out − ref|`` over its ``max |ref|`` (rows
+    whose reference is all 0 are held by the absolute check)."""
+    err = (out.float() - ref).abs().amax(-1)
+    scale = ref.abs().amax(-1)
+    live = scale > 0
+    return float((err[live] / scale[live]).max())
+
+
+def _flash_row_check(name, out, ref, control) -> dict:
+    """The bf16 row check: ``out`` within ``FLASH_ROW_TOL`` of ``ref`` row
+    by row, and ``control`` (a wrong kernel's output) outside it."""
+    row = _row_rel_err(out, ref)
+    ctl = _row_rel_err(control, ref)
+    check(row <= FLASH_ROW_TOL, f"flash_attention {name}: a row's error "
+          f"is {row} of its largest value (limit {FLASH_ROW_TOL})")
+    check(ctl > FLASH_ROW_TOL, f"flash_attention {name}: the row check "
+          f"misses the control ({ctl} <= {FLASH_ROW_TOL})")
+    return {"row_rel_err": row, "control_row_rel_err": ctl,
+            "control_max_abs_err": float((control.float() - ref).abs()
+                                         .max())}
+
+
 def _attn_pairs(s: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask keeps for one head: the work the data
     needs."""
@@ -3038,7 +3157,11 @@ def _ssd_flops(b: int, nc: int, q: int, h: int, p: int, g: int,
 
 
 def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
-                library=False):
+                library=False, graph=False):
+    """Flash attention at one shape against the plain version, on the
+    kernel ``kernel_for`` names; with ``graph`` the kernel and library
+    times are those of a replayed CUDA graph of ``reps`` calls (their
+    eager times beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -3051,10 +3174,10 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
                            dtype=dtype).transpose(1, 2)
                for n in (h, kv, kv))
     path = kernel_for(dtype, d)
-    kernel = "flash_attention" if path == "wgmma" else "flash_attention_simt"
+    kernel = FLASH_NAMES[path]
     counters = launch_counters()
     before = {name_: counters[name_].launches
-              for name_ in ("flash_attention", "flash_attention_simt")}
+              for name_ in FLASH_NAMES.values()}
     out = flash_attention(q, k, v, True, window)
     ref = flash_attention_plain(q, k, v, True, window).float()
     torch.cuda.synchronize()
@@ -3067,11 +3190,15 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
     tol = FLASH_TOL[dtype]
     check(_within(out, ref, tol, tol),
           f"flash_attention {name}: max abs err {err} (tol {tol})")
+    rows = {} if dtype != torch.bfloat16 else _flash_row_check(
+        name, out, ref, flash_attention_plain(
+            q, k, v, True, (window or s) - FLASH_CONTROL_KEYS))
     elt = q.element_size()
     n_bytes = elt * d * s * b * (2 * h + 2 * kv)       # q, k, v, out
     flops = 4.0 * d * _attn_pairs(s, True, window) * b * h
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
                           if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    timed = graph_ms if graph else cuda_ms
     lib_ms = lib_err = None
     if library:
         # causal: is_causal; a window: a boolean mask (True = attend),
@@ -3087,20 +3214,27 @@ def _flash_case(name, b, h, kv, s, d, dtype, window, reps, gen,
         check(dtype != torch.bfloat16 or _within(lib, ref, tol, tol),
               f"scaled_dot_product_attention disagrees with the plain "
               f"version at {name} (max abs err {lib_err})")
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms = timed(lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True, **kw), reps)
     rec = {"kernel": kernel, "path": path, "case": name,
            "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
                      "dtype": str(dtype), "window": window},
-           "max_abs_err": err,
-           "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v, True,
-                                                        window), reps),
+           "max_abs_err": err, **rows,
+           "kernel_ms": timed(lambda: flash_attention(q, k, v, True,
+                                                      window), reps),
            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, True,
                                                              window),
                                max(reps // 5, 1)),
            "library_ms": lib_ms, "library_max_abs_err": lib_err,
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-           "bytes": n_bytes}
+           "bytes": n_bytes, "timed_by": "graph" if graph else "eager"}
+    if graph:
+        rec["kernel_eager_ms"] = cuda_ms(lambda: flash_attention(
+            q, k, v, True, window), reps)
+        if library:
+            rec["library_eager_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, enable_gqa=True, **kw), reps)
     emit(rec)
     return rec
 
@@ -3117,13 +3251,16 @@ def prompt_positions(kind: str, b: int, s: int, device) -> torch.Tensor:
     return torch.stack(rows).contiguous().to(device)
 
 
-def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
+def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen,
+                    graph=False):
     """Flash attention with explicit positions (the JAX package's prefill
     mask) against the plain version, on the kernel ``kernel_for`` names;
     kernel, plain and library times (``scaled_dot_product_attention``
     with the boolean position mask, built outside the timing) and the
     bound over the (query, key) pairs the positions leave unmasked,
-    counted on the host."""
+    counted on the host; with ``graph`` the kernel and library times are
+    those of a replayed CUDA graph of ``reps`` calls (their eager times
+    beside them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_mask,
@@ -3137,7 +3274,7 @@ def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
                for n in (h, kv, kv))
     pos = prompt_positions(kind, b, s, dev)
     path = kernel_for(dtype, d)
-    kernel = "flash_attention" if path == "wgmma" else "flash_attention_simt"
+    kernel = FLASH_NAMES[path]
     counters = launch_counters()
     before = counters[kernel].launches
     out = flash_attention(q, k, v, True, window, pos, pos)
@@ -3149,6 +3286,9 @@ def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
     tol = FLASH_TOL[dtype]
     check(_within(out, ref, tol, tol),
           f"flash_attention {name}: max abs err {err} (tol {tol})")
+    rows = {} if dtype != torch.bfloat16 else _flash_row_check(
+        name, out, ref, flash_attention_plain(
+            q, k, v, True, (window or s) - FLASH_CONTROL_KEYS, pos, pos))
     mask = attention_mask(s, True, window, dev, pos, pos)     # [B, S, S]
     pairs = int(mask.sum().cpu()) * h
     n_bytes = q.element_size() * d * s * b * (2 * h + 2 * kv)
@@ -3162,20 +3302,28 @@ def _flash_pos_case(name, b, h, kv, s, d, dtype, window, kind, reps, gen):
     check(dtype != torch.bfloat16 or _within(lib, ref, tol, tol),
           f"scaled_dot_product_attention disagrees with the plain version "
           f"at {name} (max abs err {lib_err})")
+    timed = graph_ms if graph else cuda_ms
     rec = {"kernel": kernel, "path": path, "case": name,
            "shape": {"q": [b, h, s, d], "kv": [b, kv, s, d],
                      "dtype": str(dtype), "window": window,
                      "positions": kind},
-           "max_abs_err": err,
-           "kernel_ms": cuda_ms(lambda: flash_attention(
+           "max_abs_err": err, **rows,
+           "kernel_ms": timed(lambda: flash_attention(
                q, k, v, True, window, pos, pos), reps),
            "plain_ms": cuda_ms(lambda: flash_attention_plain(
                q, k, v, True, window, pos, pos), max(reps // 5, 1)),
-           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+           "library_ms": timed(lambda: F.scaled_dot_product_attention(
                q, k, v, attn_mask=attn_mask, enable_gqa=True), reps),
            "library_max_abs_err": lib_err,
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-           "bytes": n_bytes, "pairs": pairs}
+           "bytes": n_bytes, "pairs": pairs,
+           "timed_by": "graph" if graph else "eager"}
+    if graph:
+        rec["kernel_eager_ms"] = cuda_ms(lambda: flash_attention(
+            q, k, v, True, window, pos, pos), reps)
+        rec["library_eager_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, enable_gqa=True), reps)
     emit(rec)
     return rec
 
@@ -3221,14 +3369,15 @@ def _ssd_case(name, b, nc, q, h, p, g, n, reps, gen):
 
 
 def lm_kernels_phase(reps: int = 10) -> dict:
-    """Both LM kernels at the LM paths' shapes (main rows) and at the
-    other shapes they take.  Returns ``{kernel: main record}`` with the
+    """The LM kernels at the LM paths' shapes (main rows) and at the other
+    shapes they take.  Returns ``{kernel: main record}`` with the
     largest error over its cases."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
     # first record of each kernel: its main row (flash_attention: the
     # full-width MoE path's prefill; flash_attention_simt: the f32 granite
-    # shape that the f32 serving path runs)
+    # shape that the f32 serving path runs; flash_attention_mma: bf16 at
+    # D = 32)
     flash = [
         _flash_case("qwen2_moe_prefill", 8, 16, 16, 2048, 128, bf16, 0, reps,
                     gen, library=True),
@@ -3259,7 +3408,16 @@ def lm_kernels_phase(reps: int = 10) -> dict:
                     library=True),
         _flash_case("f32", 2, 32, 8, 2048, 64, f32, 0, reps, gen,
                     library=True),
-        _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, reps, gen,
+        # the narrow heads of the SMOKE configs: bf16 on the narrow-head
+        # tensor-core kernel, f32 on the CUDA-core one.  A bf16 call takes
+        # ~30 us on the card and about as long in the host's Python, so
+        # back-to-back calls time the host: kernel and library are timed
+        # by a replayed graph of NARROW_REPS calls (eager times beside)
+        _flash_case("bf16_d32", 2, 8, 4, 2048, 32, bf16, 0, NARROW_REPS, gen,
+                    library=True, graph=True),
+        _flash_case("bf16_d16", 2, 8, 4, 2048, 16, bf16, 0, NARROW_REPS, gen,
+                    library=True, graph=True),
+        _flash_case("f32_d32", 2, 8, 4, 2048, 32, f32, 0, reps, gen,
                     library=True),
         # explicit positions on both kernels: a shifted and a left-padded
         # batch at granite's widths (bf16) and in f32
@@ -3273,6 +3431,8 @@ def lm_kernels_phase(reps: int = 10) -> dict:
                         "left_padded", reps, gen),
         _flash_pos_case("f32_shifted", 2, 32, 8, 2048, 64, f32, 0,
                         "shifted", reps, gen),
+        _flash_pos_case("bf16_d32_left_padded", 2, 8, 4, 2000, 32, bf16, 0,
+                        "left_padded", NARROW_REPS, gen, graph=True),
     ]
     ssd = [_ssd_case("mamba2_prefill", 8, 8, 256, 24, 64, 1, 128, reps, gen),
            # jamba's mamba layer: d_inner 16384 in 256 heads of 64
@@ -3372,9 +3532,8 @@ def expected_launches(cfg) -> dict:
     want = dict.fromkeys(LM_KERNELS, 0)
     n_attn = cfg.n_blocks * cfg.pattern.count("attn")
     if n_attn:
-        flash = kernel_for(cfg.adtype, cfg.resolved_head_dim)
-        want["flash_attention" if flash == "wgmma"
-             else "flash_attention_simt"] = n_attn
+        want[FLASH_NAMES[kernel_for(cfg.adtype,
+                                    cfg.resolved_head_dim)]] = n_attn
     want["ssd_chunk"] = cfg.n_blocks * cfg.pattern.count("mamba")
     return want
 
@@ -3483,7 +3642,7 @@ def lm_phase(seed: int = 0) -> dict:
                 _tree_float(params), prompts[:2], LM_PROMPT)
             cons_launches = {name: counters[name].launches
                              for name in LM_KERNELS}
-            want = {"flash_attention": 0, "ssd_chunk": 0,
+            want = {**dict.fromkeys(LM_KERNELS, 0),
                     "flash_attention_simt": 2 * cfg.n_layers}
             check(cons_launches == want, f"{arch} in f32: flash launches "
                   f"{cons_launches}, expected {want}")
@@ -3513,8 +3672,57 @@ def lm_phase(seed: int = 0) -> dict:
                   f"plain path: {e} of the largest logit")
         del params, plain, kernel_logits
         torch.cuda.empty_cache()
+    launches["flash_attention_mma"] = narrow_serve_phase(seed)
     moe_f32_phase(seed)
     return launches
+
+
+def narrow_serve_phase(seed: int = 0) -> int:
+    """The narrow-head bf16 path: each ``NARROW_SERVE`` SMOKE config in
+    bf16 (head dims 16 and 32) served through ``serve`` at batch 8 ×
+    prompt 2048 + 32 tokens, counts set to 0 before and read after (one
+    ``flash_attention_mma`` launch per attention layer, no other flash
+    kernel), its prefill logits against the plain path's within 5e-2 of
+    the largest logit.  Returns the kernel's launches over the runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import prefill
+
+    counters = launch_counters()
+    total = 0
+    for arch in NARROW_SERVE:
+        cfg = get_config(arch, smoke=True).with_(param_dtype="bfloat16",
+                                                 activ_dtype="bfloat16")
+        params, _ = _init(cfg, seed)
+        prompts = _prompts(cfg, seed)
+        for fn in counters.values():
+            fn.launches = 0
+        out = serve(cfg, params, prompts, LM_NEW, device="cuda")
+        got = {name: counters[name].launches for name in LM_KERNELS}
+        want = expected_launches(cfg)
+        with plain_kernels():
+            plain, _ = prefill(params, cfg, {"tokens": prompts})
+        err = _rel_err(out.prefill_logits, plain)
+        emit({"phase": "lm_narrow", "arch": cfg.name,
+              "head_dim": cfg.resolved_head_dim, "dtype": cfg.activ_dtype,
+              "layers": cfg.n_layers, "batch": LM_BATCH,
+              "prompt": LM_PROMPT, "new_tokens": LM_NEW, "launches": got,
+              "prefill_ms": out.prefill_s * 1e3,
+              "decode_tokens_per_s": out.decode_tokens_per_s,
+              "plain_path_rel_err": err})
+        check(want["flash_attention_mma"] > 0 and got == want,
+              f"{cfg.name} in bf16: LM kernels launched {got}, expected "
+              f"{want}")
+        check(tuple(out.tokens.shape) == (LM_BATCH, LM_NEW) and
+              bool(((out.tokens >= 0) & (out.tokens < cfg.vocab_size))
+                   .all()), f"{cfg.name}: malformed tokens")
+        check(err <= PLAIN_PATH_TOL["bfloat16"], f"{cfg.name} in bf16: "
+              f"kernel-path prefill logits differ from the plain path by "
+              f"{err} of the largest logit")
+        total += got["flash_attention_mma"]
+        del params, out, plain
+        torch.cuda.empty_cache()
+    return total
 
 
 def moe_f32_phase(seed: int = 0) -> dict:

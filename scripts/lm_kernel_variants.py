@@ -181,7 +181,7 @@ def main(argv=None) -> int:
         for vname in FLASH:
             fn = load(libs[("flash_attention_wgmma", vname)],
                       "flash_attention_wgmma_fwd",
-                      fa._WGMMA_FUNCS["flash_attention_wgmma_fwd"])
+                      fa._FWD_ARGS)
             for sname, (q, k, v, window, ref) in flash_in.items():
                 out = torch.empty_like(q)
                 call_args = fa._launch_args(q, k, v, out, True, window)
@@ -204,7 +204,7 @@ def main(argv=None) -> int:
                 continue
             fn = load(libs[("flash_attention_wgmma", vname)],
                       "flash_attention_wgmma_fwd",
-                      fa._WGMMA_FUNCS["flash_attention_wgmma_fwd"])
+                      fa._FWD_ARGS)
             out = torch.empty_like(q)
             call_args = fa._launch_args(q, k, v, out, True, 0, pos, pos,
                                         ranges)

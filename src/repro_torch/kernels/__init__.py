@@ -15,9 +15,11 @@ PyTorch version and a launch counter:
   stochastic rounding (``csrc/randmask.cu``; no TPU kernel: the JAX
   package draws both through XLA)
 * ``flash_attention``  — causal / sliding-window GQA attention of the LM
-  prefill: a tensor-core kernel for bf16 at head dims 64/128/256
-  (``csrc/flash_attention_wgmma.cu``) and a CUDA-core one for f32 and
-  narrow heads (``csrc/flash_attention.cu``), picked by ``kernel_for``
+  prefill, three kernels picked by ``kernel_for(dtype, head_dim)``: bf16
+  at head dims 64/128/256 on the tensor cores by ``wgmma``
+  (``csrc/flash_attention_wgmma.cu``), bf16 at the narrow heads 16/32 on
+  the tensor cores by ``mma.sync`` (``csrc/flash_attention_mma.cu``), and
+  f32 at every head dim on the CUDA cores (``csrc/flash_attention.cu``)
 * ``ssd_chunk``        — the Mamba2 SSD intra-chunk quadratic form and
   chunk-state contribution (``csrc/ssd_chunk.cu``)
 

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the package, by library name
 SOURCES = ("ell_spmm", "varco_pack", "varco_pack_quant", "randmask",
-           "flash_attention", "flash_attention_wgmma", "ssd_chunk")
+           "flash_attention", "flash_attention_mma", "flash_attention_wgmma",
+           "ssd_chunk")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

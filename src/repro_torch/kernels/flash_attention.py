@@ -12,7 +12,7 @@ positions for both, so key ``i`` always has query ``i``'s position and
 no row is ever fully masked: the port's 0 for such a row and the JAX
 package's ``finfo.min`` fill cannot disagree there.
 
-Two CUDA kernels replace ``repro/kernels/flash_attention.py::
+Three CUDA kernels replace ``repro/kernels/flash_attention.py::
 flash_attention`` (``_flash_kernel``, the ``pl.pallas_call`` at
 ``flash_attention.py:108``); :func:`flash_attention` picks one by the
 explicit rule :func:`kernel_for` on ``(dtype, D)``:
@@ -27,33 +27,42 @@ explicit rule :func:`kernel_for` on ``(dtype, D)``:
   wgmma's register A operand for ``O += P·V``.  Rounding P to bf16 is its
   one rounding beyond the plain version's (about one bf16 ulp of the
   output, which is bf16 anyway).
-* :func:`flash_attention_simt` (``csrc/flash_attention.cu``) for f32 and
-  for bf16 at ``D ∈ {16, 32}`` (the smoke configs' widths): the first,
-  CUDA-core design — 64×64 tiles as f32 in shared memory, FMA products,
-  the online softmax in registers.
+* :func:`flash_attention_mma` (``csrc/flash_attention_mma.cu``) for bf16
+  at ``D ∈ {16, 32}`` (too narrow for wgmma's 64-column boxes; the SMOKE
+  configs have these widths but serve in f32, and no shipped config
+  serves bf16 at them): ``mma.sync`` m16n8k16 for both products, K/V tiles
+  through a ``cp.async`` ring, fragments by ``ldmatrix``, the same single
+  rounding of P.
+* :func:`flash_attention_simt` (``csrc/flash_attention.cu``) for f32 at
+  every head dim: exact f32 FMA on the CUDA cores, K/V tiles through a
+  ``cp.async`` ring, a register micro-tile of 8 query rows per thread,
+  P passed through each warp's own shared memory.
 
-Both compute the same function: f32 ``m``/``l``/accumulators, key tiles
-wholly outside the causal or window band skipped, keys past ``S`` masked
-(any length runs; the Pallas kernel asserts ``S % 128 == 0``), masks from
-indices as in the Pallas kernel and ``chunked_sdpa``.  Under positions
-the mask need not be lower-triangular in index (left padding repeats a
-position), so index-based tile skipping would be wrong: the wrapper
-computes, per query tile, the key range outside which the tiles' position
-extremes prove every key masked, and the run of tiles inside it that
-they prove wholly unmasked (:func:`position_key_ranges`); the kernel
-walks the range and masks by position the tiles outside that run.  This is a
-dispatch, not a fallback: a failed build or launch of either raises.
+All three compute the same function: f32 ``m``/``l``/accumulators, key
+tiles wholly outside the causal or window band skipped, keys past ``S``
+masked (any length runs; the Pallas kernel asserts ``S % 128 == 0``),
+masks from indices as in the Pallas kernel and ``chunked_sdpa``, the
+longest query tiles launched first.  Under positions the mask need not be
+lower-triangular in index (left padding repeats a position), so
+index-based tile skipping would be wrong: the wrapper computes, per query
+tile, the key range outside which the tiles' position extremes prove
+every key masked, and the run of tiles inside it that they prove wholly
+unmasked (:func:`position_key_ranges`, at each kernel's own tiles); the
+kernel walks the range and masks by position the tiles outside that run.
+This is a dispatch, not a fallback: each kernel refuses the dtype and
+head dims of the others, and a failed build or launch raises.
 
 Layout: the public function keeps the JAX layout ``[B, H, S, D]``, but
 takes strided views — the model passes ``[B, S, H, D]`` tensors through
-``transpose(1, 2)`` and both kernels read them in place through their
-strides (no transpose copy); the output has ``q``'s strides.  The
-tensor-core kernel's TMA needs 16-byte aligned pointers and strides.
+``transpose(1, 2)`` and the kernels read them in place through their
+strides (no transpose copy); the output has ``q``'s strides.  All three
+load 16-byte pieces (TMA or ``cp.async``), so they need 16-byte aligned
+pointers and strides.
 
 Beside the kernels: the plain PyTorch version :func:`flash_attention_plain`
 (dense masked softmax in f32; CPU tensors run it) and one launch counter
 per kernel (``flash_attention_wgmma.launches``,
-``flash_attention_simt.launches``).
+``flash_attention_mma.launches``, ``flash_attention_simt.launches``).
 """
 
 from __future__ import annotations
@@ -65,27 +74,33 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the CUDA-core kernel is instantiated for
+#: head dims every kernel is instantiated for: the CUDA-core kernel (f32)
+#: takes all of them
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: head dims the tensor-core kernel takes (bf16 only)
+#: head dims the bf16 tensor-core kernels take: wgmma and mma.sync
 WGMMA_HEAD_DIMS = (64, 128, 256)
+MMA_HEAD_DIMS = (16, 32)
 
-#: query rows per block of the CUDA-core / tensor-core kernel, and the
-#: CUDA-core kernel's key tile (the tensor-core one's is per head dim)
-SIMT_TILE = 64
+#: (query rows, keys) of a block's tiles, per kernel and head dim: the
+#: tiles the position key ranges are built at (the CUDA sources' own;
+#: ``kernel_config`` reads them back from a built library)
+SIMT_TILES = {16: (128, 64), 32: (128, 64), 64: (128, 64), 128: (64, 32),
+              256: (64, 32)}
 WGMMA_Q_TILE = 128
 WGMMA_KEY_TILE = {64: 128, 128: 128, 256: 64}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MMA_TILES = (64, 128)
 
-_FUNCS = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
-    [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-}
-_WGMMA_FUNCS = {
-    "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 7 +
-    [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 +
-    [ctypes.c_void_p],
-}
+_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+    [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CONFIG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+#: library, C entry point and config entry point of each kernel
+_LIBS = {"simt": ("flash_attention", "flash_attention_fwd",
+                  "flash_attention_simt_config"),
+         "mma": ("flash_attention_mma", "flash_attention_mma_fwd",
+                 "flash_attention_mma_config"),
+         "wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_fwd",
+                   None)}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def attention_mask(s: int, causal: bool, window: int, device,
@@ -204,19 +219,18 @@ def _key_ranges(q_pos, k_pos, causal, window, q_tile, key_tile):
 
 
 def _check(q, k, v):
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention needs q/k/v all float32 or all "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"flash_attention needs q [B, H, S, D] and k/v "
-                         f"[B, KV, S, D], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, s, d = q.shape
-    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or \
-            h % k.shape[1] != 0:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)} (KV must divide H)")
+                         f"[B, KV, S, D], got {tuple(qs)}, {tuple(ks)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = qs
+    if ks[0] != b or ks[2] != s or ks[3] != d or h % ks[1] != 0:
+        raise ValueError(f"flash_attention: k/v {tuple(ks)} do not "
+                         f"match q {tuple(qs)} (KV must divide H)")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in "
                          f"{HEAD_DIMS}")
@@ -224,7 +238,7 @@ def _check(q, k, v):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {arg} must be a CUDA "
                              f"tensor, got {t.device}")
-        if t.device != q.device:
+        if t.get_device() != q.get_device():
             raise ValueError("flash_attention: tensors on different "
                              "devices")
         if t.stride(-1) != 1:
@@ -249,25 +263,85 @@ def _check_positions(q, q_pos, k_pos):
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
-    """Which kernel :func:`flash_attention` launches: ``"wgmma"`` (tensor
-    cores) for bf16 at ``d`` in :data:`WGMMA_HEAD_DIMS`, else ``"simt"``
-    (CUDA cores)."""
-    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
-        else "simt"
+    """Which kernel :func:`flash_attention` launches: ``"wgmma"`` for bf16
+    at ``d`` in :data:`WGMMA_HEAD_DIMS`, ``"mma"`` for bf16 at ``d`` in
+    :data:`MMA_HEAD_DIMS` (both tensor cores), ``"simt"`` (CUDA cores)
+    for f32."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+    return "simt"
+
+
+def _tiles(kind: str, d: int) -> tuple[int, int]:
+    """(query rows, keys) of one block's tiles of kernel ``kind`` at head
+    dim ``d``."""
+    if kind == "simt":
+        return SIMT_TILES[d]
+    if kind == "mma":
+        return MMA_TILES
+    return WGMMA_Q_TILE, WGMMA_KEY_TILE[d]
+
+
+def _library(kind: str):
+    name, fwd, cfg = _LIBS[kind]
+    funcs = {fwd: _FWD_ARGS}
+    if cfg is not None:
+        funcs[cfg] = _CONFIG_ARGS
+    return _build.library(name, funcs)
+
+
+def kernel_config(kind: str, d: int, device=None) -> dict:
+    """The built ``"simt"`` or ``"mma"`` kernel's tiling at head dim ``d``,
+    as its library reports it on ``device``: query and key tile, threads
+    and shared bytes a block, and the blocks an SM holds at once."""
+    device = torch.device("cuda" if device is None else device)
+    out = (ctypes.c_int * 5)()
+    lib = _library(kind)
+    _build.check(getattr(lib, _LIBS[kind][2])(
+        d, device.index or 0, ctypes.addressof(out)), f"{kind} config")
+    return dict(zip(("q_tile", "key_tile", "threads", "smem_bytes",
+                     "blocks_per_sm"), out))
+
+
+def _run(kind: str, q, k, v, causal, window, q_pos, k_pos):
+    """Launch kernel ``kind`` after the checks every kernel shares: the
+    positions, and 16-byte aligned pointers and strides (its loads move
+    16-byte pieces); count the launch.  Returns the output, laid out like
+    q."""
+    _check_positions(q, q_pos, k_pos)
+    elems = 16 // q.element_size()
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st % elems for n, st in
+                                    zip(t.shape[:3], t.stride()[:3])
+                                    if n > 1):
+            raise ValueError(f"flash_attention_{kind}: {arg} needs a "
+                             f"16-byte aligned pointer and strides, got "
+                             f"strides {t.stride()}")
+    out = torch.empty_like(q)                  # q's strides
+    if out.numel() == 0:
+        return out
+    ranges = None if q_pos is None else _key_ranges(
+        q_pos, k_pos, causal, window, *_tiles(kind, q.shape[-1]))
+    _build.check(getattr(_library(kind), _LIBS[kind][1])(*_launch_args(
+        q, k, v, out, causal, window, q_pos, k_pos, ranges)),
+        f"flash_attention_{kind}")
+    _KERNELS[kind].launches += 1
+    return out
 
 
 def _launch_args(q, k, v, out, causal, window, q_pos=None, k_pos=None,
                  ranges=None):
-    """The C entry's arguments after the dtype: pointers (positions and
-    key ranges 0 for the index mask), sizes, strides, mask, device and
-    stream."""
+    """A C entry's arguments (every kernel's is the same): pointers
+    (positions and key ranges 0 for the index mask), sizes, strides,
+    mask, device and stream."""
     b, h, s, d = q.shape
-    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     pos = (0, 0, 0) if q_pos is None else \
         (q_pos.data_ptr(), k_pos.data_ptr(), ranges.data_ptr())
+    dev = q.get_device()
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *pos,
-            b, h, k.shape[1], s, d, *strides, int(causal), int(window),
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+            b, h, k.shape[1], s, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(causal), int(window),
+            dev, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -275,25 +349,36 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor | None = None,
                          k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """The CUDA-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``, all
-    f32 or all bf16, each with a contiguous last dim (other strides free),
-    optional int32 ``[B, S]`` positions -> ``[B, H, S, D]`` in q's dtype,
-    laid out like q."""
+    f32 with ``D`` in :data:`HEAD_DIMS`, a contiguous last dim and 16-byte
+    aligned pointers and strides, optional int32 ``[B, S]`` positions ->
+    ``[B, H, S, D]`` f32, laid out like q."""
     _check(q, k, v)
-    _check_positions(q, q_pos, k_pos)
-    out = torch.empty_like(q)                  # q's strides
-    if out.numel() == 0:
-        return out
-    ranges = None if q_pos is None else _key_ranges(
-        q_pos, k_pos, causal, window, SIMT_TILE, SIMT_TILE)
-    lib = _build.library("flash_attention", _FUNCS)
-    args = _launch_args(q, k, v, out, causal, window, q_pos, k_pos, ranges)
-    _build.check(lib.flash_attention_fwd(*args[:7], _DTYPE_CODE[q.dtype],
-                                         *args[7:]), "flash_attention_simt")
-    flash_attention_simt.launches += 1
-    return out
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_simt takes float32, got "
+                         f"{q.dtype} (bf16 runs on the tensor cores)")
+    return _run("simt", q, k, v, causal, window, q_pos, k_pos)
 
 
 flash_attention_simt.launches = 0
+
+
+def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        q_pos: torch.Tensor | None = None,
+                        k_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """The narrow-head tensor-core kernel: q ``[B, H, S, D]``, k/v ``[B,
+    KV, S, D]``, all bf16 with ``D`` in :data:`MMA_HEAD_DIMS`, a contiguous
+    last dim and 16-byte aligned pointers and strides, optional int32
+    ``[B, S]`` positions -> ``[B, H, S, D]`` bf16, laid out like q."""
+    _check(q, k, v)
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d not in MMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_mma takes bf16 at head dims "
+                         f"{MMA_HEAD_DIMS}, got {q.dtype} at {d}")
+    return _run("mma", q, k, v, causal, window, q_pos, k_pos)
+
+
+flash_attention_mma.launches = 0
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,37 +387,20 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """The tensor-core kernel: q ``[B, H, S, D]``, k/v ``[B, KV, S, D]``,
     all bf16 with ``D`` in :data:`WGMMA_HEAD_DIMS`, a contiguous last dim
-    and 16-byte aligned pointers and strides, optional int32 ``[B, S]``
-    positions -> ``[B, H, S, D]`` bf16, laid out like q."""
+    and 16-byte aligned pointers and strides (TMA), optional int32 ``[B,
+    S]`` positions -> ``[B, H, S, D]`` bf16, laid out like q."""
     _check(q, k, v)
-    _check_positions(q, q_pos, k_pos)
     d = q.shape[-1]
     if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
         raise ValueError(f"flash_attention_wgmma takes bf16 at head dims "
                          f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {d}")
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(st % 8 for n, st in
-                                    zip(t.shape[:3], t.stride()[:3])
-                                    if n > 1):
-            raise ValueError(f"flash_attention_wgmma: {arg} needs a "
-                             f"16-byte aligned pointer and strides (TMA), "
-                             f"got strides {t.stride()}")
-    out = torch.empty_like(q)                  # q's strides
-    if out.numel() == 0:
-        return out
-    ranges = None if q_pos is None else _key_ranges(
-        q_pos, k_pos, causal, window, WGMMA_Q_TILE, WGMMA_KEY_TILE[d])
-    lib = _build.library("flash_attention_wgmma", _WGMMA_FUNCS)
-    _build.check(lib.flash_attention_wgmma_fwd(
-        *_launch_args(q, k, v, out, causal, window, q_pos, k_pos, ranges)),
-        "flash_attention_wgmma")
-    flash_attention_wgmma.launches += 1
-    return out
+    return _run("wgmma", q, k, v, causal, window, q_pos, k_pos)
 
 
 flash_attention_wgmma.launches = 0
 
-_KERNELS = {"wgmma": flash_attention_wgmma, "simt": flash_attention_simt}
+_KERNELS = {"wgmma": flash_attention_wgmma, "mma": flash_attention_mma,
+            "simt": flash_attention_simt}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -344,5 +412,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, S]`` positions -> ``[B, H, S, D]`` in q's dtype, laid out like
     q; launches the kernel that :func:`kernel_for` names."""
     _check(q, k, v)
-    return _KERNELS[kernel_for(q.dtype, q.shape[-1])](q, k, v, causal, window,
-                                                      q_pos, k_pos)
+    return _run(kernel_for(q.dtype, q.shape[-1]), q, k, v, causal, window,
+                q_pos, k_pos)

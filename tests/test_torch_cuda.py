@@ -13,8 +13,9 @@ on the card is held to the plain version's autograd on the CPU within
 1e-5 (atomic scatters and FMA contraction reorder f32 sums).  The LM
 kernels: flash attention within 2e-5 in f32 and 2e-2 in bf16 (one bf16
 ulp of the rounded output, relative 2^-8, where the two f32 sums straddle
-a rounding edge; the tensor-core kernel also rounds P to bf16, about one
-more ulp of the output), with a check of which of its two kernels ran;
+a rounding edge; the tensor-core kernels also round P to bf16, about one
+more ulp of the output), with a check of which of its three kernels ran
+(each refuses the others' dtype and head dims);
 the SSD chunk form within 1e-5 relative + 1e-4 absolute (f32 sums of up
 to Q·N products in another order).  The dense wire's random mask
 bitwise (a hash and one multiply per element), its VJP bitwise, and one
@@ -22,7 +23,7 @@ dense ``varco`` step on the card against the CPU within 1e-4.  The
 stochastic fused codec and ``random_uniform`` bitwise (the same Threefry
 stream, ``floor(v + u)`` with an IEEE add and division).  Flash
 attention with explicit positions (shifted and left-padded prompts) on
-both kernels, under the same tolerances.  Two LM training steps of a
+all three kernels, under the same tolerances.  Two LM training steps of a
 smoke config on the card against the CPU within 1e-4 (no LM kernel
 launched), and a streaming-update frontier recompute on the card against
 the CPU within 1e-5.  The worker backend: two worker processes on the
@@ -587,18 +588,123 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d, causal,
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-def _flash_counts():
-    return (tfa.flash_attention_wgmma.launches,
-            tfa.flash_attention_simt.launches)
+def _flash_counts() -> dict:
+    return {kind: fn.launches for kind, fn in tfa._KERNELS.items()}
 
 
 def _flash_moved(before) -> str:
-    """Which flash kernel launched once since ``before`` (the other must
-    not have moved)."""
+    """Which flash kernel launched once since ``before`` (the other two
+    must not have moved)."""
     after = _flash_counts()
-    moved = (after[0] - before[0], after[1] - before[1])
-    assert moved in ((1, 0), (0, 1)), moved
-    return "wgmma" if moved == (1, 0) else "simt"
+    moved = {kind: after[kind] - before[kind] for kind in after}
+    assert sorted(moved.values()) == [0, 0, 1], moved
+    return max(moved, key=moved.get)
+
+
+#: (b, h, kv, s, causal, window) of the CUDA-core and narrow-head kernels'
+#: own cases: ragged S across their query tiles (64 / 128 rows) and key
+#: tiles (32 / 64 keys), S under one tile, GQA and MQA, windows narrower
+#: and wider than a tile, non-causal
+_NARROW_CASES = [
+    (2, 4, 2, 256, True, 0), (1, 8, 1, 1000, True, 0),
+    (2, 4, 4, 130, True, 64), (1, 4, 2, 300, True, 200),
+    (1, 4, 2, 100, False, 0), (1, 2, 1, 77, True, 20),
+    (1, 2, 2, 1, True, 0), (1, 4, 2, 40, True, 0),
+    (2, 8, 2, 2048, True, 1024), (1, 8, 2, 300, False, 200),
+    (1, 4, 4, 127, True, 0), (2, 8, 4, 520, True, 0),
+]
+
+
+def _bshd_or_bhsd(gen, dev, dtype, b, s, n, d, layout):
+    shape = (b, s, n, d) if layout == "bshd" else (b, n, s, d)
+    t = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    return t.transpose(1, 2) if layout == "bshd" else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b,h,kv,s,causal,window", _NARROW_CASES)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_simt_matches_plain(cuda_device, d, b, h, kv, s, causal,
+                                       window, layout):
+    """The CUDA-core kernel (f32 at every head dim) against the plain
+    version within 2e-5, the model's [B, S, H, D] views and contiguous
+    [B, H, S, D] tensors, the output in q's strides."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + h)
+    q, k, v = (_bshd_or_bhsd(gen, cuda_device, torch.float32, b, s, n, d,
+                             layout) for n in (h, kv, kv))
+    before = _flash_counts()
+    out = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _flash_moved(before) == "simt"
+    assert out.dtype == torch.float32 and out.stride() == q.stride()
+    ref = tfa.flash_attention_plain(q, k, v, causal, window)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("b,h,kv,s,causal,window", _NARROW_CASES)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_cuda_flash_mma_matches_plain(cuda_device, d, b, h, kv, s, causal,
+                                      window, layout):
+    """The narrow-head tensor-core kernel (bf16 at D in {16, 32}) against
+    the plain version within 2e-2 (one bf16 ulp of the output, and the
+    rounding of P to bf16), the output in q's strides."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + h)
+    q, k, v = (_bshd_or_bhsd(gen, cuda_device, torch.bfloat16, b, s, n, d,
+                             layout) for n in (h, kv, kv))
+    before = _flash_counts()
+    out = tops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _flash_moved(before) == "mma"
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    ref = tfa.flash_attention_plain(q, k, v, causal, window)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_refuse_each_others_inputs(cuda_device):
+    """Each flash kernel refuses the dtype and head dims of the other two
+    with ValueError (no kernel runs another's cases), and the cp.async
+    kernels refuse views they cannot read in 16-byte pieces."""
+    f32 = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    bf = {d: torch.zeros((1, 2, 64, d), device=cuda_device,
+                         dtype=torch.bfloat16) for d in (16, 32, 64, 128)}
+    refusals = [(tfa.flash_attention_simt, bf[16]),
+                (tfa.flash_attention_simt, bf[64]),
+                (tfa.flash_attention_mma, f32),
+                (tfa.flash_attention_mma, f32[..., :32]),
+                (tfa.flash_attention_mma, bf[64]),
+                (tfa.flash_attention_mma, bf[128]),
+                (tfa.flash_attention_wgmma, bf[16]),
+                (tfa.flash_attention_wgmma, bf[32]),
+                (tfa.flash_attention_wgmma, f32)]
+    before = _flash_counts()
+    for fn, t in refusals:
+        with pytest.raises(ValueError, match="takes"):
+            fn(t, t, t)
+    wide = torch.zeros((1, 2, 64, 72), device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_simt(*(wide[..., 1:65],) * 3)
+    wide = wide.bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_mma(*(wide[..., 1:33],) * 3)
+    assert _flash_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,d", [("simt", 16), ("simt", 32),
+                                    ("simt", 64), ("simt", 128),
+                                    ("simt", 256), ("mma", 16), ("mma", 32)])
+def test_cuda_flash_kernel_tiles_and_occupancy(cuda_device, kind, d):
+    """The built library's tiles are the ones the position key ranges are
+    built at, and the CUDA-core kernel keeps at least 2 blocks on an SM at
+    D <= 128."""
+    got = tfa.kernel_config(kind, d, cuda_device)
+    assert (got["q_tile"], got["key_tile"]) == tfa._tiles(kind, d)
+    assert got["blocks_per_sm"] >= (2 if d <= 128 else 1), got
 
 
 @pytest.mark.cuda
@@ -687,7 +793,10 @@ def _position_rows(b, s, seed):
                                      (torch.bfloat16, 128),
                                      (torch.bfloat16, 256),
                                      (torch.float32, 64),
-                                     (torch.bfloat16, 32)])
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 128),
+                                     (torch.float32, 32)])
 @pytest.mark.parametrize("b,s,window", [(3, 300, 0), (3, 1000, 0),
                                         (2, 520, 100), (3, 40, 0)])
 def test_cuda_flash_with_positions_matches_plain(cuda_device, dtype, d, b, s,
@@ -818,10 +927,8 @@ def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
     on_card = _to(params, cuda_device)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (2, 128))
-    flash = tfa.kernel_for(cfg.pdtype,
-                           cfg.resolved_head_dim)
-    counter = (tfa.flash_attention_wgmma if flash == "wgmma"
-               else tfa.flash_attention_simt)
+    counter = tfa._KERNELS[tfa.kernel_for(cfg.adtype,
+                                          cfg.resolved_head_dim)]
     counters = (counter.launches, tssd.ssd_chunk.launches)
     got = serve(cfg, on_card, prompts, 4, device=cuda_device)
     launched = (counter.launches - counters[0],
@@ -913,8 +1020,7 @@ def test_cuda_lm_train_step_matches_cpu(cuda_device, arch):
     step = make_train_step(cfg, opt)
     batches = [next(TokenPipeline(cfg.vocab_size, 2, 128, seed=s,
                                   device="cpu"))["tokens"] for s in (0, 1)]
-    before = (tfa.flash_attention_wgmma.launches,
-              tfa.flash_attention_simt.launches, tssd.ssd_chunk.launches)
+    before = (_flash_counts(), tssd.ssd_chunk.launches)
     p_c, s_c = _to(params, cuda_device), opt.init(_to(params, cuda_device))
     p_h, s_h = params, opt.init(params)
     for toks in batches:
@@ -930,9 +1036,7 @@ def test_cuda_lm_train_step_matches_cpu(cuda_device, arch):
         for a, b in zip(tree_leaves(s_c[name]), tree_leaves(s_h[name])):
             assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
                 b.abs().max())
-    assert (tfa.flash_attention_wgmma.launches,
-            tfa.flash_attention_simt.launches,
-            tssd.ssd_chunk.launches) == before
+    assert (_flash_counts(), tssd.ssd_chunk.launches) == before
 
 
 @pytest.mark.cuda

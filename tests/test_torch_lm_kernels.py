@@ -408,21 +408,22 @@ def test_mlp_matches_jax(kind):
 
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "simt"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 32, "mma"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
-    (torch.float32, 16, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
 ])
 def test_flash_kernel_choice_by_dtype_and_head_dim(dtype, d, kernel):
-    """bf16 at every full-size config's head dim takes the tensor cores;
-    f32 and the smoke configs' narrow heads take the CUDA-core kernel."""
+    """bf16 at every full-size config's head dim takes the wgmma kernel,
+    bf16 at the smoke configs' narrow heads the mma.sync kernel (both
+    tensor cores); f32 takes the CUDA-core kernel at every head dim."""
     from repro_torch.kernels import flash_attention as tfa
 
     assert tfa.kernel_for(dtype, d) == kernel
-    # either kernel refuses a CPU tensor rather than run something else
+    # each kernel refuses a CPU tensor rather than run something else
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
-    fn = tfa.flash_attention_wgmma if kernel == "wgmma" else \
-        tfa.flash_attention_simt
+    fn = tfa._KERNELS[kernel]
+    assert fn.__name__ == f"flash_attention_{kernel}"
     with pytest.raises(ValueError, match="CUDA"):
         fn(q, q, q)
 
@@ -446,6 +447,32 @@ def _attn_mask(s, causal, window):
     if window > 0:
         keep &= j > i - window
     return keep
+
+
+@pytest.mark.parametrize("arch,dtype,kernel", [
+    ("granite-3-2b", "bfloat16", "flash_attention_mma"),     # D = 16
+    ("yi-6b", "bfloat16", "flash_attention_mma"),            # D = 32
+    ("granite-3-2b", "float32", "flash_attention_simt"),
+    ("yi-6b", "float32", "flash_attention_simt"),
+])
+def test_smoke_expected_launches_name_the_flash_kernel(arch, dtype, kernel):
+    """``chip_smoke.expected_launches``: a bf16 SMOKE config (head dim 16
+    or 32) launches the narrow-head kernel once per attention layer, an
+    f32 one the CUDA-core kernel, and no other flash kernel runs; granite's
+    full-size bf16 config (head dim 64) launches the wgmma kernel."""
+    cs = _chip_smoke()
+    smoke = tcfg_base.get_config(arch, smoke=True).with_(
+        param_dtype=dtype, activ_dtype=dtype)
+    n_attn = smoke.n_blocks * smoke.pattern.count("attn")
+    assert n_attn > 0
+    want = dict.fromkeys(cs.LM_KERNELS, 0)
+    assert cs.expected_launches(smoke) == {**want, kernel: n_attn}
+    full = tcfg_base.get_config("granite-3-2b")
+    assert full.activ_dtype == "bfloat16" and full.resolved_head_dim == 64
+    assert cs.expected_launches(full) == {**want,
+                                          "flash_attention": full.n_layers}
+    assert set(cs.FLASH_NAMES.values()) <= set(cs.LM_KERNELS) <= \
+        set(cs.KERNELS)
 
 
 @pytest.mark.parametrize("s,causal,window", [
@@ -520,7 +547,13 @@ def test_flash_plain_with_positions_matches_jax_sdpa(s, window):
 
 @pytest.mark.parametrize("s,q_tile,key_tile,window",
                          [(300, 64, 64, 0), (300, 128, 128, 0),
-                          (300, 128, 64, 50), (77, 128, 128, 9)])
+                          (300, 128, 64, 50), (77, 128, 128, 9),
+                          # the CUDA-core kernel's tiles (D <= 64, D >= 128)
+                          # and the narrow-head kernel's
+                          (300, 128, 64, 0), (300, 64, 32, 0),
+                          (300, 64, 32, 40), (130, 64, 32, 7),
+                          (300, 64, 128, 0), (300, 64, 128, 100),
+                          (77, 64, 128, 9)])
 def test_position_key_ranges_cover_every_live_key(s, q_tile, key_tile,
                                                   window):
     """The key range the kernels walk per query tile holds every key the
