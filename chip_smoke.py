@@ -310,6 +310,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    training run and each served prefill records its bound from
    ``launch/analytic.estimate`` (FLOPs against the parameter dtype's
    peak, HBM bytes against 3.35 TB/s).
+10. lm_dp — VARCO data-parallel LM training across worker processes:
+   ``make_varco_dp_train_step`` over a ``WorkerMesh`` of 4 processes on
+   the one card (``spawn_workers``, host-staged ``gloo``: NCCL refuses two
+   ranks on one card, and the phase prints "NCCL unverified"), each
+   training its 2 rows of granite-3-2b at full width and 11 layers (the
+   deepest four processes fit; bf16, remat, f32 moments), batch 8 × 2048,
+   3 steps of ``varco:linear:5`` and of ``full``; the same runs through
+   the emulated ``DPMesh(4)`` on the card first.  Checks: losses finite,
+   step 0's rate 128, ``grad_bits`` equal group against emulated, every
+   rank's parameters and optimiser state bitwise equal after every step
+   (a 64-bit checksum of their bits), losses within 1e-4 relative and
+   parameters within 1e-4 of each leaf's norm of the emulated run's;
+   ``random_mask_bf16`` launched once a gradient leaf, a worker and a
+   compressed step (0 under ``full``), no LM kernel (counts set to 0 in
+   every worker before each run).  Printed: step ms (median of steps 1
+   on) beside the emulated step's, ``sent_bytes``, ``staged_bytes`` and
+   ``comm_s`` a step, peak GB a process.  Then the f32 2-layer check's
+   steps 0 and 1 through the group against the emulated steps on the card,
+   at that check's tolerances.  A worker that runs out of memory fails
+   the run with the depth named; nothing is cut or moved to the CPU.  The
+   dry run (``repro_torch.launch.dryrun``) runs no device code and is not
+   a phase.
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has
@@ -319,14 +341,14 @@ plus the dist phase's workers' launches (also of the codecs and
 from serving for the rint quantised codec (train_gnn rounds
 stochastically on the card); from the training path, the auto phase and
 the update phase's stochastic serving for the stochastic codec and
-``random_uniform``; from granite's one-worker VARCO run for
+``random_uniform``; from granite's one-worker VARCO run and the lm_dp group's workers for
 ``random_mask_bf16``;
 from qwen2-moe-a2.7b's prefill for tensor-core flash, mamba2-130m's for
 ``ssd_chunk``, granite's f32 check for the CUDA-core flash kernel and
 the bf16 SMOKE serving runs for the narrow-head one);
 the last line is ``{"ok": true, "device": {...}}``.  ``--lm-only`` runs
-the device, build, lm_kernels, lm and lm_train phases alone and prints
-neither.
+the device, build, lm_kernels, lm, lm_train and lm_dp phases alone and
+prints neither.
 """
 
 from __future__ import annotations
@@ -3935,6 +3957,36 @@ def _tree_to(tree, fn):
         tree.dtype == torch.int32 else fn(tree)
 
 
+def _leaf_errs(got, want, moments=None) -> dict:
+    """``got`` against ``want`` leaf by leaf: the parameters' largest
+    ``‖got − want‖ / ‖want‖``, with ``moments = (got state, want state)``
+    the AdamW moments' largest ``max |got − want| / max |want|``, and the
+    five leaves of largest max-relative error (``want`` may live on
+    another device)."""
+    worst, param_l2, moment_max = [], 0.0, 0.0
+    parts = [("params", got, want)]
+    if moments is not None:
+        parts += [(k, moments[0][k], moments[1][k]) for k in ("mu", "nu")]
+    for part, a_tree, b_tree in parts:
+        for (path, a), (_, b) in zip(_leaf_paths(a_tree, part),
+                                     _leaf_paths(b_tree, part)):
+            b = b.to(a.device).float()
+            d = a.float() - b
+            big = float(b.abs().max())
+            rel_max = float(d.abs().max()) / max(big, 1e-30)
+            worst.append((rel_max, path, big))
+            if part == "params":
+                param_l2 = max(param_l2, float(
+                    d.norm() / b.norm().clamp(min=1e-30)))
+            else:
+                moment_max = max(moment_max, rel_max)
+    worst.sort(reverse=True)
+    return {"param_leaf_l2_rel_err": param_l2,
+            "moment_leaf_max_rel_err": moment_max,
+            "worst_leaves": [{"leaf": p_, "max_rel_err": e, "largest": m}
+                             for e, p_, m in worst[:5]]}
+
+
 def _card_vs_cpu(seed: int, q: int | None = None) -> dict:
     """granite at full width, ``TRAIN_CHECK_LAYERS`` layers, in f32: one
     step on the card from zero state (so the AdamW moments are populated),
@@ -3966,22 +4018,6 @@ def _card_vs_cpu(seed: int, q: int | None = None) -> dict:
     b2 = next(pipe)["tokens"]
     pc, sc, mc = _step_on(cfg, p1, s1, b2, "cuda", 1, q)
     ph, sh, mh = _step_on(cfg, p1, s1, b2, "cpu", 1, q)
-    worst, param_l2, moment_max = [], 0.0, 0.0
-    for part, a_tree, b_tree in (("params", pc, ph), ("mu", sc["mu"],
-                                                      sh["mu"]),
-                                 ("nu", sc["nu"], sh["nu"])):
-        for (path, a), (_, b) in zip(_leaf_paths(a_tree, part),
-                                     _leaf_paths(b_tree, part)):
-            d = a.cpu() - b
-            big = float(b.abs().max())
-            rel_max = float(d.abs().max()) / max(big, 1e-30)
-            worst.append((rel_max, path, big))
-            if part == "params":
-                param_l2 = max(param_l2, float(
-                    d.norm() / b.norm().clamp(min=1e-30)))
-            else:
-                moment_max = max(moment_max, rel_max)
-    worst.sort(reverse=True)
     dp = {} if q is None else {
         "workers": q, "comm": LM_VARCO_COMM, "rate": mc["rate"],
         "grad_bits_card": mc["grad_bits"], "grad_bits_cpu": mh["grad_bits"]}
@@ -3990,10 +4026,7 @@ def _card_vs_cpu(seed: int, q: int | None = None) -> dict:
             "loss_card": mc["loss"], "loss_cpu": mh["loss"],
             "loss_rel_err": abs(mc["loss"] - mh["loss"]) / abs(mh["loss"]),
             "grad_norm_card": mc["grad_norm"], "grad_norm_cpu":
-            mh["grad_norm"], "param_leaf_l2_rel_err": param_l2,
-            "moment_leaf_max_rel_err": moment_max,
-            "worst_leaves": [{"leaf": p_, "max_rel_err": e, "largest": m}
-                             for e, p_, m in worst[:5]]}
+            mh["grad_norm"], **_leaf_errs(pc, ph, (sc, sh))}
 
 
 def _leaf_paths(tree, path: str):
@@ -4130,14 +4163,306 @@ def lm_train_phase(seed: int = 0) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: VARCO data-parallel LM training on the worker group
+# ---------------------------------------------------------------------------
+
+#: granite-3-2b at full width cut to LM_DP_LAYERS layers, global batch
+#: LM_DP_BATCH × LM_DP_SEQ (two rows a worker), LM_DP_STEPS steps of each
+#: policy, LM_DP_Q processes.  11 layers is the deepest that four
+#: processes hold beside each other on one 80 GB card: a process peaks at
+#: 18.58 GB there (15.73 GB at 9 layers: ≈ 1.4 GB a layer, since the
+#: functional AdamW update holds the old and the new f32 moments, the
+#: gradients, their clipped copy, f32 updates and the new weights at
+#: once), so 12 would need ≈ 20.0 GB a process, 80 GB for the four
+LM_DP_Q, LM_DP_LAYERS, LM_DP_BATCH, LM_DP_SEQ = 4, 11, 8, 2048
+LM_DP_STEPS = 3
+LM_DP_COMMS = {"varco": "varco:linear:5", "full": "full"}
+LM_DP_TOL = 1e-4
+LM_DP_TIMEOUT = 900.0
+
+
+def _lm_dp_cfg(layers: int):
+    from repro_torch.configs.base import get_config
+
+    return get_config("granite-3-2b").with_(n_layers=layers)
+
+
+def _dp_f32_cfg():
+    from repro_torch.configs.base import get_config
+
+    return get_config("granite-3-2b").with_(
+        n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+        activ_dtype="float32")
+
+
+def _bits_checksum(tree) -> list:
+    """Per leaf, a weighted sum of its bits as 64-bit integers (the leaf
+    viewed as int16 / int32 words, each times ``position % 65521 + 1``,
+    wrapping): equal leaves give equal sums.  The ranks compare these
+    where moving every replica's leaves would cost seconds a step."""
+    from repro_torch.train.optim import tree_leaves
+
+    words = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_leaves(tree):
+        flat = t.detach().reshape(-1).view(words[t.element_size()])
+        total = 0
+        for i in range(0, flat.numel(), 1 << 24):
+            w = flat[i:i + (1 << 24)].to(torch.int64)
+            pos = torch.arange(i, i + w.numel(), device=w.device) % 65521
+            total += int((w * (pos + 1)).sum())
+        out.append(total)
+    return out
+
+
+def _dp_steps(cfg, comm: str, mesh, steps: int, batch: int, seq: int,
+              seed: int, total: int | None = None) -> dict:
+    """``steps`` steps of ``make_varco_dp_train_step`` under ``comm`` over
+    ``mesh`` (this worker's ``WorkerMesh``, or a ``DPMesh`` emulated on the
+    card) from ``_init(cfg, seed)`` on ``TokenPipeline`` batches (step key
+    ``prng.key(i)``; the policy's schedule over ``total`` steps, default
+    ``steps``): losses, rates, ``grad_bits``, host ms a step ending in the
+    loss read, each step's checksums of the parameters and optimiser
+    state, the peak; the final trees under ``_params`` / ``_state``."""
+    from repro_torch import prng
+    from repro_torch.core.varco import CommPolicy
+    from repro_torch.dist import make_varco_dp_train_step
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.train.data import TokenPipeline
+
+    params, _ = _init(cfg, seed)
+    opt = make_optimizer(cfg, lr=LM_TRAIN_LR)
+    state = opt.init(params)
+    step = make_varco_dp_train_step(
+        cfg, opt, CommPolicy.parse(comm, total or steps), mesh)
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {k: [] for k in ("loss", "ce", "rate", "grad_bits", "step_ms",
+                           "checksums")}
+    for i in range(steps):
+        b = next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b, i, prng.key(i))
+        rec["loss"].append(float(m["loss"]))
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("ce", "rate", "grad_bits"):
+            rec[k].append(float(m[k]))
+        rec["checksums"].append(_bits_checksum({"p": params, "s": state}))
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["_params"], rec["_state"] = params, state
+    return rec
+
+
+def _lm_dp_worker(mesh, seed: int, ref_dir: str, layers: int):
+    """One worker of the lm_dp phase: each policy of ``LM_DP_COMMS``
+    through the group's dp step, then the f32 2-layer steps 0 and 1; rank
+    0 holds its final trees against the emulated run's files in
+    ``ref_dir``.  Every rank's records, gathered to rank 0."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = launch_counters()
+    cfg = _lm_dp_cfg(layers)
+    runs = {}
+    for name, comm in LM_DP_COMMS.items():
+        for fn in counters.values():
+            fn.launches = 0
+        mesh.sent_bytes = mesh.staged_bytes = 0
+        mesh.comm_s = 0.0
+        try:
+            r = _dp_steps(cfg, comm, mesh, LM_DP_STEPS, LM_DP_BATCH,
+                          LM_DP_SEQ, seed)
+        except torch.cuda.OutOfMemoryError as err:
+            raise RuntimeError(
+                f"lm_dp: worker {mesh.rank} ran out of memory training "
+                f"granite-3-2b at {cfg.n_layers} layers, batch "
+                f"{LM_DP_BATCH // LM_DP_Q} x {LM_DP_SEQ} a worker, with "
+                f"{LM_DP_Q} processes on the card") from err
+        params = r.pop("_params")
+        del r["_state"]              # held, it would weigh on the next run
+        r.update({"sent_bytes_per_step": mesh.sent_bytes / LM_DP_STEPS,
+                  "staged_bytes_per_step": mesh.staged_bytes / LM_DP_STEPS,
+                  "comm_s_per_step": mesh.comm_s / LM_DP_STEPS,
+                  "launches": {k: fn.launches
+                               for k, fn in counters.items()}})
+        if mesh.rank == 0:
+            r.update(_leaf_errs(params, torch.load(
+                Path(ref_dir) / f"{name}.pt", map_location=mesh.device)))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = r
+    for fn in counters.values():
+        fn.launches = 0
+    f32 = _dp_steps(_dp_f32_cfg(), LM_VARCO_COMM, mesh, 2, DP_CHECK_Q,
+                    TRAIN_CHECK_SEQ, seed, total=DP_CHECK_TOTAL)
+    got_p, got_s = f32.pop("_params"), f32.pop("_state")
+    if mesh.rank == 0:
+        ref = torch.load(Path(ref_dir) / "f32.pt", map_location=mesh.device)
+        f32.update(_leaf_errs(got_p, ref["params"],
+                              (got_s, ref["state"])))
+    f32["launches"] = {k: fn.launches for k, fn in counters.items()}
+    del got_p, got_s
+    every = [None] * mesh.q
+    dist.all_gather_object(every, {"runs": runs, "f32": f32,
+                                   "device": str(mesh.device)})
+    return every if mesh.rank == 0 else None
+
+
+def lm_dp_phase(work: str, seed: int = 0,
+                layers: int = LM_DP_LAYERS) -> int:
+    """VARCO data-parallel LM training over ``LM_DP_Q`` worker processes
+    on the card (``gloo``: NCCL refuses two ranks on one card), against
+    the emulated ``DPMesh(LM_DP_Q)`` on the same card: granite-3-2b at
+    full width and ``layers`` layers, batch 8 × 2048, ``LM_DP_STEPS``
+    steps of ``varco:linear:5`` and of ``full``; then the f32 2-layer
+    check's steps 0 and 1 through the group against the emulated step.
+    Returns the workers' ``random_mask_bf16`` launches under
+    ``varco:linear:5`` (counts set to 0 in every worker before each run
+    and read after)."""
+    from repro_torch.dist import make_dp_mesh
+    from repro_torch.dist.gnn_parallel import spawn_workers
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    cfg = _lm_dp_cfg(layers)
+    ref = Path(work) / "lm_dp_ref"
+    ref.mkdir()
+    on_cpu = (lambda tree: tree_map(lambda t: t.cpu(), tree))
+    emulated = {}
+    for name, comm in LM_DP_COMMS.items():
+        try:
+            r = _dp_steps(cfg, comm, make_dp_mesh(LM_DP_Q), LM_DP_STEPS,
+                          LM_DP_BATCH, LM_DP_SEQ, seed)
+        except torch.cuda.OutOfMemoryError as err:
+            raise RuntimeError(
+                f"lm_dp: the emulated run ran out of memory at "
+                f"{cfg.n_layers} layers") from err
+        n_leaves = len(tree_leaves(r["_params"]))
+        torch.save(on_cpu(r.pop("_params")), ref / f"{name}.pt")
+        del r["_state"]
+        emulated[name] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = _dp_steps(_dp_f32_cfg(), LM_VARCO_COMM, make_dp_mesh(DP_CHECK_Q),
+                    2, DP_CHECK_Q, TRAIN_CHECK_SEQ, seed,
+                    total=DP_CHECK_TOTAL)
+    torch.save({"params": on_cpu(f32.pop("_params")),
+                "state": on_cpu(f32.pop("_state"))}, ref / "f32.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    # the workers' allocator grows segments in place: four processes share
+    # the card, and each one's fragments would be the others' headroom
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t = time.perf_counter()
+    try:
+        ranks = spawn_workers(_lm_dp_worker, LM_DP_Q, seed, str(ref),
+                              layers, device="cuda", backend="gloo",
+                              timeout=LM_DP_TIMEOUT)
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    wall = time.perf_counter() - t
+    g0 = ranks[0]
+    runs = {}
+    for name in LM_DP_COMMS:
+        mine, emu = g0["runs"][name], emulated[name]
+        per = [rk["runs"][name] for rk in ranks]
+        runs[name] = {
+            "loss": mine["loss"], "emulated_loss": emu["loss"],
+            "loss_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(mine["loss"], emu["loss"])),
+            "rate": mine["rate"], "grad_bits": mine["grad_bits"],
+            "emulated_grad_bits": emu["grad_bits"],
+            "replicas_equal": [len({str(rk["checksums"][i]) for rk in per})
+                               == 1 for i in range(LM_DP_STEPS)],
+            "step_ms_median": _median_ms([x / 1e3 for x in mine["step_ms"]]),
+            "emulated_step_ms_median": _median_ms(
+                [x / 1e3 for x in emu["step_ms"]]),
+            "sent_mb_per_step": [rk["sent_bytes_per_step"] / 1e6
+                                 for rk in per],
+            "staged_mb_per_step": [rk["staged_bytes_per_step"] / 1e6
+                                   for rk in per],
+            "comm_s_per_step": [rk["comm_s_per_step"] for rk in per],
+            "peak_mem_gb": [rk["peak_mem_gb"] for rk in per],
+            "emulated_peak_mem_gb": emu["peak_mem_gb"],
+            "param_leaf_l2_rel_err": mine["param_leaf_l2_rel_err"],
+            "worst_leaves": mine["worst_leaves"],
+            "launches": {k: sum(rk["launches"][k] for rk in per)
+                         for k in mine["launches"]}}
+    gf = g0["f32"]
+    f32_rec = {"loss": gf["loss"][-1], "emulated_loss": f32["loss"][-1],
+               "loss_rel_err": abs(gf["loss"][-1] - f32["loss"][-1]) /
+               abs(f32["loss"][-1]),
+               "grad_bits": gf["grad_bits"][-1],
+               "emulated_grad_bits": f32["grad_bits"][-1],
+               "rate": gf["rate"][-1],
+               "replicas_equal": len({str(rk["f32"]["checksums"][-1])
+                                      for rk in ranks}) == 1,
+               **{k: gf[k] for k in ("param_leaf_l2_rel_err",
+                                     "moment_leaf_max_rel_err",
+                                     "worst_leaves")}}
+    rec = {"phase": "lm_dp", "arch": "granite-3-2b", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+           "remat": cfg.remat, "moment_dtype": cfg.moment_dtype,
+           "workers": LM_DP_Q, "backend": "gloo", "cards": 1,
+           "devices": [rk["device"] for rk in ranks],
+           "batch": LM_DP_BATCH, "seq": LM_DP_SEQ, "steps": LM_DP_STEPS,
+           "n_leaves": n_leaves, "wall_s": wall,
+           "parent_reserved_gb": parent_gb, "runs": runs,
+           "f32_check": f32_rec}
+    emit(rec)
+    print("NCCL unverified: 1 card (the lm_dp group ran over gloo)",
+          flush=True)
+    for name, r in runs.items():
+        check(all(np.isfinite(r["loss"])), f"lm_dp {name}: non-finite "
+              f"loss {r['loss']}")
+        check(r["grad_bits"] == r["emulated_grad_bits"],
+              f"lm_dp {name}: grad_bits {r['grad_bits']} against the "
+              f"emulated {r['emulated_grad_bits']}")
+        check(all(r["replicas_equal"]), f"lm_dp {name}: the ranks' "
+              f"parameters differ: {r['replicas_equal']}")
+        check(r["loss_max_rel"] <= LM_DP_TOL, f"lm_dp {name}: losses "
+              f"{r['loss']} against the emulated {r['emulated_loss']}")
+        check(r["param_leaf_l2_rel_err"] <= LM_DP_TOL, f"lm_dp {name}: "
+              f"parameters off the emulated run's: {r['worst_leaves']}")
+        n = r["launches"]
+        want = n_leaves * LM_DP_Q * LM_DP_STEPS if name == "varco" else 0
+        check(n["random_mask_bf16"] == n["random_mask"] == want,
+              f"lm_dp {name}: random_mask launched {n['random_mask']} "
+              f"times ({n['random_mask_bf16']} bf16), not {want}")
+        check(all(n[k] == 0 for k in LM_KERNELS), f"lm_dp {name} "
+              f"launched LM kernels: {n}")
+    check(runs["varco"]["rate"][0] == 128.0,
+          f"lm_dp varco: step 0 rate {runs['varco']['rate']}")
+    check(all(b > 0 for b in runs["full"]["grad_bits"]),
+          f"lm_dp full: grad_bits {runs['full']['grad_bits']}")
+    check(f32_rec["loss_rel_err"] <= TRAIN_TOL and
+          f32_rec["param_leaf_l2_rel_err"] <= TRAIN_TOL and
+          f32_rec["moment_leaf_max_rel_err"] <= TRAIN_TOL and
+          f32_rec["replicas_equal"],
+          f"lm_dp: the f32 group step differs from the emulated one: "
+          f"{f32_rec}")
+    check(f32_rec["grad_bits"] == f32_rec["emulated_grad_bits"] > 0,
+          f"lm_dp: the f32 group step's grad_bits {f32_rec}")
+    return runs["varco"]["launches"]["random_mask_bf16"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=169_343,
                     help="graph size (default: OGBN-Arxiv's node count)")
     ap.add_argument("--lm-only", action="store_true",
-                    help="only the device, build, lm_kernels, lm and "
-                         "lm_train phases (a partial run: no summary or "
-                         "result line)")
+                    help="only the device, build, lm_kernels, lm, "
+                         "lm_train and lm_dp phases (a partial run: no "
+                         "summary or result line)")
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(args, work)
@@ -4152,6 +4477,7 @@ def run(args, work) -> int:
             lm_kernels_phase()
             lm_phase()
             lm_train_phase()
+            lm_dp_phase(work)
             print("lm-only run: every LM check passed", flush=True)
             return 0
         g, cfg, params, eng = setup_phase(args.nodes, "cuda")
@@ -4181,6 +4507,8 @@ def run(args, work) -> int:
         # the granite-3-2b one-worker VARCO run's bf16 mask launches
         launches["random_mask_bf16"] = lm_train_phase()["varco_launches"][
             "q1"]["random_mask_bf16"]
+        # the lm_dp group's bf16 mask launches, summed over its workers
+        launches["random_mask_bf16"] += lm_dp_phase(work)
     except Failure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

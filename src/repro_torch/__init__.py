@@ -48,7 +48,17 @@ over the ``ell_spmm``, ``varco_pack``, ``varco_unpack``,
   over :func:`forward_train` / :func:`lm_loss`, AdamW with the config's
   moment dtype and :class:`repro_torch.train.data.TokenPipeline`, in plain
   torch with autograd (the JAX package trains through XLA attention and
-  the jnp SSD form too: neither kernel has a backward).
+  the jnp SSD form too: neither kernel has a backward);
+
+* VARCO data-parallel LM training — emulated on one card, or one process
+  per worker (``train_lm(workers=Q)``, or every process under
+  ``torchrun``) through :mod:`repro_torch.dist.grad_compress`; the
+  sharding rules on DTensor (:mod:`repro_torch.dist.sharding`, hints at
+  the JAX model's places), the production meshes
+  (:mod:`repro_torch.launch.mesh`) and the dry run of every architecture
+  × shape on a fake 256- or 512-rank mesh (:mod:`repro_torch.launch.
+  dryrun`, collectives counted by :mod:`repro_torch.launch.
+  comm_analysis`).
 """
 
 __version__ = "0.2.0"

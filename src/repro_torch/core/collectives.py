@@ -23,6 +23,26 @@ Every sum runs in worker order, and the bits in float32 in the JAX
 package's order (leaf order within a worker, then over workers, then the
 ring factor).
 
+The same two calls take a :class:`WorkerMesh` in place of ``q``: the
+group form, one process per worker.  ``xs`` then yields this process's
+one tree, which it compresses leaf by leaf in place under ``fold_in(key,
+mesh.rank)`` (the key stream of emulated worker ``w = rank``) before the
+group sums each leaf, leaf by leaf in ``tree_leaves`` order, so the peak
+stays at one tree and one leaf.  The sum runs in rank order, as the
+emulated workers are added, at a ring all-reduce's traffic
+(:func:`_rank_order_sum`: a reduce-scatter by ``Q - 1`` hops, then an
+all-gather): a backend's all-reduce adds in its own order, which in bf16
+rounds otherwise (three AdamW steps of granite's smoke config in bf16
+drifted 3.8e-2 of a leaf's norm from the emulated run), so the group's
+sums are the emulated sums bitwise.  The per-worker payload bits are
+all-gathered and summed in rank order too (f32 sums near 1e10 change
+with summation order), so the group's bits equal the emulated ones
+exactly.  What moves is not what is charged: ``randmask`` zeroes entries
+but the group ships the dense leaf, every byte of it
+(``WorkerMesh.sent_bytes``), while the bits charge the compressed
+payload; that is the JAX package's accounting too (its ``psum`` of the
+masked tree).  :func:`psum` is the uncompressed group sum.
+
 The activation half ships halo activations between the processes of a
 :class:`WorkerMesh` (one process per worker over ``torch.distributed``;
 the JAX package's ``shard_map`` axis), each call made by every worker of
@@ -116,9 +136,85 @@ def _ring_bits(per_worker: list, factor: float) -> torch.Tensor:
     return total * float(np.float32(factor))
 
 
+def _one_tree(xs: Iterable, what: str):
+    """The one tree a worker of a group yields to a collective."""
+    trees = iter(xs)
+    tree = next(trees, None)
+    if tree is None or next(trees, None) is not None:
+        raise ValueError(f"{what} over a worker group takes this worker's "
+                         f"one tree")
+    return tree
+
+
+def _rank_order_sum(t: torch.Tensor, mesh: "WorkerMesh") -> torch.Tensor:
+    """Every worker's ``t`` summed in rank order, ``((t_0 + t_1) + t_2) +
+    …`` in ``t``'s dtype, as the emulated workers are added, at a ring
+    all-reduce's traffic (``2(Q-1)/Q`` of ``t`` a worker): worker ``r``
+    receives chunk ``r`` of every peer's ``t`` in one batch of ``Q - 1``
+    hops, adds the ``Q`` chunks in rank order, and the reduced chunks are
+    all-gathered."""
+    q, r = mesh.q, mesh.rank
+    if q == 1:
+        return t
+    flat = t.reshape(-1)
+    n = flat.numel()
+    c = -(-n // q)
+    if c * q != n:
+        flat = torch.cat([flat, flat.new_zeros(c * q - n)])
+    chunks = flat.view(q, c)
+    offsets = tuple(range(1, q))
+    got = mesh.ring_wait(mesh.ring_start(
+        chunks[[(r + d) % q for d in offsets]], offsets))
+    acc = None
+    for w in range(q):                     # slot d - 1 came from rank r - d
+        part = chunks[r] if w == r else got[(r - w) % q - 1]
+        acc = part.clone() if acc is None else acc.add_(part)
+    return mesh.all_gather(acc).reshape(-1)[:n].view(t.shape)
+
+
+def _reduce_leaves(leaves: list, mesh: "WorkerMesh") -> None:
+    """Every worker's ``leaves`` summed over the group in rank order, one
+    leaf at a time in list order (:func:`_rank_order_sum`); each slot is
+    replaced by its sum, so the old leaf is released before the next is
+    reduced."""
+    for i in range(len(leaves)):
+        leaves[i] = _rank_order_sum(leaves[i], mesh)
+
+
 @torch.no_grad()
-def compressed_psum(xs: Iterable, q: int, *, compressor: Compressor, rate,
-                    key):
+def _group_compressed_psum(xs: Iterable, mesh: "WorkerMesh", *,
+                           compressor: Compressor, rate, key):
+    """:func:`compressed_psum` over a worker group (see the module
+    docstring)."""
+    tree = _one_tree(xs, "compressed_psum")
+    leaves = tree_leaves(tree)
+    skeleton = tree_map(lambda _: 0, tree)
+    del tree
+    bits = _compress_leaves(leaves, mesh.rank, compressor=compressor,
+                            rate=rate, key=key)
+    _reduce_leaves(leaves, mesh)
+    per_worker = list(mesh.all_gather(
+        bits.reshape(1).to(mesh.device, _F32))[:, 0])
+    return _unflatten(skeleton, leaves), _ring_bits(
+        per_worker, 2.0 * (mesh.q - 1) / mesh.q)
+
+
+@torch.no_grad()
+def psum(xs: Iterable, mesh: "WorkerMesh"):
+    """The plain sum of a tree over a worker group: ``xs`` yields this
+    worker's one tree, whose leaves are consumed and summed leaf by leaf
+    in rank order (one tree and one leaf at the peak).  Returns the
+    summed tree."""
+    tree = _one_tree(xs, "psum")
+    leaves = tree_leaves(tree)
+    skeleton = tree_map(lambda _: 0, tree)
+    del tree
+    _reduce_leaves(leaves, mesh)
+    return _unflatten(skeleton, leaves)
+
+
+@torch.no_grad()
+def compressed_psum(xs: Iterable, q, *, compressor: Compressor, rate, key):
     """Compressed all-reduce (gradient aggregation over the data axis).
 
     ``xs`` yields the Q workers' trees in worker order (a list, or a
@@ -126,7 +222,11 @@ def compressed_psum(xs: Iterable, q: int, *, compressor: Compressor, rate,
     wire_bits)``: the sum of the compressed contributions, and the
     payload bits summed over workers × the ring all-reduce's ``2(Q-1)/Q``
     (float32; 0 at Q = 1).  The trees' leaves are consumed: the caller
-    keeps no reference to them."""
+    keeps no reference to them.  ``q`` a :class:`WorkerMesh`: the group
+    form, ``xs`` yielding this process's one tree (module docstring)."""
+    if isinstance(q, WorkerMesh):
+        return _group_compressed_psum(xs, q, compressor=compressor,
+                                      rate=rate, key=key)
     acc = skeleton = None
     per_worker: list = []
     # no enumerate: its cached result tuple would keep the worker's tree
@@ -152,15 +252,16 @@ def compressed_psum(xs: Iterable, q: int, *, compressor: Compressor, rate,
                                                  2.0 * (q - 1) / q)
 
 
-def compressed_pmean(xs: Iterable, q: int, *, compressor: Compressor, rate,
+def compressed_pmean(xs: Iterable, q, *, compressor: Compressor, rate,
                      key):
     """FedAvg-style averaging (Algorithm 1's 'Server' step):
     :func:`compressed_psum` divided by Q (each leaf in place, in its
-    dtype)."""
+    dtype); ``q`` a count or a :class:`WorkerMesh`."""
     summed, wire_bits = compressed_psum(xs, q, compressor=compressor,
                                         rate=rate, key=key)
+    n = q.q if isinstance(q, WorkerMesh) else q
     for leaf in tree_leaves(summed):
-        leaf.div_(q)
+        leaf.div_(n)
     return summed, wire_bits
 
 

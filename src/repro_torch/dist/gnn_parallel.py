@@ -209,6 +209,29 @@ class DistMeta:
         return torch.tensor(self.halo_demand * self._wire_width(feat, rate)
                             * 32.0, dtype=_F32)
 
+    def transport_bits_quant(self, feat: int, rate: float = 1.0,
+                             width: int = 32) -> torch.Tensor:
+        """:meth:`transport_bits` on a quantised wire: per needed boundary
+        row, each of the ``K`` kept lane-blocks charges ``128·width``
+        payload bits plus one fp32 scale; ``width >= 32`` is
+        :meth:`transport_bits` (fp32 ships no scales)."""
+        if width >= 32:
+            return self.transport_bits(feat, rate)
+        k = self.packed_width(feat, rate) // LANE
+        return torch.tensor(self.halo_demand * k * (LANE * width + 32.0),
+                            dtype=_F32)
+
+    def collective_bits(self, feat: int, rate: float = 1.0) -> float:
+        """Bits the wire format moves per exchange, padding included: an
+        all-gather wire ships every worker's padded ``[B, width]`` block
+        to ``Q - 1`` peers; the p2p ring ships ``Q - 1`` padded ``[H,
+        width]`` hop buffers per worker, each to one peer."""
+        width = self._wire_width(feat, rate)
+        if self.wire == "p2p":
+            return float(self.q * max(self.q - 1, 0) *
+                         self.p2p_hop_width * width * 32.0)
+        return float(self.q * (self.q - 1) * self.halo_size * width * 32.0)
+
 
 # ---------------------------------------------------------------------------
 # Scalar-rate helpers

@@ -9,13 +9,24 @@ key), the compressed contributions are summed
 anneals under the policy's scheduler: early steps ship a fraction of the
 gradient bits, converging to exact synchronous SGD as ``rate -> 1``.
 
-The Q workers of the ``"data"`` axis are emulated on one device, one
-after another (:class:`DPMesh`): worker ``w`` computes the gradients of
-its ``B/Q`` rows, compresses them leaf by leaf into the running sum, and
-its tree is released before worker ``w + 1`` starts, so the step holds
-the sum and one worker's gradients, never Q trees.  At Q = 1 every leaf
-is compressed in place: the peak grows by one leaf over the plain step's.
-Workers on several cards wait for the multi-GPU backend.
+Two meshes run the ``"data"`` axis:
+
+* :class:`DPMesh` emulates its Q workers on one device, one after
+  another: worker ``w`` computes the gradients of its ``B/Q`` rows,
+  compresses them leaf by leaf into the running sum, and its tree is
+  released before worker ``w + 1`` starts, so the step holds the sum and
+  one worker's gradients, never Q trees.  At Q = 1 every leaf is
+  compressed in place: the peak grows by one leaf over the plain step's.
+* :class:`~repro_torch.core.collectives.WorkerMesh` is one process per
+  worker over ``torch.distributed`` (the JAX package's ``shard_map``):
+  each process computes the gradients of its own ``B/Q`` rows,
+  compresses them in place under its rank's key stream and sums them
+  over the group leaf by leaf, in rank order, at a ring all-reduce's
+  traffic (:func:`repro_torch.core.collectives.compressed_psum`), so the
+  peak is one tree and one leaf and the sum is the emulated one bitwise.
+  The loss and its parts are all-gathered and averaged in rank order.
+  Every process applies the same update to its replica, so parameters
+  and optimiser state stay bitwise equal across the group.
 """
 
 from __future__ import annotations
@@ -25,10 +36,9 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collectives import compressed_psum, uncompressed_bits
+from repro_torch.core.collectives import (WorkerMesh, compressed_psum, psum,
+                                          uncompressed_bits)
 from repro_torch.core.varco import CommPolicy
-from repro_torch.launch.steps import loss_and_grads
-from repro_torch.models.transformer import checked_device
 from repro_torch.train.optim import (Optimizer, apply_updates,
                                      clip_by_global_norm, tree_leaves)
 
@@ -50,6 +60,10 @@ def make_dp_mesh(n_devices: int | None = None, device="cuda") -> DPMesh:
         mesh = make_dp_mesh(4, device="cpu")     # axis name: "data"
         step = make_varco_dp_train_step(cfg, opt, policy, mesh)
     """
+    # deferred: models.transformer imports repro_torch.dist.sharding at
+    # module scope, so a top-level import here would be circular
+    from repro_torch.models.transformer import checked_device
+
     n = 1 if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"a data-parallel mesh needs at least one worker, "
@@ -79,7 +93,8 @@ def _mean(values: list) -> torch.Tensor:
 
 
 def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
-                             policy: CommPolicy, mesh: DPMesh | None = None,
+                             policy: CommPolicy,
+                             mesh: DPMesh | WorkerMesh | None = None,
                              clip: float = 1.0):
     """Data-parallel LM train step with a VARCO-compressed gradient psum.
 
@@ -98,6 +113,12 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
     charges the uncompressed equivalent, ``uncompressed_bits · 2(Q-1)``,
     so accuracy-per-byte curves share an axis.
 
+    With a :class:`~repro_torch.core.collectives.WorkerMesh` every
+    process of the group calls the step with the same global ``batch``
+    and key; it computes worker ``mesh.rank``'s rows only, and the
+    gradient sum, the metrics and ``grad_bits`` cross the group (module
+    docstring).  The metrics are equal on every process.
+
     Example::
 
         cfg = get_config("granite-3-2b", smoke=True)
@@ -107,9 +128,12 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
         params, opt_state, m = step(params, opt_state,
                                     {"tokens": tokens}, 0, prng.key(0))
     """
+    from repro_torch.launch.steps import loss_and_grads    # deferred, above
+
     mesh = make_dp_mesh(1) if mesh is None else mesh
     compressor = policy.compressor() if policy.compresses else None
-    q = mesh.size
+    group = isinstance(mesh, WorkerMesh)
+    q = mesh.q if group else mesh.size
 
     def step(params, opt_state, batch, step_idx, key):
         rate = policy.rate(step_idx)
@@ -126,13 +150,16 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
         def worker_grads():
             # yielded unbound: the generator keeps no reference to a tree
             # the psum compresses in place
-            for w in range(q):
+            for w in ((mesh.rank,) if group else range(q)):
                 yield worker(w)
 
         if compressor is not None:
             grads, grad_bits = compressed_psum(
-                worker_grads(), q, compressor=compressor, rate=rate,
-                key=key)
+                worker_grads(), mesh if group else q, compressor=compressor,
+                rate=rate, key=key)
+        elif group:
+            grads = psum(worker_grads(), mesh)
+            grad_bits = uncompressed_bits(grads) * 2.0 * (q - 1)
         else:
             workers = worker_grads()
             grads = next(workers)
@@ -150,6 +177,11 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
         updates, opt_state = optimizer.update(grads, opt_state, params)
         del grads                 # freed before the new params are made
         params = apply_updates(params, updates)
+        if group:
+            # every worker's (loss, ce, aux), averaged in rank order
+            parts = mesh.all_gather(torch.stack(
+                [losses[0], ces[0], auxes[0]]).float())
+            losses, ces, auxes = (list(parts[:, i]) for i in range(3))
         metrics = {"loss": _mean(losses), "ce": _mean(ces),
                    "moe_aux": _mean(auxes), "grad_norm": gnorm,
                    "grad_bits": grad_bits, "rate": rate}

@@ -154,6 +154,21 @@ def metis_like_partition(g: GraphData, q: int, seed: int = 0,
 PARTITIONERS = {"random": random_partition, "metis-like": metis_like_partition}
 
 
+def edge_cut_stats(g: GraphData, owner: np.ndarray) -> dict:
+    """Table-I statistics: self vs cross directed edge counts and
+    fractions under the assignment ``owner``."""
+    dst, src = g.edge_list()
+    cross = owner[dst] != owner[src]
+    n_cross = int(cross.sum())
+    n_self = len(dst) - n_cross
+    return {
+        "self_edges": n_self,
+        "cross_edges": n_cross,
+        "self_frac": n_self / max(len(dst), 1),
+        "cross_frac": n_cross / max(len(dst), 1),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Partitioned, padded device layout
 # ---------------------------------------------------------------------------

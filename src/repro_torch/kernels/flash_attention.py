@@ -132,9 +132,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position mask of ``q_pos``/``k_pos`` ``[B, S]``), softmax, fully
     masked rows set to 0, then ``· v`` in f32.  GQA by reshaping the query
     heads into ``[KV, group]`` (no repeat of k/v)."""
+    from repro_torch.dist.sharding import unflatten   # no import cycle
+
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    qf = q.float().reshape(b, kvh, h // kvh, s, d)
+    qf = unflatten(q.float(), 1, (kvh, h // kvh))
     scores = qf @ k.float()[:, :, None].transpose(-1, -2)
     scores.mul_(1.0 / math.sqrt(d))
     mask = attention_mask(s, causal, window, q.device, q_pos, k_pos)

@@ -72,7 +72,7 @@ def _route(kernel, plain, *args):
     dev = args[0].device
     if dev.type == "cuda":
         return kernel(*args)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):     # meta: shapes only (the dry run)
         return plain(*args)
     raise ValueError(f"no kernel or plain version for device {dev}")
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import flatten, unflatten
 from repro_torch.kernels import ops
 from repro_torch.nn.modules import rms_norm
 
@@ -66,7 +67,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(d, theta, x.device)
     comp = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))               # [D/2]
+        torch.as_tensor(sections, device=x.device),
+        output_size=d // 2)                                       # [D/2]
     pos = positions3.float()[comp]                                # [D/2,B,S]
     return _rotate(x, torch.movedim(pos, 0, -1) * freqs)
 
@@ -124,7 +126,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the products in q's dtype, the softmax in f32, as the JAX package."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    qg = unflatten(q, 2, (kvh, h // kvh))
     root = torch.tensor(math.sqrt(d), dtype=torch.float32).to(q.dtype)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / root.to(q.device)
     scores = scores.float()
@@ -132,19 +134,18 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.where(mask[:, None, None, :, :], scores, neg)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h, d)
+    return flatten(out, 2, 3)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+    return unflatten(x @ flatten(w, 1, 2), -1, (h, hd))
 
 
 def out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd", out, wo)`` as one matmul."""
-    h, hd, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return flatten(out, -2, -1) @ flatten(wo, 0, 1)
 
 
 def use_chunked_sdpa(cfg: ArchConfig, s: int, positions3) -> bool:

@@ -12,8 +12,12 @@ order (an exclusive cumsum over the group's flattened ``[S_g · K]``
 choices); a choice whose slot reaches ``C`` is dropped: it scatters zeros
 into slot ``C − 1`` and combines with weight 0, so the residual stream
 carries that token unchanged.  The buffers keep the ``[G, E_pad, C, d]``
-layout, so a data-parallel backend can set ``G`` to its group count
-through :func:`dispatch_groups`; on one card ``G = 1``.
+layout: :func:`repro_torch.dist.sharding.dispatch_groups` sets ``G`` to
+the data-parallel degree inside an ``activation_sharding`` context, where
+the JAX package's sharding hints (:func:`~repro_torch.dist.sharding.
+maybe_shard`) lay the buffers out group-sharded around the dispatch and
+expert-sharded around the expert products; on one card ``G = 1`` and the
+hints are the identity.
 
 Two details decide which choices are kept, and the port matches them
 bit for bit: the router logits are rounded to the activation dtype before
@@ -33,7 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.dist.sharding import dispatch_groups, maybe_shard
 from repro_torch.models import layers as L
+
+_DP = ("pod", "data")
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
@@ -56,13 +63,6 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
     if m.n_shared:
         p["shared"] = L.init_mlp(gen, d, m.shared_hidden, dt, lead)
     return p
-
-
-def dispatch_groups() -> int:
-    """Token groups of the MoE dispatch: the data-parallel degree, 1 on
-    one card (the port's copy of ``repro/dist/sharding.py``'s
-    ``dispatch_groups`` with no mesh active)."""
-    return 1
 
 
 def group_capacity(m: MoEConfig, group_tokens: int) -> int:
@@ -132,7 +132,8 @@ def dispatch(xt: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
 def experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
     """The routed experts' SwiGLU over every (padded) expert's slots:
     ``[G, E_pad, C, d]`` in, the same shape and dtype out."""
-    hid = F.silu(buf @ params["w_gate"]) * (buf @ params["w_up"])
+    hid = maybe_shard(F.silu(buf @ params["w_gate"]) * (buf @ params["w_up"]),
+                      None, _DP, None, "model")
     return (hid @ params["w_down"]).to(buf.dtype)
 
 
@@ -159,6 +160,8 @@ def moe_ffn(params: dict, cfg: ArchConfig, x: torch.Tensor
     if n_tok % g:
         g = 1
     xt = x.reshape(n_tok, d)
+    # d unsharded at the MoE's entry
+    xt = maybe_shard(xt, _DP, None)
 
     probs, gate_vals, expert_idx = route(params, m, xt)
     # load-balancing auxiliary loss (Switch/GShard), global statistics
@@ -172,9 +175,14 @@ def moe_ffn(params: dict, cfg: ArchConfig, x: torch.Tensor
     rows = flat_rows(fe, pos, keep, m.e_padded, cap)
     n_rows = g * m.e_padded * cap
     buf = dispatch(xt, rows, keep, m.top_k, n_rows)
-    out_buf = experts(params, buf.view(g, m.e_padded, cap, d))
+    # group-sharded -> expert-sharded over the data axes: the dispatch
+    # all-to-all; and back for the combine
+    buf = maybe_shard(buf.view(g, m.e_padded, cap, d), None, _DP, None,
+                      None)
+    out_buf = maybe_shard(experts(params, buf), _DP, None, None, None)
     out = combine(out_buf.reshape(n_rows, d), rows, keep, gate_vals,
                   m.top_k)
+    out = maybe_shard(out, _DP, None)
     if m.n_shared:
         out = out + L.mlp(params["shared"], xt, "swiglu")
     return out.reshape(b, s, d), aux

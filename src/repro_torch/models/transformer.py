@@ -8,8 +8,13 @@ gated MLP or, where ``cfg.layer_uses_moe``, the MoE FFN of
 :mod:`repro_torch.models.moe`.  The parameters keep the JAX layout —
 every block leaf stacked ``[n_blocks, ...]`` — and the blocks run in a
 Python loop over that leading dim, so weights carry over from JAX
-unchanged (:func:`repro_torch.models.lm_params_from_jax`).  The model runs on one card: the JAX package's
-sharding hints have no counterpart.
+unchanged (:func:`repro_torch.models.lm_params_from_jax`).  The JAX
+package's sharding hints sit at its places as
+:func:`repro_torch.dist.sharding.maybe_shard` calls: inside
+:func:`~repro_torch.dist.sharding.activation_sharding` they redistribute
+DTensor activations over a device mesh (the dry run,
+:mod:`repro_torch.launch.dryrun`); on plain tensors, as on one card,
+they are the identity.
 
 Entry points:
 
@@ -51,6 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import maybe_shard, replicate_like
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (MambaCache, init_mamba,
                                        init_mamba_cache, mamba_layer)
@@ -61,6 +67,10 @@ from repro_torch.nn.modules import rms_norm, softmax_cross_entropy
 # ---------------------------------------------------------------------------
 # Chunked (flash-style) attention for long training sequences
 # ---------------------------------------------------------------------------
+
+
+#: the data-parallel axis group of the sharding hints
+_DP = ("pod", "data")
 
 
 def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,9 +96,11 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"chunks ({q_chunk}, {kv_chunk})")
     scale = 1.0 / math.sqrt(d)
     neg = torch.finfo(torch.float32).min
+    q = maybe_shard(q, _DP, None, "model", None)
     outs = []
     for q0 in range(0, s, q_chunk):
         q_blk = q[:, q0:q0 + q_chunk].transpose(1, 2)        # [B,H,Qc,D]
+        q_blk = maybe_shard(q_blk, _DP, "model", None, None)
         q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
         m_run = torch.full((b, h, q_chunk), neg, dtype=torch.float32,
                            device=q.device)
@@ -104,8 +116,11 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_pos = torch.arange(k0, k0 + kv_chunk, device=q.device)
             krep = k[:, k0:k0 + kv_chunk].repeat_interleave(group, dim=2)
             vrep = v[:, k0:k0 + kv_chunk].repeat_interleave(group, dim=2)
+            krep = maybe_shard(krep, _DP, None, "model", None)
+            vrep = maybe_shard(vrep, _DP, None, "model", None)
             scores = torch.einsum("bhqd,bshd->bhqs", q_blk,
                                   krep).float() * scale
+            scores = maybe_shard(scores, _DP, "model", None, None)
             mask = k_pos[None, :] <= q_pos[:, None]
             if window > 0:
                 mask &= k_pos[None, :] > (q_pos[:, None] - window)
@@ -273,6 +288,10 @@ def _train_attention(params: dict, cfg: ArchConfig, h: torch.Tensor,
     where the JAX package takes it, else the masked plain ``sdpa``."""
     q, k, v = L.attn_qkv(params, cfg, h, positions, positions3)
     if L.use_chunked_sdpa(cfg, h.shape[1], positions3):
+        # k / v unsharded over S once a layer, heads over model
+        q = maybe_shard(q, _DP, None, "model", None)
+        k = maybe_shard(k, _DP, None, "model", None)
+        v = maybe_shard(v, _DP, None, "model", None)
         out = chunked_sdpa(q, k, v, cfg.sliding_window)
     else:
         out = L.sdpa(q, k, v, L._attn_mask(positions, positions,
@@ -314,9 +333,14 @@ def _apply_block(block: dict, cfg: ArchConfig, h: torch.Tensor,
     ``train`` selects the training forward's mixers (:func:`_mixer`)."""
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    decode = h.shape[1] == 1
     for pi, kind in enumerate(cfg.pattern):
         lp = block[f"p{pi}_{kind}"]
         cl = block_cache[pi] if block_cache is not None else None
+        # sequence parallelism between layers: the residual stream over
+        # model on the sequence dim (a decode step on d)
+        h = maybe_shard(h, _DP, None, "model") if decode else \
+            maybe_shard(h, _DP, "model", None)
         mixed, new_c = _mixer(lp, cfg, pi, kind, rms_norm(h, lp["norm1"]),
                               positions, cl, cache_index, positions3,
                               mask_positions, train)
@@ -380,6 +404,7 @@ def forward_train(params, cfg: ArchConfig, batch: dict
     """
     x, positions = _embed_in(params, cfg, batch)
     positions3 = batch.get("positions3")
+    x = maybe_shard(x, _DP, "model", None)            # sequence parallel
 
     def block_fn(block, h):
         h, _, aux = _apply_block(block, cfg, h, positions, None, None,
@@ -433,6 +458,7 @@ def prefill(params, cfg: ArchConfig, batch: dict,
     b, s = x.shape[0], x.shape[1]
     max_len = max_len or s
     positions3 = batch.get("positions3")
+    x = maybe_shard(x, _DP, "model", None)            # sequence parallel
     w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     if cfg.sliding_window and not (s <= w or s % w == 0):
         raise ValueError(f"prefill length {s} incompatible with window {w}")
@@ -442,6 +468,9 @@ def prefill(params, cfg: ArchConfig, batch: dict,
         mask_pos = L.prefill_mask_positions(cfg, positions.expand(b, s),
                                             positions3)
     cache = init_cache(cfg, b, max_len, device=x.device)
+    # the dry run's DTensor activations: the cache is replicated on the mesh
+    cache = Cache(tuple(type(c)(*(replicate_like(t, x) for t in c))
+                        for c in cache.layers), cache.index)
     h = x
     for i in range(cfg.n_blocks):
         h, new_c, _aux = _apply_block(_index(params["blocks"], i), cfg, h,

@@ -44,10 +44,13 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                           ) -> torch.Tensor:
-    """Per-example CE against integer labels (stable log-softmax)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logz - gold
+    """Per-example CE against integer labels (stable log-softmax).  The
+    gold logit is subtracted before its gathered dim is dropped: on
+    vocab-sharded DTensor logits the gather's masked partial sum must be
+    reduced at the gather's rank."""
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    return (logz - gold)[..., 0]
 
 
 def param_count(params) -> int:

@@ -1264,3 +1264,37 @@ def test_cuda_worker_backend_fault_step_matches_emulated(cuda_device):
         else:
             torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
     assert all(n > 0 for n in got["launches"].values()), got["launches"]
+
+
+@pytest.mark.cuda
+def test_cuda_group_lm_dp_step_matches_emulated(cuda_device):
+    """Two worker processes sharing the card over host-staged ``gloo`` run
+    one ``varco:linear:5`` step of granite's smoke config (f32) through
+    ``make_varco_dp_train_step`` over the group: ``grad_bits`` equal to
+    the emulated ``DPMesh(2)`` step's on the card, loss and parameters
+    within 1e-4 (the embedding backward's atomics reorder f32 sums), the
+    replicas bitwise equal, and ``random_mask`` launched once a gradient
+    leaf on each worker (no bf16 launch: the smoke config is f32)."""
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.grad_compress import make_dp_mesh
+    from repro_torch.train import optim
+
+    import torch_dist_cases as cases
+
+    got = gp.spawn_workers(cases.card_lm_dp_step, 2, device=cuda_device,
+                           backend="gloo")
+    cfg, params, toks = cases.lm_setup("granite-3-2b", device=cuda_device)
+    want = cases.run_lm_dp(cfg, params, toks[:1], "varco:linear:5",
+                           make_dp_mesh(2, device=cuda_device),
+                           cuda_device)[0]
+    gm, wm = got["metrics"], want["metrics"]
+    assert gm["grad_bits"] == wm["grad_bits"] > 0
+    assert gm["rate"] == wm["rate"] == 128.0
+    assert abs(gm["loss"] - wm["loss"]) <= 1e-4 * abs(wm["loss"])
+    for a, b in zip(got["params"], want["params"], strict=True):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.norm()))
+    assert got["replicas_equal"]
+    n_leaves = len(optim.tree_leaves(params))
+    assert got["launches"] == [{"random_mask": n_leaves,
+                                "random_mask_bf16": 0}] * 2

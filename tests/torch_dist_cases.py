@@ -752,3 +752,164 @@ def card_fault_step(mesh, spec: str = "varco:linear:5") -> dict:
     return {"loss": float(m["loss"]), "fcache": [c.cpu() for c in served],
             "launches": {fn.__name__: fn.launches for fn in (
                 ell_spmm, varco_pack, varco_unpack)}}
+
+
+# ---------------------------------------------------------------------------
+# VARCO data-parallel LM training on the worker group
+# ---------------------------------------------------------------------------
+
+#: the LM cases' global batch, sequence, steps, and first step key
+LM_BATCH, LM_SEQ, LM_STEPS, LM_KEY = 8, 32, 3, 21
+
+
+def lm_setup(arch: str, device="cpu", dtype: str | None = None):
+    """``arch``'s smoke config (f32, or ``dtype`` for its weights and
+    activations), its seeded port weights and one seeded ``[B, S]`` token
+    batch per step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_config(arch, smoke=True)
+    if dtype is not None:
+        cfg = cfg.with_(param_dtype=dtype, activ_dtype=dtype)
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    toks = np.random.default_rng(LM_KEY).integers(
+        0, cfg.vocab_size, (LM_STEPS, LM_BATCH, LM_SEQ)).astype(np.int64)
+    return cfg, params, toks
+
+
+@contextlib.contextmanager
+def recorded_compression(rec: list):
+    """Every worker's compressed leaves, as ``(worker, [leaf, ...])`` in
+    call order, while the context is open: a recorder around
+    ``collectives._compress_leaves``, which both meshes call."""
+    orig = col._compress_leaves
+
+    def recorder(leaves, worker, **kw):
+        bits = orig(leaves, worker, **kw)
+        rec.append((worker, [t.detach().cpu().clone() for t in leaves]))
+        return bits
+
+    col._compress_leaves = recorder
+    try:
+        yield
+    finally:
+        col._compress_leaves = orig
+
+
+def _flat(tree) -> torch.Tensor:
+    """Every leaf's values as one f32 vector on the CPU (the optimiser's
+    step count lives there whatever the weights' device)."""
+    return torch.cat([t.detach().reshape(-1).float().cpu()
+                      for t in optim.tree_leaves(tree)])
+
+
+def run_lm_dp(cfg, params, toks, comm: str, mesh, device="cpu",
+              opt=None) -> list:
+    """One step per ``toks`` batch of ``make_varco_dp_train_step`` (``opt``,
+    SGD lr 1 by default) over ``mesh`` (a ``DPMesh`` or this worker's
+    ``WorkerMesh``), step key
+    ``prng.key(LM_KEY + i)``: per step the metrics, every worker's
+    compressed leaves (``{worker: [leaf, ...]}``; gathered over a group),
+    the parameters and, over a group, whether every rank holds the same
+    parameters and optimiser state bitwise."""
+    from repro_torch.dist.grad_compress import make_varco_dp_train_step
+
+    opt = optim.sgd(1.0) if opt is None else opt
+    step = make_varco_dp_train_step(cfg, opt, CommPolicy.parse(comm, 10),
+                                    mesh)
+    state = opt.init(params)
+    group = isinstance(mesh, col.WorkerMesh)
+    out = []
+    for i in range(len(toks)):
+        rec: list = []
+        batch = {"tokens": torch.from_numpy(toks[i]).to(device)}
+        with recorded_compression(rec):
+            params, state, m = step(params, state, batch, i,
+                                    prng.key(LM_KEY + i))
+        comp = dict(rec)
+        if group and rec:
+            (w, leaves), = rec
+            comp = {r: [] for r in range(mesh.q)}
+            for t in leaves:
+                for r, part in enumerate(mesh.all_gather(t)):
+                    comp[r].append(part.cpu())
+        row = {"metrics": {k: float(v) for k, v in m.items()},
+               "compressed": comp,
+               "params": [t.detach().cpu().clone()
+                          for t in optim.tree_leaves(params)]}
+        if group:
+            every = mesh.all_gather(torch.cat([_flat(params),
+                                               _flat(state)]))
+            row["replicas_equal"] = all(torch.equal(every[0], e)
+                                        for e in every[1:])
+        out.append(row)
+    return out
+
+
+def run_bf16_adamw(comm: str, mesh) -> list:
+    """:func:`run_lm_dp` of granite's smoke config in bf16 under AdamW
+    (``make_optimizer``, lr 3e-4)."""
+    from repro_torch.launch.steps import make_optimizer
+
+    cfg, params, toks = lm_setup("granite-3-2b", dtype="bfloat16")
+    return run_lm_dp(cfg, params, toks, comm, mesh,
+                     opt=make_optimizer(cfg, lr=3e-4))
+
+
+def lm_dp_cases(mesh, cases: dict, jax_case: dict,
+                bf16_cases: dict) -> dict | None:
+    """Every ``(arch, comm)`` case of ``cases`` through
+    :func:`run_lm_dp` on the group, and every comm of ``bf16_cases``
+    through :func:`run_bf16_adamw`; ``jax_case`` is one step from the JAX
+    package's weights (``params_np``, ``tokens``, ``comm``, ``key``);
+    ``train_lm`` under each of ``jax_case["train_comms"]`` on the group
+    (smoke, ``LM_STEPS`` steps).  Rank 0 returns the records."""
+    from repro_torch.dist.grad_compress import make_varco_dp_train_step
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import lm_params_from_jax
+
+    out = {}
+    for name, (arch, comm) in cases.items():
+        cfg, params, toks = lm_setup(arch)
+        out[name] = run_lm_dp(cfg, params, toks, comm, mesh)
+    for name, comm in bf16_cases.items():
+        out[name] = run_bf16_adamw(comm, mesh)
+    cfg, _, _ = lm_setup(jax_case["arch"])
+    params = lm_params_from_jax(jax_case["params_np"], "cpu")
+    opt = optim.sgd(1.0)
+    step = make_varco_dp_train_step(
+        cfg, opt, CommPolicy.parse(jax_case["comm"], 40), mesh)
+    new, _, m = step(params, opt.init(params),
+                     {"tokens": torch.from_numpy(jax_case["tokens"])}, 0,
+                     prng.key(jax_case["key"]))
+    out["jax"] = {"metrics": {k: float(v) for k, v in m.items()},
+                  "delta": [(a - b).numpy() for a, b in zip(
+                      optim.tree_leaves(params), optim.tree_leaves(new))]}
+    for comm in jax_case["train_comms"]:
+        _, _, hist = train_lm(jax_case["arch"], smoke=True, steps=LM_STEPS,
+                              batch=LM_BATCH, seq=LM_SEQ, comm=comm,
+                              mesh=mesh, log=None)
+        out[f"train_lm:{comm}"] = hist
+    return out if mesh.rank == 0 else None
+
+
+def card_lm_dp_step(mesh, comm: str = "varco:linear:5") -> dict | None:
+    """One step of granite's smoke config (f32) through the group's
+    ``make_varco_dp_train_step`` on the card: metrics, the parameters
+    (moved to the CPU), whether the replicas are equal, and the bf16 /
+    f32 ``random_mask`` launches of this worker."""
+    from repro_torch.kernels.randmask import random_mask
+
+    cfg, params, toks = lm_setup("granite-3-2b", device=mesh.device)
+    random_mask.launches = random_mask.bf16_launches = 0
+    rows = run_lm_dp(cfg, params, toks[:1], comm, mesh, mesh.device)
+    launches = {"random_mask": random_mask.launches,
+                "random_mask_bf16": random_mask.bf16_launches}
+    every = [None] * mesh.q
+    dist.all_gather_object(every, launches)
+    row = rows[0]
+    return None if mesh.rank else {
+        "metrics": row["metrics"], "params": row["params"],
+        "replicas_equal": row["replicas_equal"], "launches": every}
