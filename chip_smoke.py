@@ -314,9 +314,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``make_varco_dp_train_step`` over a ``WorkerMesh`` of 4 processes on
    the one card (``spawn_workers``, host-staged ``gloo``: NCCL refuses two
    ranks on one card, and the phase prints "NCCL unverified"), each
-   training its 2 rows of granite-3-2b at full width and 11 layers (the
-   deepest four processes fit; bf16, remat, f32 moments), batch 8 × 2048,
-   3 steps of ``varco:linear:5`` and of ``full``; the same runs through
+   training its 2 rows of granite-3-2b at full width and 10 layers (at
+   11 the card is all but full; bf16, remat, f32 moments), batch 8 ×
+   2048, 3 steps of ``varco:linear:5`` and of ``full``; the same runs through
    the emulated ``DPMesh(4)`` on the card first.  Checks: losses finite,
    step 0's rate 128, ``grad_bits`` equal group against emulated, every
    rank's parameters and optimiser state bitwise equal after every step
@@ -4169,23 +4169,23 @@ def lm_train_phase(seed: int = 0) -> dict:
 
 #: granite-3-2b at full width cut to LM_DP_LAYERS layers, global batch
 #: LM_DP_BATCH × LM_DP_SEQ (two rows a worker), LM_DP_STEPS steps of each
-#: policy, LM_DP_Q processes.  11 layers is the deepest that four
-#: processes hold beside each other on one 80 GB card: a process peaks at
-#: 18.58 GB there (15.73 GB at 9 layers: ≈ 1.4 GB a layer, since the
-#: functional AdamW update holds the old and the new f32 moments, the
-#: gradients, their clipped copy, f32 updates and the new weights at
-#: once), so 12 would need ≈ 20.0 GB a process, 80 GB for the four
-LM_DP_Q, LM_DP_LAYERS, LM_DP_BATCH, LM_DP_SEQ = 4, 11, 8, 2048
+#: policy, LM_DP_Q processes.  The functional AdamW update holds the old
+#: and the new f32 moments, the gradients, their clipped copy, f32
+#: updates and the new weights at once, so at 11 layers a process peaks
+#: at 18.58 GB allocated and 19.7-20.9 GB reserved, and four of them left
+#: 1.83 GB of an H100 80GB HBM3's 85.0 GB free after a step: too little
+#: to count on from run to run.  Hence 10 layers.
+LM_DP_Q, LM_DP_LAYERS, LM_DP_BATCH, LM_DP_SEQ = 4, 10, 8, 2048
 LM_DP_STEPS = 3
 LM_DP_COMMS = {"varco": "varco:linear:5", "full": "full"}
 LM_DP_TOL = 1e-4
 LM_DP_TIMEOUT = 900.0
 
 
-def _lm_dp_cfg(layers: int):
+def _lm_dp_cfg():
     from repro_torch.configs.base import get_config
 
-    return get_config("granite-3-2b").with_(n_layers=layers)
+    return get_config("granite-3-2b").with_(n_layers=LM_DP_LAYERS)
 
 
 def _dp_f32_cfg():
@@ -4224,7 +4224,9 @@ def _dp_steps(cfg, comm: str, mesh, steps: int, batch: int, seq: int,
     ``prng.key(i)``; the policy's schedule over ``total`` steps, default
     ``steps``): losses, rates, ``grad_bits``, host ms a step ending in the
     loss read, each step's checksums of the parameters and optimiser
-    state, the peak; the final trees under ``_params`` / ``_state``."""
+    state, the peak allocated and reserved, the card's free memory after
+    the last step (every process's use counted); the final trees under
+    ``_params`` / ``_state``."""
     from repro_torch import prng
     from repro_torch.core.varco import CommPolicy
     from repro_torch.dist import make_varco_dp_train_step
@@ -4252,11 +4254,13 @@ def _dp_steps(cfg, comm: str, mesh, steps: int, batch: int, seq: int,
             rec[k].append(float(m[k]))
         rec["checksums"].append(_bits_checksum({"p": params, "s": state}))
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    rec["card_free_gb"] = torch.cuda.mem_get_info()[0] / 1e9
     rec["_params"], rec["_state"] = params, state
     return rec
 
 
-def _lm_dp_worker(mesh, seed: int, ref_dir: str, layers: int):
+def _lm_dp_worker(mesh, seed: int, ref_dir: str):
     """One worker of the lm_dp phase: each policy of ``LM_DP_COMMS``
     through the group's dp step, then the f32 2-layer steps 0 and 1; rank
     0 holds its final trees against the emulated run's files in
@@ -4266,7 +4270,7 @@ def _lm_dp_worker(mesh, seed: int, ref_dir: str, layers: int):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = launch_counters()
-    cfg = _lm_dp_cfg(layers)
+    cfg = _lm_dp_cfg()
     runs = {}
     for name, comm in LM_DP_COMMS.items():
         for fn in counters.values():
@@ -4313,12 +4317,11 @@ def _lm_dp_worker(mesh, seed: int, ref_dir: str, layers: int):
     return every if mesh.rank == 0 else None
 
 
-def lm_dp_phase(work: str, seed: int = 0,
-                layers: int = LM_DP_LAYERS) -> int:
+def lm_dp_phase(work: str, seed: int = 0) -> int:
     """VARCO data-parallel LM training over ``LM_DP_Q`` worker processes
     on the card (``gloo``: NCCL refuses two ranks on one card), against
     the emulated ``DPMesh(LM_DP_Q)`` on the same card: granite-3-2b at
-    full width and ``layers`` layers, batch 8 × 2048, ``LM_DP_STEPS``
+    full width and ``LM_DP_LAYERS`` layers, batch 8 × 2048, ``LM_DP_STEPS``
     steps of ``varco:linear:5`` and of ``full``; then the f32 2-layer
     check's steps 0 and 1 through the group against the emulated step.
     Returns the workers' ``random_mask_bf16`` launches under
@@ -4328,7 +4331,7 @@ def lm_dp_phase(work: str, seed: int = 0,
     from repro_torch.dist.gnn_parallel import spawn_workers
     from repro_torch.train.optim import tree_leaves, tree_map
 
-    cfg = _lm_dp_cfg(layers)
+    cfg = _lm_dp_cfg()
     ref = Path(work) / "lm_dp_ref"
     ref.mkdir()
     on_cpu = (lambda tree: tree_map(lambda t: t.cpu(), tree))
@@ -4362,7 +4365,7 @@ def lm_dp_phase(work: str, seed: int = 0,
     t = time.perf_counter()
     try:
         ranks = spawn_workers(_lm_dp_worker, LM_DP_Q, seed, str(ref),
-                              layers, device="cuda", backend="gloo",
+                              device="cuda", backend="gloo",
                               timeout=LM_DP_TIMEOUT)
     finally:
         if prev is None:
@@ -4392,6 +4395,8 @@ def lm_dp_phase(work: str, seed: int = 0,
                                    for rk in per],
             "comm_s_per_step": [rk["comm_s_per_step"] for rk in per],
             "peak_mem_gb": [rk["peak_mem_gb"] for rk in per],
+            "peak_reserved_gb": [rk["peak_reserved_gb"] for rk in per],
+            "card_free_gb": [rk["card_free_gb"] for rk in per],
             "emulated_peak_mem_gb": emu["peak_mem_gb"],
             "param_leaf_l2_rel_err": mine["param_leaf_l2_rel_err"],
             "worst_leaves": mine["worst_leaves"],
@@ -4416,6 +4421,7 @@ def lm_dp_phase(work: str, seed: int = 0,
            "devices": [rk["device"] for rk in ranks],
            "batch": LM_DP_BATCH, "seq": LM_DP_SEQ, "steps": LM_DP_STEPS,
            "n_leaves": n_leaves, "wall_s": wall,
+           "card_gb": torch.cuda.mem_get_info()[1] / 1e9,
            "parent_reserved_gb": parent_gb, "runs": runs,
            "f32_check": f32_rec}
     emit(rec)

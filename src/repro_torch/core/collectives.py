@@ -6,15 +6,20 @@ worker compresses its local contribution with a Definition-1 compressor
 under its own key stream (``fold_in(key, worker)``, shared a priori, so
 no index travels), the compressed contributions are summed (all-reduce)
 or exchanged (all-to-all), and the bits charged are the ring's traffic
-of the compressed payload.  Its Q workers run one after another on one
-device, so a collective takes every worker's contribution:
+of the compressed payload.
 
-* :func:`compressed_psum` / :func:`compressed_pmean` — an iterable of the
-  Q workers' trees, consumed one at a time: each tree is compressed leaf
-  by leaf in place and added into a running sum before the next worker's
-  tree is asked for, so a caller that computes each worker's gradients on
-  demand (a generator) holds the sum, one worker's tree and one leaf,
-  never Q trees;
+* :func:`compressed_psum` / :func:`compressed_pmean` / :func:`psum` —
+  over a mesh of the ``"data"`` axis: a :class:`DPMesh` (its Q workers
+  emulated one after another on one device; a bare worker count means
+  one) or a :class:`WorkerMesh` (one process per worker).  ``xs`` yields
+  the trees of the mesh's local workers (``mesh.workers``: all Q of an
+  emulated mesh, this process's one of a group), consumed one at a time:
+  each tree is compressed leaf by leaf in place under its worker's stream
+  and added into a running sum before the next tree is asked for, so a
+  caller that computes each worker's gradients on demand (a generator)
+  holds the sum, one worker's tree and one leaf, never Q trees.  The mesh
+  then sums across its processes (``mesh.reduce_leaves``: nothing to do
+  on an emulated mesh) and gathers the per-worker bits (``mesh.gather``);
 * :func:`compressed_all_to_all` — one ``[Q, ...]`` stack, worker ``w``'s
   local array at ``x[w]``, compressed in one batched launch;
 * :func:`uncompressed_bits` — the full-communication baseline's bits.
@@ -23,25 +28,23 @@ Every sum runs in worker order, and the bits in float32 in the JAX
 package's order (leaf order within a worker, then over workers, then the
 ring factor).
 
-The same two calls take a :class:`WorkerMesh` in place of ``q``: the
-group form, one process per worker.  ``xs`` then yields this process's
-one tree, which it compresses leaf by leaf in place under ``fold_in(key,
-mesh.rank)`` (the key stream of emulated worker ``w = rank``) before the
-group sums each leaf, leaf by leaf in ``tree_leaves`` order, so the peak
-stays at one tree and one leaf.  The sum runs in rank order, as the
-emulated workers are added, at a ring all-reduce's traffic
-(:func:`_rank_order_sum`: a reduce-scatter by ``Q - 1`` hops, then an
-all-gather): a backend's all-reduce adds in its own order, which in bf16
-rounds otherwise (three AdamW steps of granite's smoke config in bf16
-drifted 3.8e-2 of a leaf's norm from the emulated run), so the group's
-sums are the emulated sums bitwise.  The per-worker payload bits are
-all-gathered and summed in rank order too (f32 sums near 1e10 change
-with summation order), so the group's bits equal the emulated ones
-exactly.  What moves is not what is charged: ``randmask`` zeroes entries
-but the group ships the dense leaf, every byte of it
-(``WorkerMesh.sent_bytes``), while the bits charge the compressed
-payload; that is the JAX package's accounting too (its ``psum`` of the
-masked tree).  :func:`psum` is the uncompressed group sum.
+Over a group each leaf is summed in rank order, as the emulated workers
+are added, at a ring all-reduce's traffic (:func:`_rank_order_sum`: a
+reduce-scatter by ``Q - 1`` hops, then an all-gather back into the
+leaf's own storage): a backend's all-reduce adds in its own order, which
+in bf16 rounds otherwise (three AdamW steps of granite's smoke config in
+bf16 drifted 3.8e-2 of a leaf's norm from the emulated run), so the
+group's sums are the emulated sums bitwise.  The leaves go one at a time
+in ``tree_leaves`` order, so the peak is the tree and, beside the leaf
+being reduced, ``(Q-1)/Q`` of it received and a ``1/Q`` accumulator:
+one leaf's worth (and a padded copy of a leaf whose size Q does not
+divide).  The per-worker payload bits are all-gathered and summed in
+rank order too (f32 sums near 1e10 change with summation order), so the
+group's bits equal the emulated ones exactly.  What moves is not what is
+charged: ``randmask`` zeroes entries but the group ships the dense leaf,
+every byte of it (``WorkerMesh.sent_bytes``), while the bits charge the
+compressed payload; that is the JAX package's accounting too (its
+``psum`` of the masked tree).
 
 The activation half ships halo activations between the processes of a
 :class:`WorkerMesh` (one process per worker over ``torch.distributed``;
@@ -136,23 +139,16 @@ def _ring_bits(per_worker: list, factor: float) -> torch.Tensor:
     return total * float(np.float32(factor))
 
 
-def _one_tree(xs: Iterable, what: str):
-    """The one tree a worker of a group yields to a collective."""
-    trees = iter(xs)
-    tree = next(trees, None)
-    if tree is None or next(trees, None) is not None:
-        raise ValueError(f"{what} over a worker group takes this worker's "
-                         f"one tree")
-    return tree
-
-
 def _rank_order_sum(t: torch.Tensor, mesh: "WorkerMesh") -> torch.Tensor:
     """Every worker's ``t`` summed in rank order, ``((t_0 + t_1) + t_2) +
     …`` in ``t``'s dtype, as the emulated workers are added, at a ring
     all-reduce's traffic (``2(Q-1)/Q`` of ``t`` a worker): worker ``r``
     receives chunk ``r`` of every peer's ``t`` in one batch of ``Q - 1``
     hops, adds the ``Q`` chunks in rank order, and the reduced chunks are
-    all-gathered."""
+    all-gathered back into ``t``'s storage (``t`` is consumed).  Beside
+    ``t`` the worker holds ``(Q-1)/Q`` of it received and a ``1/Q``
+    accumulator, and a padded copy of ``t`` where Q does not divide its
+    size."""
     q, r = mesh.q, mesh.rank
     if q == 1:
         return t
@@ -169,99 +165,124 @@ def _rank_order_sum(t: torch.Tensor, mesh: "WorkerMesh") -> torch.Tensor:
     for w in range(q):                     # slot d - 1 came from rank r - d
         part = chunks[r] if w == r else got[(r - w) % q - 1]
         acc = part.clone() if acc is None else acc.add_(part)
-    return mesh.all_gather(acc).reshape(-1)[:n].view(t.shape)
+    del got, part
+    mesh.all_gather(acc, out=chunks)
+    return flat[:n].view(t.shape)
 
 
-def _reduce_leaves(leaves: list, mesh: "WorkerMesh") -> None:
-    """Every worker's ``leaves`` summed over the group in rank order, one
-    leaf at a time in list order (:func:`_rank_order_sum`); each slot is
-    replaced by its sum, so the old leaf is released before the next is
-    reduced."""
-    for i in range(len(leaves)):
-        leaves[i] = _rank_order_sum(leaves[i], mesh)
+@dataclasses.dataclass(frozen=True)
+class DPMesh:
+    """``size`` data-parallel workers emulated on ``device``, one after
+    another: the counterpart of the JAX package's 1-D ``"data"`` mesh.
+
+    It shares its surface with :class:`WorkerMesh`: ``q``, the local
+    ``workers`` (here all of them), ``reduce_leaves`` (the sum across
+    processes: here there is none) and ``gather`` (every worker's value:
+    here they are all local)."""
+
+    size: int
+    device: torch.device | None = None
+
+    @property
+    def q(self) -> int:
+        return self.size
+
+    @property
+    def workers(self) -> range:
+        return range(self.size)
+
+    def reduce_leaves(self, leaves: list) -> None:
+        """The local sum is every worker's: nothing crosses."""
+
+    def gather(self, values: list) -> list:
+        """Every worker's value, in worker order: ``values`` itself."""
+        return list(values)
 
 
-@torch.no_grad()
-def _group_compressed_psum(xs: Iterable, mesh: "WorkerMesh", *,
-                           compressor: Compressor, rate, key):
-    """:func:`compressed_psum` over a worker group (see the module
-    docstring)."""
-    tree = _one_tree(xs, "compressed_psum")
-    leaves = tree_leaves(tree)
-    skeleton = tree_map(lambda _: 0, tree)
-    del tree
-    bits = _compress_leaves(leaves, mesh.rank, compressor=compressor,
-                            rate=rate, key=key)
-    _reduce_leaves(leaves, mesh)
-    per_worker = list(mesh.all_gather(
-        bits.reshape(1).to(mesh.device, _F32))[:, 0])
-    return _unflatten(skeleton, leaves), _ring_bits(
-        per_worker, 2.0 * (mesh.q - 1) / mesh.q)
+def _as_mesh(mesh) -> "DPMesh | WorkerMesh":
+    """A worker count as the emulated mesh of that many workers."""
+    return DPMesh(int(mesh)) if isinstance(mesh, (int, np.integer)) else mesh
 
 
-@torch.no_grad()
-def psum(xs: Iterable, mesh: "WorkerMesh"):
-    """The plain sum of a tree over a worker group: ``xs`` yields this
-    worker's one tree, whose leaves are consumed and summed leaf by leaf
-    in rank order (one tree and one leaf at the peak).  Returns the
-    summed tree."""
-    tree = _one_tree(xs, "psum")
-    leaves = tree_leaves(tree)
-    skeleton = tree_map(lambda _: 0, tree)
-    del tree
-    _reduce_leaves(leaves, mesh)
-    return _unflatten(skeleton, leaves)
-
-
-@torch.no_grad()
-def compressed_psum(xs: Iterable, q, *, compressor: Compressor, rate, key):
-    """Compressed all-reduce (gradient aggregation over the data axis).
-
-    ``xs`` yields the Q workers' trees in worker order (a list, or a
-    generator that computes each on demand).  Returns ``(summed tree,
-    wire_bits)``: the sum of the compressed contributions, and the
-    payload bits summed over workers × the ring all-reduce's ``2(Q-1)/Q``
-    (float32; 0 at Q = 1).  The trees' leaves are consumed: the caller
-    keeps no reference to them.  ``q`` a :class:`WorkerMesh`: the group
-    form, ``xs`` yielding this process's one tree (module docstring)."""
-    if isinstance(q, WorkerMesh):
-        return _group_compressed_psum(xs, q, compressor=compressor,
-                                      rate=rate, key=key)
+def _local_sum(xs: Iterable, mesh, what: str, compress=None):
+    """The trees of ``xs``, one per local worker of ``mesh`` in order,
+    summed leaf by leaf into the first tree's leaves (in place), each
+    tree's leaves first passed through ``compress(leaves, worker)``, which
+    returns that worker's payload bits.  Returns ``(skeleton, leaves,
+    bits per local worker)``."""
+    workers = list(mesh.workers)
     acc = skeleton = None
-    per_worker: list = []
+    bits: list = []
     # no enumerate: its cached result tuple would keep the worker's tree
     # alive while its leaves are compressed
     for tree in xs:
-        w = len(per_worker)
+        n = len(bits)
+        if n == len(workers):
+            raise ValueError(f"{what}: more than {n} worker trees for "
+                             f"q={mesh.q}, {n} of them on this process")
         leaves = tree_leaves(tree)
         if skeleton is None:
             skeleton = tree_map(lambda _: 0, tree)
         del tree
-        per_worker.append(_compress_leaves(leaves, w, compressor=compressor,
-                                           rate=rate, key=key))
+        bits.append(None if compress is None else
+                    compress(leaves, workers[n]))
         if acc is None:
             acc = leaves
         else:
             for i in range(len(leaves)):
                 acc[i].add_(leaves[i])
                 leaves[i] = None
-    n = len(per_worker)
-    if n != q:
-        raise ValueError(f"compressed_psum: {n} worker trees for q={q}")
-    return _unflatten(skeleton, acc), _ring_bits(per_worker,
-                                                 2.0 * (q - 1) / q)
+    if len(bits) != len(workers):
+        raise ValueError(f"{what}: {len(bits)} worker trees for q={mesh.q}, "
+                         f"{len(workers)} of them on this process")
+    return skeleton, acc, bits
 
 
-def compressed_pmean(xs: Iterable, q, *, compressor: Compressor, rate,
+@torch.no_grad()
+def psum(xs: Iterable, mesh):
+    """The plain sum of the workers' trees over ``mesh`` (a
+    :class:`DPMesh`, a worker count or a :class:`WorkerMesh`; ``xs``
+    yields its local workers' trees, whose leaves are consumed).  Returns
+    the summed tree."""
+    mesh = _as_mesh(mesh)
+    skeleton, leaves, _ = _local_sum(xs, mesh, "psum")
+    mesh.reduce_leaves(leaves)
+    return _unflatten(skeleton, leaves)
+
+
+@torch.no_grad()
+def compressed_psum(xs: Iterable, mesh, *, compressor: Compressor, rate,
+                    key):
+    """Compressed all-reduce (gradient aggregation over the data axis).
+
+    ``xs`` yields the trees of ``mesh``'s local workers in worker order (a
+    list, or a generator that computes each on demand); ``mesh`` is a
+    :class:`DPMesh`, a worker count (that many emulated workers) or a
+    :class:`WorkerMesh`.  Returns ``(summed tree, wire_bits)``: the sum of
+    the compressed contributions, and the payload bits summed over
+    workers × the ring all-reduce's ``2(Q-1)/Q`` (float32; 0 at Q = 1).
+    The trees' leaves are consumed: the caller keeps no reference to
+    them."""
+    mesh = _as_mesh(mesh)
+    skeleton, leaves, bits = _local_sum(
+        xs, mesh, "compressed_psum",
+        lambda ls, w: _compress_leaves(ls, w, compressor=compressor,
+                                       rate=rate, key=key))
+    mesh.reduce_leaves(leaves)
+    return _unflatten(skeleton, leaves), _ring_bits(
+        mesh.gather(bits), 2.0 * (mesh.q - 1) / mesh.q)
+
+
+def compressed_pmean(xs: Iterable, mesh, *, compressor: Compressor, rate,
                      key):
     """FedAvg-style averaging (Algorithm 1's 'Server' step):
     :func:`compressed_psum` divided by Q (each leaf in place, in its
-    dtype); ``q`` a count or a :class:`WorkerMesh`."""
-    summed, wire_bits = compressed_psum(xs, q, compressor=compressor,
+    dtype)."""
+    mesh = _as_mesh(mesh)
+    summed, wire_bits = compressed_psum(xs, mesh, compressor=compressor,
                                         rate=rate, key=key)
-    n = q.q if isinstance(q, WorkerMesh) else q
     for leaf in tree_leaves(summed):
-        leaf.div_(n)
+        leaf.div_(mesh.q)
     return summed, wire_bits
 
 
@@ -390,14 +411,42 @@ class WorkerMesh:
                                 h.element_size()) // self.q
             return self._in(h)
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``[q, *t.shape]``: every worker's ``t`` in rank order."""
+    def all_gather(self, t: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+        """``[q, *t.shape]``: every worker's ``t`` in rank order, written
+        into ``out`` (on this worker's device) when it is given."""
         with self._timed():
             h = self._out(t)
-            out = self._empty((self.q, *h.shape), h.dtype)
-            dist.all_gather(list(out.unbind(0)), h, group=self.group)
+            direct = out is not None and not self.staged
+            buf = out if direct else self._empty((self.q, *h.shape),
+                                                 h.dtype)
+            dist.all_gather(list(buf.unbind(0)), h, group=self.group)
             self.sent_bytes += (self.q - 1) * h.numel() * h.element_size()
-            return self._in(out)
+            if out is None:
+                return self._in(buf)
+            if not direct:
+                self.staged_bytes += buf.numel() * buf.element_size()
+                out.copy_(buf, non_blocking=True)
+            return out
+
+    @property
+    def workers(self) -> tuple:
+        """The workers this process runs: its own."""
+        return (self.rank,)
+
+    def reduce_leaves(self, leaves: list) -> None:
+        """Every worker's ``leaves`` summed over the group in rank order,
+        one leaf at a time in list order (:func:`_rank_order_sum`); each
+        slot is replaced by its sum."""
+        for i in range(len(leaves)):
+            leaves[i] = _rank_order_sum(leaves[i], self)
+
+    def gather(self, values: list) -> list:
+        """Every worker's value, in rank order: ``values`` holds this
+        process's one tensor."""
+        (t,) = values
+        every = self.all_gather(t.reshape(-1))
+        return list(every.view(self.q, *t.shape).unbind(0))
 
     def barrier(self) -> None:
         """Wait until every worker of the mesh reaches this call."""

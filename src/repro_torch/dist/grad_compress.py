@@ -9,7 +9,8 @@ key), the compressed contributions are summed
 anneals under the policy's scheduler: early steps ship a fraction of the
 gradient bits, converging to exact synchronous SGD as ``rate -> 1``.
 
-Two meshes run the ``"data"`` axis:
+Two meshes run the ``"data"`` axis, behind one surface (``q``, the local
+``workers``, ``reduce_leaves``, ``gather``), so the step runs one path:
 
 * :class:`DPMesh` emulates its Q workers on one device, one after
   another: worker ``w`` computes the gradients of its ``B/Q`` rows,
@@ -23,32 +24,28 @@ Two meshes run the ``"data"`` axis:
   compresses them in place under its rank's key stream and sums them
   over the group leaf by leaf, in rank order, at a ring all-reduce's
   traffic (:func:`repro_torch.core.collectives.compressed_psum`), so the
-  peak is one tree and one leaf and the sum is the emulated one bitwise.
-  The loss and its parts are all-gathered and averaged in rank order.
-  Every process applies the same update to its replica, so parameters
-  and optimiser state stay bitwise equal across the group.
+  sum is the emulated one bitwise; beside its gradient tree a process
+  holds one more leaf's worth while a leaf is reduced.  The loss and its
+  parts are all-gathered and averaged in rank order.  Every process
+  applies the same update to its replica, so parameters and optimiser
+  state stay bitwise equal across the group.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collectives import (WorkerMesh, compressed_psum, psum,
+from repro_torch.core.collectives import (DPMesh, WorkerMesh,
+                                          compressed_psum, psum,
                                           uncompressed_bits)
 from repro_torch.core.varco import CommPolicy
+from repro_torch.launch.steps import loss_and_grads
+from repro_torch.models.transformer import checked_device
 from repro_torch.train.optim import (Optimizer, apply_updates,
                                      clip_by_global_norm, tree_leaves)
 
-@dataclasses.dataclass(frozen=True)
-class DPMesh:
-    """``size`` data-parallel workers emulated on ``device``: the
-    counterpart of the JAX package's 1-D ``"data"`` mesh."""
-
-    size: int
-    device: torch.device
+__all__ = ["DPMesh", "make_dp_mesh", "make_varco_dp_train_step"]
 
 
 def make_dp_mesh(n_devices: int | None = None, device="cuda") -> DPMesh:
@@ -60,10 +57,6 @@ def make_dp_mesh(n_devices: int | None = None, device="cuda") -> DPMesh:
         mesh = make_dp_mesh(4, device="cpu")     # axis name: "data"
         step = make_varco_dp_train_step(cfg, opt, policy, mesh)
     """
-    # deferred: models.transformer imports repro_torch.dist.sharding at
-    # module scope, so a top-level import here would be circular
-    from repro_torch.models.transformer import checked_device
-
     n = 1 if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"a data-parallel mesh needs at least one worker, "
@@ -128,46 +121,32 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
         params, opt_state, m = step(params, opt_state,
                                     {"tokens": tokens}, 0, prng.key(0))
     """
-    from repro_torch.launch.steps import loss_and_grads    # deferred, above
-
     mesh = make_dp_mesh(1) if mesh is None else mesh
     compressor = policy.compressor() if policy.compresses else None
-    group = isinstance(mesh, WorkerMesh)
-    q = mesh.q if group else mesh.size
+    q = mesh.q
 
     def step(params, opt_state, batch, step_idx, key):
         rate = policy.rate(step_idx)
-        losses, ces, auxes = [], [], []
+        parts = []
 
         def worker(w):
-            loss, parts, grads = loss_and_grads(params, cfg,
-                                                _shard(batch, w, q))
-            losses.append(loss)
-            ces.append(parts["ce"])
-            auxes.append(parts["moe_aux"])
+            loss, aux, grads = loss_and_grads(params, cfg,
+                                              _shard(batch, w, q))
+            parts.append(torch.stack([loss, aux["ce"], aux["moe_aux"]]))
             return grads
 
         def worker_grads():
             # yielded unbound: the generator keeps no reference to a tree
             # the psum compresses in place
-            for w in ((mesh.rank,) if group else range(q)):
+            for w in mesh.workers:
                 yield worker(w)
 
         if compressor is not None:
             grads, grad_bits = compressed_psum(
-                worker_grads(), mesh if group else q, compressor=compressor,
-                rate=rate, key=key)
-        elif group:
-            grads = psum(worker_grads(), mesh)
-            grad_bits = uncompressed_bits(grads) * 2.0 * (q - 1)
+                worker_grads(), mesh, compressor=compressor, rate=rate,
+                key=key)
         else:
-            workers = worker_grads()
-            grads = next(workers)
-            with torch.no_grad():
-                for g in workers:
-                    for a, b in zip(tree_leaves(grads), tree_leaves(g)):
-                        a.add_(b)
-                    del g         # before the next worker's tree is made
+            grads = psum(worker_grads(), mesh)
             grad_bits = uncompressed_bits(grads) * 2.0 * (q - 1)
         if q > 1:                 # g / 1 is g
             with torch.no_grad():
@@ -177,14 +156,13 @@ def make_varco_dp_train_step(cfg: ArchConfig, optimizer: Optimizer,
         updates, opt_state = optimizer.update(grads, opt_state, params)
         del grads                 # freed before the new params are made
         params = apply_updates(params, updates)
-        if group:
-            # every worker's (loss, ce, aux), averaged in rank order
-            parts = mesh.all_gather(torch.stack(
-                [losses[0], ces[0], auxes[0]]).float())
-            losses, ces, auxes = (list(parts[:, i]) for i in range(3))
-        metrics = {"loss": _mean(losses), "ce": _mean(ces),
-                   "moe_aux": _mean(auxes), "grad_norm": gnorm,
-                   "grad_bits": grad_bits, "rate": rate}
+        # every worker's (loss, ce, aux), averaged in worker order
+        every = mesh.gather(parts)
+        metrics = {"loss": _mean([v[0] for v in every]),
+                   "ce": _mean([v[1] for v in every]),
+                   "moe_aux": _mean([v[2] for v in every]),
+                   "grad_norm": gnorm, "grad_bits": grad_bits,
+                   "rate": rate}
         return params, opt_state, metrics
 
     return step

@@ -23,7 +23,9 @@ Two surfaces:
   ``DTensor`` *only* inside an :func:`activation_sharding` context; on a
   plain tensor, or outside the context, it is the identity, so the
   one-card paths do not change.  Axis names absent from the active mesh
-  (``pod`` on a single-pod mesh) are dropped.
+  (``pod`` on a single-pod mesh) are dropped.  These, the DTensor-aware
+  reshapes and :func:`placements` live in :mod:`repro_torch.layout`,
+  which the models import, and are re-exported here.
 
 The rule choices are the JAX package's: vocab tables shard over
 ``model`` only, MoE expert parallelism lives on the ``data`` axis, and the
@@ -32,16 +34,18 @@ The rule choices are the JAX package's: vocab tables shard over
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 
-import torch
+from repro_torch.layout import (_names, _size, _sizes, activation_sharding,
+                                data_axes, dispatch_groups, flatten,
+                                maybe_shard, placements, replicate_like,
+                                unflatten)
 
-_ctx = threading.local()
-
-#: the batch-parallel axes, in mesh order
-_DATA = ("pod", "data")
+__all__ = ["AbstractMesh", "activation_sharding", "batch_spec",
+           "cache_spec", "data_axes", "dispatch_groups", "flatten",
+           "local_shape_and_offset", "maybe_shard", "param_shardings",
+           "param_spec", "placements", "replicate_like", "tree_paths",
+           "unflatten", "worker_graph_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,98 +63,11 @@ class AbstractMesh:
     mesh_dim_names: tuple
 
 
-def _current_mesh():
-    return getattr(_ctx, "mesh", None)
-
-
-@contextlib.contextmanager
-def activation_sharding(mesh):
-    """Enable :func:`maybe_shard` redistributions against ``mesh`` (and
-    :func:`dispatch_groups`' data-parallel degree) inside the block.
-
-    Example::
-
-        with activation_sharding(mesh):
-            params, state, metrics = step(params, state, batch)
-    """
-    prev = _current_mesh()
-    _ctx.mesh = mesh
-    try:
-        yield mesh
-    finally:
-        _ctx.mesh = prev
-
-
-# ---------------------------------------------------------------------------
-# Axis helpers
-# ---------------------------------------------------------------------------
-
-
-def _names(mesh) -> tuple:
-    return tuple(mesh.mesh_dim_names)
-
-
-def _sizes(mesh) -> dict:
-    return dict(zip(_names(mesh), (int(n) for n in mesh.shape)))
-
-
-def data_axes(mesh) -> tuple:
-    """The batch-parallel axis group: ``(pod, data)`` filtered to the
-    mesh, in mesh order (``("data",)`` on a single-pod mesh)."""
-    return tuple(a for a in _names(mesh) if a in _DATA)
-
-
-def _size(mesh, axes) -> int:
-    sizes = _sizes(mesh)
-    n = 1
-    for a in axes:
-        n *= sizes[a]
-    return n
-
-
-def dispatch_groups() -> int:
-    """Token groups of the MoE dispatch: the active data-parallel degree
-    inside :func:`activation_sharding`, else 1."""
-    mesh = _current_mesh()
-    if mesh is None:
-        return 1
-    return max(_size(mesh, data_axes(mesh)), 1)
-
-
 def batch_spec(mesh) -> tuple:
     """Leading-dim batch sharding over the data axis group: ``(data
     axes,)``, or ``()`` (replicated) on a mesh without one."""
     d = data_axes(mesh)
     return (d,) if d else ()
-
-
-# ---------------------------------------------------------------------------
-# Specs to DTensor placements
-# ---------------------------------------------------------------------------
-
-
-def placements(spec, mesh) -> list:
-    """The DTensor placements of ``spec`` on ``mesh``, one per mesh dim:
-    ``Shard(i)`` on every mesh dim that tensor dim ``i``'s entry names,
-    ``Replicate()`` elsewhere.  An entry's axes must follow the mesh's
-    order (major to minor), as every rule's do."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    names = _names(mesh)
-    out = [Replicate() for _ in names]
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            continue
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(f"spec entry {axes} of dim {dim} is not in the "
-                             f"mesh's axis order {names}")
-        for i in idx:
-            if not isinstance(out[i], Replicate):
-                raise ValueError(f"mesh axis {names[i]!r} shards two dims "
-                                 f"of spec {spec}")
-            out[i] = Shard(dim)
-    return out
 
 
 def local_shape_and_offset(shape, spec, mesh, coordinate=None) -> tuple:
@@ -165,114 +82,6 @@ def local_shape_and_offset(shape, spec, mesh, coordinate=None) -> tuple:
     return _compute_local_shape_and_global_offset(
         tuple(shape), tuple(mesh.shape), list(coordinate),
         placements(spec, mesh))
-
-
-def unflatten(x, dim: int, sizes: tuple):
-    """``x.unflatten(dim, sizes)``.  A ``DTensor`` whose ``dim`` is
-    sharded over mesh dims that do not divide ``sizes[0]`` (8 KV heads ×
-    64 on a 16-way model axis) is first gathered on those mesh dims:
-    DTensor refuses to split a dim that would shard unevenly, where XLA
-    reshards in the same place (the dry run's meshes,
-    :mod:`repro_torch.launch.dryrun`).  A plain tensor is only
-    unflattened, as on one card."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    dim = dim % x.dim()
-    if isinstance(x, DTensor):
-        place, n = list(x.placements), 1
-        for i, p in enumerate(place):
-            if p.is_shard(dim):
-                n *= x.device_mesh.size(i)
-                if sizes[0] % n:
-                    place[i] = Replicate()
-        if place != list(x.placements):
-            x = x.redistribute(x.device_mesh, place)
-    return x.unflatten(dim, sizes)
-
-
-class _Flatten(torch.autograd.Function):
-    """``flatten`` of a ``DTensor`` whose backward splits the gradient with
-    :func:`unflatten`."""
-
-    @staticmethod
-    def forward(ctx, x, start, end):
-        ctx.start, ctx.sizes = start, tuple(x.shape[start:end + 1])
-        return x.flatten(start, end)
-
-    @staticmethod
-    def backward(ctx, g):
-        return unflatten(g, ctx.start, ctx.sizes), None, None
-
-
-def flatten(x, start: int, end: int):
-    """``x.flatten(start, end)``; on a ``DTensor`` the backward splits
-    the gradient with :func:`unflatten`, which DTensor's own view
-    backward cannot do where the split would shard unevenly.  A plain
-    tensor is only flattened, as on one card."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(x, DTensor):
-        return x.flatten(start, end)
-    start, end = start % x.dim(), end % x.dim()
-    return _Flatten.apply(x, start, end)
-
-
-def replicate_like(t, ref):
-    """``t`` as a replicated ``DTensor`` on ``ref``'s mesh when ``ref`` is
-    a ``DTensor`` (a buffer the model allocates, such as prefill's
-    cache, which DTensor activations are then written into), else ``t``
-    itself."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    if not isinstance(ref, DTensor):
-        return t
-    mesh = ref.device_mesh
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
-
-
-# ---------------------------------------------------------------------------
-# Activation constraints
-# ---------------------------------------------------------------------------
-
-
-def _activation_spec(x, dims, mesh) -> tuple:
-    names = _names(mesh)
-    spec = []
-    for i, d in enumerate(dims):
-        if d is None:
-            spec.append(None)
-            continue
-        axes = (d,) if isinstance(d, str) else tuple(d)
-        axes = tuple(a for a in axes if a in names)
-        n = _size(mesh, axes) if axes else 1
-        spec.append(axes if axes and n > 1 and x.shape[i] % n == 0
-                    else None)
-    return tuple(spec)
-
-
-def maybe_shard(x, *dims):
-    """Lay ``x`` out by ``dims``, one entry per dim (a name, a tuple of
-    names, or ``None``).
-
-    The identity outside an :func:`activation_sharding` context and on a
-    plain tensor.  On a ``DTensor`` inside it, ``x.redistribute`` to the
-    entries' placements: entries naming axes absent from the mesh, or
-    groups that do not divide the dim, degrade to replicated.
-
-    Example (activations ``[batch, seq, d_model]``)::
-
-        h = maybe_shard(h, ("pod", "data"), None, "model")
-    """
-    mesh = _current_mesh()
-    if mesh is None:
-        return x
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(x, DTensor):
-        return x
-    spec = _activation_spec(x, dims, mesh)
-    return x.redistribute(mesh, placements(spec, mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.layout import unflatten
 
 #: head dims every kernel is instantiated for: the CUDA-core kernel (f32)
 #: takes all of them
@@ -132,8 +133,6 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position mask of ``q_pos``/``k_pos`` ``[B, S]``), softmax, fully
     masked rows set to 0, then ``· v`` in f32.  GQA by reshaping the query
     heads into ``[KV, group]`` (no repeat of k/v)."""
-    from repro_torch.dist.sharding import unflatten   # no import cycle
-
     b, h, s, d = q.shape
     kvh = k.shape[1]
     qf = unflatten(q.float(), 1, (kvh, h // kvh))

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import flatten, unflatten
+from repro_torch.layout import flatten, unflatten
 from repro_torch.kernels import ops
 from repro_torch.nn.modules import rms_norm
 

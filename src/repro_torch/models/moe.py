@@ -12,12 +12,12 @@ order (an exclusive cumsum over the group's flattened ``[S_g · K]``
 choices); a choice whose slot reaches ``C`` is dropped: it scatters zeros
 into slot ``C − 1`` and combines with weight 0, so the residual stream
 carries that token unchanged.  The buffers keep the ``[G, E_pad, C, d]``
-layout: :func:`repro_torch.dist.sharding.dispatch_groups` sets ``G`` to
-the data-parallel degree inside an ``activation_sharding`` context, where
-the JAX package's sharding hints (:func:`~repro_torch.dist.sharding.
-maybe_shard`) lay the buffers out group-sharded around the dispatch and
-expert-sharded around the expert products; on one card ``G = 1`` and the
-hints are the identity.
+layout: :func:`repro_torch.layout.dispatch_groups` sets ``G`` to the
+data-parallel degree inside an ``activation_sharding`` context, where the
+JAX package's sharding hints (:func:`~repro_torch.layout.maybe_shard`)
+lay the buffers out group-sharded around the dispatch and expert-sharded
+around the expert products; on one card ``G = 1`` and the hints are the
+identity.
 
 Two details decide which choices are kept, and the port matches them
 bit for bit: the router logits are rounded to the activation dtype before
@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.dist.sharding import dispatch_groups, maybe_shard
+from repro_torch.layout import dispatch_groups, maybe_shard
 from repro_torch.models import layers as L
 
 _DP = ("pod", "data")

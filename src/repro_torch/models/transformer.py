@@ -10,8 +10,8 @@ every block leaf stacked ``[n_blocks, ...]`` — and the blocks run in a
 Python loop over that leading dim, so weights carry over from JAX
 unchanged (:func:`repro_torch.models.lm_params_from_jax`).  The JAX
 package's sharding hints sit at its places as
-:func:`repro_torch.dist.sharding.maybe_shard` calls: inside
-:func:`~repro_torch.dist.sharding.activation_sharding` they redistribute
+:func:`repro_torch.layout.maybe_shard` calls: inside
+:func:`~repro_torch.layout.activation_sharding` they redistribute
 DTensor activations over a device mesh (the dry run,
 :mod:`repro_torch.launch.dryrun`); on plain tensors, as on one card,
 they are the identity.
@@ -56,7 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import maybe_shard, replicate_like
+from repro_torch.layout import maybe_shard, replicate_like
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (MambaCache, init_mamba,
                                        init_mamba_cache, mamba_layer)

@@ -4,7 +4,8 @@ processes on the CPU, against the port's emulated ``DPMesh(4)`` and the
 JAX package's step under ``shard_map``.
 
 One group (``spawn_workers``) runs every case; the emulated references
-run in this process on one thread, as the workers do.
+run in this process on one thread, as the workers do, while the group
+runs.
 
 * granite-3-2b and qwen2-moe-a2.7b smoke (f32) under ``varco:linear:5``,
   ``fixed:4`` and ``full``, 3 steps of SGD lr 1 from the port's seeded
@@ -35,6 +36,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -126,22 +128,43 @@ def jax_proc(jax_case):
         proc.communicate()
 
 
-@pytest.fixture(scope="module")
-def dist_out(jax_case, jax_proc):
-    case = {k: v for k, v in jax_case.items() if k != "path"}
-    return gp.spawn_workers(cases.lm_dp_cases, Q, CASES, case, BF16_CASES,
-                            device="cpu")
-
-
-@pytest.fixture(scope="module")
-def emulated():
+def _emulated_runs() -> dict:
+    """Every case, bf16 case and ``train_lm`` comm over the emulated
+    ``DPMesh(4)`` on one thread."""
     out = {}
     with cases.one_thread():
         for name, (arch, comm) in CASES.items():
             cfg, params, toks = cases.lm_setup(arch)
             out[name] = cases.run_lm_dp(cfg, params, toks, comm,
                                         make_dp_mesh(Q, device="cpu"))
+        for name, comm in BF16_CASES.items():
+            out[name] = cases.run_bf16_adamw(comm,
+                                             make_dp_mesh(Q, device="cpu"))
+        for comm in COMMS:
+            out[f"train_lm:{comm}"] = _emulated_train(comm)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(jax_case, jax_proc):
+    """The group's records and the emulated references, computed in this
+    process while the group's workers run."""
+    case = {k: v for k, v in jax_case.items() if k != "path"}
+    with ThreadPoolExecutor(1) as pool:
+        group = pool.submit(gp.spawn_workers, cases.lm_dp_cases, Q, CASES,
+                            case, BF16_CASES, device="cpu")
+        emulated = _emulated_runs()
+        return group.result(), emulated
+
+
+@pytest.fixture(scope="module")
+def dist_out(runs):
+    return runs[0]
+
+
+@pytest.fixture(scope="module")
+def emulated(runs):
+    return runs[1]
 
 
 @pytest.fixture(scope="module")
@@ -185,11 +208,9 @@ def test_group_step_matches_emulated(dist_out, emulated, name):
 
 
 @pytest.mark.parametrize("name", list(BF16_CASES))
-def test_group_bf16_adamw_is_the_emulated_run(dist_out, name):
-    with cases.one_thread():
-        want = cases.run_bf16_adamw(BF16_CASES[name],
-                                    make_dp_mesh(Q, device="cpu"))
-    for i, (got, emu) in enumerate(zip(dist_out[name], want, strict=True)):
+def test_group_bf16_adamw_is_the_emulated_run(dist_out, emulated, name):
+    for i, (got, emu) in enumerate(zip(dist_out[name], emulated[name],
+                                       strict=True)):
         assert got["metrics"] == emu["metrics"], i
         assert all(torch.equal(a, b) for a, b in zip(got["params"],
                                                      emu["params"])), i
@@ -239,10 +260,9 @@ def _emulated_train(comm: str) -> list:
 
 
 @pytest.mark.parametrize("comm", COMMS)
-def test_train_lm_on_the_group_matches_emulated(dist_out, comm):
+def test_train_lm_on_the_group_matches_emulated(dist_out, emulated, comm):
     got = dist_out[f"train_lm:{comm}"]
-    with cases.one_thread():
-        want = _emulated_train(comm)
+    want = emulated[f"train_lm:{comm}"]
     assert len(got) == len(want) == cases.LM_STEPS
     for g, w in zip(got, want):
         assert np.isfinite(g["loss"])
