@@ -331,7 +331,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    at that check's tolerances.  A worker that runs out of memory fails
    the run with the depth named; nothing is cut or moved to the CPU.  The
    dry run (``repro_torch.launch.dryrun``) runs no device code and is not
-   a phase.
+   a phase.  The sharded MoE (expert parallelism on a DTensor mesh)
+   needs at least two ranks and a CUDA all-to-all that host-staged
+   ``gloo`` lacks, so it runs on ``gloo`` CPU ranks in the tests
+   (``tests/test_torch_moe_sharded.py``) and in the dry run, which
+   traces all 40 arch × shape combinations; here the MoE runs its
+   one-card path, unchanged.
 
 The line before the last is the ``{"kernels": [...]}`` summary (launches
 from the training path for the GNN kernels and ``random_mask``, which has

@@ -23,7 +23,8 @@ with prepared arguments (no Python checks), ``graph_ms`` — the same calls
 captured once in a CUDA graph and replayed (device time without host
 gaps), ``max_abs_err`` against the plain version.  The public wrapper
 (``flash_attention``) and ``scaled_dot_product_attention`` are timed
-beside them both ways, and by the host clock around ``--reps`` calls
+beside them both ways (the plain version, ``flash_attention_plain``,
+eagerly), and by the host clock around ``--reps`` calls
 with no synchronisation (the host time of one call).  The card's name
 and power limit come first.
 Needs a card; exits 1 without one.
@@ -216,6 +217,8 @@ def main(argv=None) -> int:
                 "wrapper_ms": cuda_ms(lambda: fa.flash_attention(
                     q, k, v, True, 0), args.reps),
                 "wrapper_graph_ms": graph_ms(lambda: fa.flash_attention(
+                    q, k, v, True, 0), args.reps),
+                "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, True, 0), args.reps),
                 "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                 enable_gqa=True), args.reps),

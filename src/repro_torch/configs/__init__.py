@@ -1,5 +1,5 @@
 from .base import (ARCH_IDS, ArchConfig, MambaConfig, MoEConfig,
-                   get_config, torch_dtype)
+                   all_configs, get_config, torch_dtype)
 
 __all__ = ["ARCH_IDS", "ArchConfig", "MambaConfig", "MoEConfig",
-           "get_config", "torch_dtype"]
+           "all_configs", "get_config", "torch_dtype"]

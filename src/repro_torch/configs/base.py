@@ -209,3 +209,8 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False) -> dict:
+    """Every registered architecture's config, by id."""
+    return {a: get_config(a, smoke=smoke) for a in ARCH_IDS}

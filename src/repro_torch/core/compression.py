@@ -33,8 +33,8 @@ compressors pass the cotangent through the kept elements (times the
 scale); ``int8``'s integer cast has no gradient, so the cotangent reaches
 ``x`` only through each row's ``amax`` scale (split evenly among ties in
 both frameworks).  :func:`straight_through` wraps a compressor in the
-identity backward.  The wire representation ``Compressed`` serves the
-collectives, which wait for the multi-GPU slice.
+identity backward.  :class:`Compressed` is the JAX package's wire
+representation of one message, with its bit count.
 """
 
 from __future__ import annotations
@@ -72,6 +72,31 @@ def _rate32(rate) -> np.float32:
 
 def _keys(keys) -> np.ndarray:
     return np.asarray(keys, np.uint32).reshape(-1, 2)
+
+
+@dataclasses.dataclass
+class Compressed:
+    """Wire representation of a compressed tensor.
+
+    ``payload`` is what crosses the network.  ``meta`` holds side-band
+    tensors (top-k indices, quantisation scales) that cross it too and
+    are charged.  ``aux`` holds decoder state both ends derive from the
+    shared key (masks), charged nothing.
+    """
+
+    payload: torch.Tensor
+    meta: dict
+    aux: dict
+
+    def wire_bits(self) -> torch.Tensor:
+        """Bits that cross the network for this message (payload and
+        meta), an f32 scalar summed in f32 as the JAX package sums it."""
+        bits = torch.zeros((), dtype=_F32)
+        for t in (self.payload, *self.meta.values()):
+            t = torch.as_tensor(t)
+            bits = bits + torch.tensor(float(t.numel() * _nbits(t.dtype)),
+                                       dtype=_F32)
+        return bits
 
 
 @dataclasses.dataclass(frozen=True)

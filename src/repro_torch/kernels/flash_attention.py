@@ -108,18 +108,21 @@ def attention_mask(s: int, causal: bool, window: int, device,
                    q_pos: torch.Tensor | None = None,
                    k_pos: torch.Tensor | None = None) -> torch.Tensor:
     """The boolean keep-mask: ``[S, S]`` by index, or ``[B, S, S]`` by the
-    int32 ``[B, S]`` positions."""
+    int32 ``[B, S]`` positions.  Built from the comparisons, not written
+    into a fresh buffer: positions on a mesh (``DTensor``) give the mask
+    their own layout."""
     if q_pos is None:
         qp = kp = torch.arange(s, device=device)
     else:
         qp, kp = q_pos.long(), k_pos.long()
     qp, kp = qp[..., :, None], kp[..., None, :]
-    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                      dtype=torch.bool, device=device)
-    if causal:
-        mask &= kp <= qp
+    mask = kp <= qp if causal else None
     if window > 0:
-        mask &= kp > qp - window
+        inside = kp > qp - window
+        mask = inside if mask is None else mask & inside
+    if mask is None:
+        mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                          dtype=torch.bool, device=device)
     return mask
 
 

@@ -19,6 +19,10 @@ version and no global backend switch — the tensor decides.
   the dense compressing wire (``random_mask`` kernel), differentiable: its
   backward is the same kernel on the cotangent (the mask depends only on
   the key and the index, so nothing is saved);
+* :func:`compress_pack` / :func:`compress_unpack` /
+  :func:`compress_roundtrip` (with :func:`compression_indices`) and
+  :func:`aggregate` — the same kernels forward only, on one ``[N, F]``
+  block: the JAX package's kernel-correctness surface;
 * :func:`mha` — flash attention of the LM prefill (``flash_attention``
   kernel; index or position masks), and :func:`ssd_chunk` — the Mamba2
   intra-chunk form (``ssd_chunk`` kernel); forward only, as in the JAX
@@ -55,8 +59,9 @@ from .randmask import random_mask as random_mask_kernel
 from .randmask import random_mask_plain, random_uniform, random_uniform_plain
 from .ssd_chunk import ssd_chunk as ssd_chunk_kernel
 from .ssd_chunk import ssd_chunk_plain
-from .varco_pack import (LANE, varco_pack, varco_pack_plain,
-                         varco_pack_quant, varco_pack_quant_plain,
+from .varco_pack import (LANE, block_mask_indices, varco_pack,
+                         varco_pack_plain, varco_pack_quant,
+                         varco_pack_quant_plain,
                          varco_pack_quant_stochastic,
                          varco_pack_quant_stochastic_plain, varco_unpack,
                          varco_unpack_plain, varco_unpack_quant,
@@ -132,6 +137,11 @@ def _batched(fn, x, *idx):
     return fn(x, *idx)
 
 
+def _index_on(idx, like: torch.Tensor) -> torch.Tensor:
+    """An index (numpy or tensor) as int32 on ``like``'s device."""
+    return torch.as_tensor(idx, dtype=torch.int32, device=like.device)
+
+
 def wire_pack(x: torch.Tensor, kept: torch.Tensor,
               inv: torch.Tensor | None = None) -> torch.Tensor:
     """Gather kept lane-blocks: ``[Q, N, F] -> [Q, N, K·128]`` with
@@ -149,6 +159,48 @@ def wire_unpack(packed: torch.Tensor, inv: torch.Tensor,
     ``kept`` serves the backward; without it the op is forward-only."""
     return _batched(lambda a, i, k: _WireUnpack.apply(
         a, i, _no_index(a) if k is None else k), packed, inv, kept)
+
+
+def compress_pack(x: torch.Tensor, block_idx) -> torch.Tensor:
+    """Gather the kept lane-blocks: ``x [N, F]``, ``block_idx [K]`` ->
+    ``[N, K·128]`` (the ``varco_pack`` kernel on a CUDA tensor), forward
+    only; :func:`wire_pack` is the differentiable op."""
+    return _batched(_pack, x, _index_on(block_idx, x))
+
+
+def compress_unpack(packed: torch.Tensor, inv_idx) -> torch.Tensor:
+    """Scatter the kept blocks back, zeros elsewhere: ``packed [N,
+    K·128]``, ``inv_idx [F/128]`` -> ``[N, F]`` (``varco_unpack``),
+    forward only."""
+    return _batched(_unpack, packed, _index_on(inv_idx, packed))
+
+
+def compression_indices(key, n_blocks: int, rate: float
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """``(kept, inv)`` of the shared-key block mask at ``rate``
+    (:func:`~repro_torch.kernels.varco_pack.block_mask_indices`)."""
+    return block_mask_indices(key, n_blocks, rate)
+
+
+def compress_roundtrip(key, x: torch.Tensor, rate: float
+                       ) -> tuple[torch.Tensor, int]:
+    """VARCO's compress -> wire -> decompress round trip through the
+    kernels: ``(x with the dropped blocks zeroed, bits of the packed
+    payload)``."""
+    kept, inv = block_mask_indices(key, x.shape[-1] // LANE, rate)
+    packed = compress_pack(x, kept)
+    wire_bits = packed.numel() * torch.finfo(packed.dtype).bits
+    return compress_unpack(packed, inv), wire_bits
+
+
+def aggregate(x: torch.Tensor, nbr, w: torch.Tensor) -> torch.Tensor:
+    """Forward-only ELL aggregation ``out[i] = Σ_k w[i, k] x[nbr[i, k]]``:
+    ``x [N_src, F]``, ``nbr``/``w [N_dst, K]`` -> ``[N_dst, F]`` (the
+    ``ell_spmm`` kernel on a CUDA tensor); :func:`ell_aggregate` is the
+    differentiable op."""
+    return _batched(lambda a, n, ww: _route(ell_spmm, ell_spmm_plain,
+                                            a.contiguous(), n, ww),
+                    x, _index_on(nbr, x), w)
 
 
 class _EllAggregate(torch.autograd.Function):
@@ -475,6 +527,13 @@ def pack_bits(levels: torch.Tensor, width: int) -> torch.Tensor:
     """Bit-pack int-``width`` levels to bytes (``8/width`` lanes per byte,
     little-endian; ``width == 8`` is the identity reinterpret)."""
     return ref.pack_bits_reference(levels, width)
+
+
+def unpack_bits(packed: torch.Tensor, width: int, m: int | None = None
+                ) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: sign-extend each ``width``-bit field
+    back to int8 levels (``m`` trims the tail byte's zero-pad lanes)."""
+    return ref.unpack_bits_reference(packed, width, m)
 
 
 def dequant_bits(payload: torch.Tensor, scales: torch.Tensor, width: int

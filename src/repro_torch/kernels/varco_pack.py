@@ -93,6 +93,15 @@ STORE_WIDTHS = (2, 4, 8)
 # ---------------------------------------------------------------------------
 
 
+def block_mask_indices(key: np.ndarray, n_blocks: int, rate: float
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """``(kept [K] sorted, inv [n_blocks])`` for ``K = max(floor(n_blocks
+    / rate), 1)`` kept lane-blocks (never zero payload), drawn from the
+    shared key: both ends derive them, so no index crosses the wire."""
+    k = max(int(n_blocks / max(rate, 1.0)), 1)
+    return block_mask_indices_k(key, n_blocks, k)
+
+
 def block_mask_indices_k(key: np.ndarray, n_blocks: int, k: int
                          ) -> tuple[np.ndarray, np.ndarray]:
     """``(kept [k] sorted, inv [n_blocks])``: the first ``k`` entries of

@@ -7,10 +7,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
+from repro_torch.layout import maybe_shard
 from repro_torch.models.transformer import decode_step, lm_loss, prefill
 from repro_torch.train.optim import (Optimizer, adamw, apply_updates,
                                      clip_by_global_norm, tree_leaves,
                                      tree_map)
+
+_DP = ("pod", "data")
 
 
 def make_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
@@ -67,8 +70,14 @@ def make_prefill_step(cfg: ArchConfig, max_len: int | None = None):
 
 
 def make_decode_step(cfg: ArchConfig):
+    """``serve_step(params, batch, cache) -> (greedy token [B] int32,
+    logits [B, V], cache)``.  On a mesh the token is taken from logits
+    whose vocab dim is gathered first (at most ``[B, V]`` a step), so it
+    is the unsharded ``argmax``: the lower index first on ties, as
+    ``jnp.argmax``."""
     def serve_step(params, batch, cache):
         logits, new_cache = decode_step(params, cfg, batch, cache)
-        next_tok = logits.argmax(dim=-1).to(torch.int32)
+        whole = maybe_shard(logits, _DP, None)
+        next_tok = whole.argmax(dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
     return serve_step

@@ -8,10 +8,11 @@ parameter, cache and batch rules and re-exports these names).
   data-parallel degree (the MoE dispatch's token groups).  Outside it, or
   on a plain tensor, :func:`maybe_shard` is the identity and
   :func:`dispatch_groups` is 1, so the one-card paths do not change.
-* :func:`flatten` / :func:`unflatten` / :func:`replicate_like` — the
-  reshapes and buffers of the models and the plain kernels that DTensor
-  cannot take as they are; on plain tensors they are ``Tensor.flatten``,
-  ``Tensor.unflatten`` and the tensor itself.
+* :func:`flatten` / :func:`unflatten` / :func:`replicate_like` /
+  :func:`write_at` — the reshapes, buffers and in-place writes of the
+  models and the plain kernels that DTensor cannot take as they are; on
+  plain tensors they are ``Tensor.flatten``, ``Tensor.unflatten``, the
+  tensor itself and an indexed assignment.
 * :func:`placements` — a spec (one entry per tensor dim, ``None`` or a
   tuple of mesh axis names, major to minor: what JAX's ``PartitionSpec``
   holds) as DTensor placements.
@@ -194,6 +195,34 @@ def replicate_like(t, ref):
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def write_at(buf, dim: int, index: int, value) -> None:
+    """``buf[..., index, ...] = value`` at ``dim``, in place (a decode
+    step's cache slot).  On a ``DTensor`` whose ``dim`` is sharded,
+    DTensor's own indexed assignment writes into a gathered copy and is
+    lost; here every rank lays ``value`` out as ``buf`` without ``dim``
+    and the rank whose shard holds ``index`` writes it there."""
+    if not _is_dtensor(buf):
+        buf[(slice(None),) * dim + (index,)] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, place = buf.device_mesh, buf.placements
+    if not _is_dtensor(value):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    vplace = [Replicate() if p.is_shard(dim) else
+              Shard(p.dim - (p.dim > dim)) if p.is_shard() else p
+              for p in place]
+    local_value = value.redistribute(mesh, vplace).to_local()
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh,
+                                                          place)
+    at = index - offset[dim]
+    if 0 <= at < shape[dim]:
+        buf.to_local()[(slice(None),) * dim + (at,)] = local_value
 
 
 # ---------------------------------------------------------------------------

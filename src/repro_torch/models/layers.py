@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.layout import flatten, unflatten
+from repro_torch.layout import _is_dtensor, flatten, unflatten
 from repro_torch.kernels import ops
 from repro_torch.nn.modules import rms_norm
 
@@ -167,11 +167,15 @@ def prefill_mask_positions(cfg: ArchConfig, positions: torch.Tensor,
     and by position otherwise (``repro/models/layers.py:152``).  Rows that
     are all ``arange(S) + c_b`` give the index mask too; that is found
     with one device comparison and one sync, so the caller decides once
-    per prefill, not once per layer."""
+    per prefill, not once per layer.  Positions that cannot be read on
+    the host (a ``DTensor`` on a mesh, a ``meta`` tensor) take the
+    position mask, as the JAX package does."""
     s = positions.shape[-1]
     if use_chunked_sdpa(cfg, s, positions3):
         return None
     pos = positions.to(torch.int32)
+    if _is_dtensor(pos) or pos.is_meta:
+        return pos.contiguous()
     steps = torch.arange(s, dtype=torch.int32, device=pos.device)
     if bool(((pos - pos[..., :1]) == steps).all()):
         return None

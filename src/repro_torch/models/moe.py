@@ -16,7 +16,9 @@ layout: :func:`repro_torch.layout.dispatch_groups` sets ``G`` to the
 data-parallel degree inside an ``activation_sharding`` context, where the
 JAX package's sharding hints (:func:`~repro_torch.layout.maybe_shard`)
 lay the buffers out group-sharded around the dispatch and expert-sharded
-around the expert products; on one card ``G = 1`` and the hints are the
+around the expert products (on ``DTensor`` activations each rank routes,
+dispatches and combines its own group, and multiplies its own experts,
+under ``local_map``); on one card ``G = 1`` and the hints are the
 identity.
 
 Two details decide which choices are kept, and the port matches them
@@ -37,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.layout import dispatch_groups, maybe_shard
+from repro_torch.layout import (_is_dtensor, dispatch_groups, maybe_shard,
+                                replicate_like)
 from repro_torch.models import layers as L
 
 _DP = ("pod", "data")
@@ -148,40 +151,149 @@ def combine(out_rows: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
     return contrib.reshape(-1, k, d).sum(dim=1)
 
 
+def choice_counts(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many of the choices ``expert_idx`` [T, K] picked each expert:
+    [E] int64 (``torch.bincount``, written as a scatter-add, which runs on
+    a rank's local shard of a mesh)."""
+    flat = expert_idx.reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.int64, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+
+
+def _on_groups(xt: torch.Tensor):
+    """``on_groups(fn, outs, grads=None)``: ``fn`` run on each rank's own
+    token groups where ``xt`` (the MoE's tokens ``[T, d]``) is a
+    ``DTensor``, else ``fn`` itself.
+
+    On a mesh the tokens are split over the data axes with one group a
+    rank (or replicated, as one group, where the groups do not divide
+    them), so the routing, slots, dispatch and combine are each rank's
+    own work: ``fn`` runs under ``local_map`` on the local shards.  Each
+    entry of ``outs`` lays out one output: ``"rows"`` group-major like
+    ``xt``, ``"sum"`` a per-rank partial sum over the data axes.
+    ``grads`` gives each input's gradient layout the same way (default:
+    its own; a replicated weight that meets the local tokens has
+    ``"sum"``)."""
+    if not _is_dtensor(xt):
+        return lambda fn, outs, grads=None: fn
+
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = tuple(xt.placements)
+    kinds = {"rows": rows,
+             "sum": tuple(Partial() if p.is_shard() else Replicate()
+                          for p in rows)}
+
+    def on_groups(fn, outs, grads=None):
+        return local_map(
+            fn, out_placements=tuple(kinds[o] for o in outs),
+            in_grad_placements=None if grads is None else
+            tuple(kinds[gr] for gr in grads),
+            device_mesh=xt.device_mesh)
+    return on_groups
+
+
+def _run_experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
+    """:func:`experts` over ``buf``, on each rank's own experts where
+    ``buf`` is a ``DTensor``.
+
+    On a mesh ``buf`` is expert-sharded over the data axes; the weights
+    are laid out to match (the expert dim on the same mesh dims, the
+    hidden dim ``d_expert`` over ``model`` where the rules split it) and
+    each rank multiplies its local slices, as GSPMD partitions the
+    einsums.  Where ``d_expert`` is split the down projection yields a
+    partial sum over those ranks, and the gradient of ``buf`` is one too.
+    """
+    if not _is_dtensor(buf):
+        return experts(params, buf)
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    w = {k: params[k] if _is_dtensor(params[k]) else
+         replicate_like(params[k], buf) for k in ("w_gate", "w_up", "w_down")}
+    w_in, w_down, buf_grad, out = [], [], [], []
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(1):                       # experts over this dim
+            w_in.append(Shard(0))
+            w_down.append(Shard(0))
+            buf_grad.append(p)
+            out.append(p)
+        elif w["w_gate"].placements[i].is_shard(2):        # d_expert
+            w_in.append(Shard(2))
+            w_down.append(Shard(1))
+            buf_grad.append(Partial())
+            out.append(Partial())
+        else:
+            w_in.append(Replicate())
+            w_down.append(Replicate())
+            buf_grad.append(p)
+            out.append(p)
+    run = local_map(
+        lambda wg, wu, wd, b: experts(
+            {"w_gate": wg, "w_up": wu, "w_down": wd}, b),
+        out_placements=(out,),
+        in_placements=(w_in, w_in, w_down, buf.placements),
+        in_grad_placements=(w_in, w_in, w_down, buf_grad),
+        device_mesh=buf.device_mesh, redistribute_inputs=True)
+    return run(w["w_gate"], w["w_up"], w["w_down"], buf)
+
+
 def moe_ffn(params: dict, cfg: ArchConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over ``x`` [B, S, d] in :func:`dispatch_groups` token
     groups (one where they do not divide the tokens); returns ``(out [B,
-    S, d] in x's dtype, router aux loss (f32 scalar))``."""
+    S, d] in x's dtype, router aux loss (f32 scalar))``.
+
+    On ``DTensor`` activations inside ``activation_sharding`` each rank
+    routes, dispatches and combines its own group (:func:`_on_groups`);
+    the router statistics of the aux loss are summed over the data axes,
+    and the buffers move between group- and expert-sharded by
+    :func:`~repro_torch.layout.maybe_shard` (the dispatch and combine
+    all-to-alls)."""
     m = cfg.moe
     b, s, d = x.shape
     n_tok = b * s
     g = dispatch_groups()
     if n_tok % g:
         g = 1
+    sg = n_tok // g
+    cap = group_capacity(m, sg)
     xt = x.reshape(n_tok, d)
     # d unsharded at the MoE's entry
     xt = maybe_shard(xt, _DP, None)
+    on_groups = _on_groups(xt)
 
-    probs, gate_vals, expert_idx = route(params, m, xt)
+    probs, gate_vals, expert_idx = on_groups(
+        lambda router, t: route({"router": router}, m, t),
+        ("rows", "rows", "rows"), grads=("sum", "rows"))(
+            params["router"], xt)
     # load-balancing auxiliary loss (Switch/GShard), global statistics
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=m.n_experts)
+    counts = on_groups(lambda e: choice_counts(e, m.n_experts),
+                       ("sum",))(expert_idx)
     ce_frac = counts.float() / (n_tok * m.top_k)
     aux = m.n_experts * torch.sum(probs.mean(0) * ce_frac) * \
         m.router_aux_weight
 
-    cap = group_capacity(m, n_tok // g)
-    fe, pos, keep = slots(expert_idx, m, g, cap)
-    rows = flat_rows(fe, pos, keep, m.e_padded, cap)
-    n_rows = g * m.e_padded * cap
-    buf = dispatch(xt, rows, keep, m.top_k, n_rows)
+    def assign(idx):
+        fe, pos, keep = slots(idx, m, idx.shape[0] // sg, cap)
+        return flat_rows(fe, pos, keep, m.e_padded, cap), keep
+
+    def send(t, rows, keep):
+        n = rows.shape[0] * m.e_padded * cap
+        return dispatch(t, rows, keep, m.top_k, n).view(
+            rows.shape[0], m.e_padded, cap, d)
+
+    rows, keep = on_groups(assign, ("rows", "rows"))(expert_idx)
+    buf = on_groups(send, ("rows",))(xt, rows, keep)
     # group-sharded -> expert-sharded over the data axes: the dispatch
     # all-to-all; and back for the combine
-    buf = maybe_shard(buf.view(g, m.e_padded, cap, d), None, _DP, None,
-                      None)
-    out_buf = maybe_shard(experts(params, buf), _DP, None, None, None)
-    out = combine(out_buf.reshape(n_rows, d), rows, keep, gate_vals,
-                  m.top_k)
+    buf = maybe_shard(buf, None, _DP, None, None)
+    out_buf = maybe_shard(_run_experts(params, buf), _DP, None, None, None)
+    out = on_groups(lambda ob, r, k, gv: combine(
+        ob.reshape(-1, d), r, k, gv, m.top_k), ("rows",))(
+            out_buf, rows, keep, gate_vals)
     out = maybe_shard(out, _DP, None)
     if m.n_shared:
         out = out + L.mlp(params["shared"], xt, "swiglu")

@@ -56,7 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.layout import maybe_shard, replicate_like
+from repro_torch.layout import maybe_shard, replicate_like, write_at
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (MambaCache, init_mamba,
                                        init_mamba_cache, mamba_layer)
@@ -270,9 +270,9 @@ def _attn_decode(params, cfg: ArchConfig, x: torch.Tensor,
     q, k, v = L.attn_qkv(params, cfg, x, positions, positions3)
 
     slot = cache_index % cache.k.shape[1]
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[:, slot] = positions[:, 0].to(torch.int32)
+    write_at(cache.k, 1, slot, k[:, 0].to(cache.k.dtype))
+    write_at(cache.v, 1, slot, v[:, 0].to(cache.v.dtype))
+    write_at(cache.pos, 1, slot, positions[:, 0].to(torch.int32))
 
     q_pos = positions[:, :1]                                   # [B, 1]
     valid = (cache.pos >= 0) & (cache.pos <= q_pos)

@@ -33,6 +33,14 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalise the last dim to zero mean and unit (population)
+    variance; no scale or shift."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     """RMSNorm with the ``(1 + gamma)`` scale, computed in f32 whatever

@@ -18,10 +18,16 @@ devices beyond the CPU (the specs come from an ``AbstractMesh``).
   ``repro.launch.hlo_analysis.collective_bytes`` on HLO text of the same
   shapes and groups (written as ``tests/test_hlo_analysis.py`` writes
   it);
-* a combination that raises (qwen2-moe-a2.7b ``long_500k``: the MoE
-  load-balancing ``bincount`` has no DTensor sharding rule) is recorded
-  with ``ok: false`` and its error, as the JAX package's ``run_one``
-  records it.
+* qwen2-moe-a2.7b's smoke config (the MoE dispatch with expert
+  parallelism) traces its train step, prefill and decode on the same
+  mesh, its train record's ``argument_bytes`` equal to JAX's specs' sum;
+  qwen2-vl-2b's smoke prefill with ``positions3`` (the position mask
+  from positions a mesh holds) and a batch-1 decode with vocab-sharded
+  logits (the greedy token over a gathered vocab, one replicated MoE
+  group) trace too;
+* a combination that raises (here a ``record`` made to raise) is
+  recorded with ``ok: false``, its error and its traceback, as the JAX
+  package's ``run_one`` records it.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import jax
 import torch
@@ -85,18 +91,30 @@ def jax_arg_bytes(arch, smoke, mesh, batch_shape):
     return total + (b // k if b % k == 0 else b) * s * 4
 
 
-recs = {}
+KINDS = (InputShape("train_s", 256, 8, "train"),
+         InputShape("prefill_s", 256, 8, "prefill"),
+         InputShape("decode_s", 256, 8, "decode"))
+recs, more = {}, {}
 cfg = get_config("granite-3-2b", smoke=True)
+moe_cfg = get_config("qwen2-moe-a2.7b", smoke=True)
 with D.fake_process_group(8):
     mesh = make_small_mesh(device_type="cpu")
-    for shape in (InputShape("train_s", 256, 8, "train"),
-                  InputShape("prefill_s", 256, 8, "prefill"),
-                  InputShape("decode_s", 256, 8, "decode")):
+    small = AbstractMesh((2, 4), ("data", "model"))
+    for shape in KINDS:
         recs[shape.kind] = D.record(cfg, shape, mesh, 8)
-    want = jax_arg_bytes("granite-3-2b", True, AbstractMesh(
-        (2, 4), ("data", "model")), (8, 256))
+        more["moe_" + shape.kind] = D.record(moe_cfg, dataclasses.replace(
+            shape, seq_len=64), mesh, 8)
+    want = jax_arg_bytes("granite-3-2b", True, small, (8, 256))
     assert recs["train"]["memory"]["argument_bytes"] == want, (
         recs["train"]["memory"], want)
+    want = jax_arg_bytes("qwen2-moe-a2.7b", True, small, (8, 64))
+    assert more["moe_train"]["memory"]["argument_bytes"] == want, (
+        more["moe_train"]["memory"], want)
+    more["vl_prefill"] = D.record(get_config("qwen2-vl-2b", smoke=True),
+                                  InputShape("prefill_s", 256, 8,
+                                             "prefill"), mesh, 8)
+    more["moe_decode_b1"] = D.record(moe_cfg, InputShape(
+        "long_s", 1024, 1, "decode"), mesh, 8)
 
     # hand-built collectives on the 2 x 4 mesh: data groups {0,4},...
     # model groups {0,1,2,3},...
@@ -141,14 +159,19 @@ want_full = jax_arg_bytes("granite-3-2b", False, AbstractMesh(
     (16, 16), ("data", "model")), (256, 4096))
 assert full == want_full, (full, want_full)
 
-moe = D.run_one("qwen2-moe-a2.7b", "long_500k", False, out_dir)
+def broken(*args):
+    raise RuntimeError("no sharding rule for this op")
+
+
+D.record = broken
+bad = D.run_one("granite-3-2b", "train_4k", False, out_dir)
 print("DRYRUN_OK")
 print(json.dumps({k: {"memory": r["memory"], "flops": r["cost"]["flops"],
                       "coll": r["collectives"]["bytes"],
                       "peak": r["memory"]["peak_bytes"]}
-                  for k, r in recs.items()}))
+                  for k, r in {**recs, **more}.items()}))
 print(json.dumps({"full_train_4k_argument_bytes": full,
-                  "moe_ok": moe["ok"], "moe_error": moe.get("error")}))
+                  "bad_ok": bad["ok"], "bad_error": bad.get("error")}))
 """
 
 
@@ -159,15 +182,18 @@ def test_dryrun_on_a_fake_mesh(tmp_path):
                          env=env, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, f"{out.stdout}\n{out.stderr[-4000:]}"
-    recs, moe = (json.loads(line) for line in
-                 out.stdout.split("DRYRUN_OK", 1)[1].strip().splitlines()[:2])
-    assert sorted(recs) == ["decode", "prefill", "train"]
+    recs, rest = (json.loads(line) for line in
+                  out.stdout.split("DRYRUN_OK", 1)[1].strip().splitlines()[:2])
+    assert sorted(recs) == ["decode", "moe_decode", "moe_decode_b1",
+                            "moe_prefill", "moe_train", "prefill", "train",
+                            "vl_prefill"]
     for kind, r in recs.items():
         assert r["flops"] > 0 and r["coll"] > 0, (kind, r)
         assert r["peak"] >= r["memory"]["argument_bytes"] > 0, (kind, r)
-    assert moe["full_train_4k_argument_bytes"] > 1e9
-    assert moe["moe_ok"] is False and "bincount" in moe["moe_error"]
-    saved = json.loads((tmp_path / "qwen2-moe-a2.7b__long_500k__pod16x16"
+    assert rest["full_train_4k_argument_bytes"] > 1e9
+    assert rest["bad_ok"] is False and "no sharding rule" in rest["bad_error"]
+    saved = json.loads((tmp_path / "granite-3-2b__train_4k__pod16x16"
                         ".json").read_text())
     assert saved["ok"] is False and saved["mesh"] == "pod16x16"
-    assert "bincount" in saved["error"] and saved["traceback"]
+    assert "no sharding rule" in saved["error"]
+    assert "broken" in saved["traceback"]

@@ -913,3 +913,149 @@ def card_lm_dp_step(mesh, comm: str = "varco:linear:5") -> dict | None:
     return None if mesh.rank else {
         "metrics": row["metrics"], "params": row["params"],
         "replicas_equal": row["replicas_equal"], "launches": every}
+
+
+# ---------------------------------------------------------------------------
+# The sharded MoE on a 2 x 2 (data, model) DTensor mesh
+# ---------------------------------------------------------------------------
+
+#: the sharded MoE cases' mesh: its shape and axis names (4 ranks)
+MOE_MESH = ((2, 2), ("data", "model"))
+
+
+@contextlib.contextmanager
+def recorded_choices(rec: list):
+    """Append each MoE layer's top-k expert indices to ``rec`` as this
+    rank's ``route`` computes them (on a mesh: its own tokens' rows)."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def wrapped(params, m, xt):
+        out = route(params, m, xt)
+        rec.append(out[2].detach().clone())
+        return out
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _whole(t):
+    """A ``DTensor`` gathered into one plain tensor (a collective: every
+    rank calls it), a plain tensor as it is."""
+    from repro_torch.layout import _is_dtensor
+
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def moe_case_config(case: dict):
+    """``case["arch"]``'s smoke config (f32), with the case's MoE
+    capacity factor where it names one."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(case["arch"], smoke=True)
+    if case.get("capacity_factor"):
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["capacity_factor"]))
+    return cfg
+
+
+def run_moe_case(case: dict, mesh, place) -> dict:
+    """One sharded-MoE case inside ``mesh``'s ``activation_sharding``
+    context, every tensor laid out by ``place(tensor, spec)``: the
+    parameters by ``param_spec``, the tokens by ``batch_spec`` (a batch-1
+    prompt by the dry run's ``batch_rule``), the MoE input as the model's
+    residual stream.  ``place`` distributes on a ``DeviceMesh`` and is
+    the identity for the plain run (``mesh`` then an ``AbstractMesh``).
+
+    ``case["kind"]``: ``"ffn"`` — the first MoE layer's FFN on
+    ``case["x"]``; ``"lm"`` — the training forward, ``lm_loss`` and its
+    gradients on ``case["tokens"]``; ``"decode"`` — prefill of
+    ``case["prompt"]`` on plain tensors, its cache laid out by the dry
+    run's ``cache_rule``, then one decode step of ``case["next"]``.
+    Returns plain tensors, and ``choices``: the expert indices each
+    ``route`` call saw, in call order (this rank's rows on a mesh)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist.sharding import (activation_sharding, batch_spec,
+                                           data_axes, param_spec,
+                                           tree_paths)
+    from repro_torch.launch.dryrun import _cache_map, batch_rule, cache_rule
+    from repro_torch.launch.steps import loss_and_grads, make_decode_step
+    from repro_torch.models import lm_params_from_jax
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import (forward_train, lm_loss,
+                                                prefill)
+
+    cfg = moe_case_config(case)
+    plain = lm_params_from_jax(case["params_np"], "cpu")
+    paths = iter(tree_paths(plain))
+    params = optim.tree_map(lambda t: place(t, param_spec(
+        next(paths)[0], tuple(t.shape), mesh)), plain)
+    rec: list = []
+    out: dict = {}
+    with activation_sharding(mesh), implicit_replication():
+        if case["kind"] == "ffn":
+            pi = next(i for i in range(len(cfg.pattern))
+                      if cfg.layer_uses_moe(i))
+            lp = optim.tree_map(lambda t: t[0], params["blocks"])[
+                f"p{pi}_{cfg.pattern[pi]}"]["moe"]
+            x = place(torch.from_numpy(case["x"]),
+                      (data_axes(mesh), ("model",), None))
+            with recorded_choices(rec):
+                y, aux = moe_ffn(lp, cfg, x)
+            out = {"out": _whole(y), "aux": _whole(aux)}
+        elif case["kind"] == "lm":
+            batch = {"tokens": place(torch.from_numpy(case["tokens"]),
+                                     batch_spec(mesh) + (None,))}
+            with recorded_choices(rec):
+                h, _ = forward_train(params, cfg, batch)
+            loss, parts = lm_loss(params, cfg, batch)
+            _, _, grads = loss_and_grads(params, cfg, batch)
+            out = {"hidden": _whole(h), "loss": _whole(loss),
+                   "ce": _whole(parts["ce"]),
+                   "moe_aux": _whole(parts["moe_aux"]),
+                   "grads": [_whole(g) for g in optim.tree_leaves(grads)]}
+        else:
+            prompt = torch.from_numpy(case["prompt"])
+            _, cache = prefill(plain, cfg, {"tokens": prompt},
+                               max_len=prompt.shape[1] + 4)
+            cache = _cache_map(cache, lambda t: place(
+                t, cache_rule(tuple(t.shape), mesh)))
+            nxt = torch.from_numpy(case["next"])
+            with recorded_choices(rec):
+                tok, logits, _ = make_decode_step(cfg)(
+                    params, {"tokens": place(nxt, batch_rule(
+                        tuple(nxt.shape), mesh))}, cache)
+            out = {"token": _whole(tok), "logits": _whole(logits)}
+    out["choices"] = rec
+    return out
+
+
+def moe_sharded_cases(group, cases: dict) -> dict | None:
+    """Every case of ``cases`` through :func:`run_moe_case` on a 2 × 2
+    ``DeviceMesh`` over the group's 4 ranks, the tensors distributed as
+    the rules place them.  Rank 0 returns each case's outputs and every
+    rank's ``(mesh coordinate, choices)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import placements
+
+    shape, names = MOE_MESH
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+    def place(t, spec):
+        return distribute_tensor(t, mesh, placements(spec, mesh))
+
+    res = {}
+    for name, case in cases.items():
+        out = run_moe_case(case, mesh, place)
+        every = [None] * group.q
+        dist.all_gather_object(every, (tuple(mesh.get_coordinate()),
+                                       out.pop("choices")))
+        res[name] = dict(out, choices=every)
+    return res if group.rank == 0 else None
