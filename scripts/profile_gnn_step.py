@@ -29,20 +29,30 @@ summed over every kernel (self time), the device's idle share of the
 wall time (an upper bound: the profiler's host cost inflates the wall
 time), the number of kernels launched, the port's kernel launch
 counters, the shares of ``ell_spmm``'s and ``random_mask``'s kernels,
-and the kernels with the most device time. The card's name and power
-limit go on the first line. If the trace holds no device time it falls
-back to CUDA events around the step (device time then is not split by
-kernel). On the CPU the list holds operators' CPU self times, never
-device numbers.
+the kernels with the most device time, and the host milliseconds and
+count of each of the program's spans (``repro_torch.spans``: the step's
+parts, the halo exchange, the controller's ``ratectl.plan`` /
+``ratectl.observe``, the ``sync.*`` waits).  On the card each step item
+also lists where a fourth step, run under
+``torch.cuda.set_sync_debug_mode("warn")``, makes the host wait for the
+card (``sync_sites``: the innermost frame of the port or of this script,
+with counts), to hold against the ``sync.*`` spans' counts.  The
+card's name and power limit go on the first line. If the trace holds no
+device time it falls back to CUDA events around the step (device time
+then is not split by kernel). On the CPU the list holds operators' CPU
+self times, never device numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import torch
@@ -63,6 +73,7 @@ from repro_torch.kernels import randmask as _rm  # noqa: E402
 from repro_torch.kernels import varco_pack as _vp  # noqa: E402
 from repro_torch.nn.gnn import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.serve import ServingEngine  # noqa: E402
+from repro_torch.spans import PREFIX, span  # noqa: E402
 from repro_torch.train.optim import adamw  # noqa: E402
 
 TOP = 15    # kernels listed per traced item
@@ -96,9 +107,48 @@ def _self_time_us(evt, on_card: bool) -> float:
     return float(evt.self_cpu_time_total)
 
 
+def _spans(prof) -> dict:
+    """Host milliseconds (the span's own interval, children included) and
+    count of every ``repro_torch.`` span of a finished profile."""
+    return {e.key[len(PREFIX):]: {"host_ms": e.cpu_time_total / 1e3,
+                                  "count": e.count}
+            for e in prof.key_averages() if e.key.startswith(PREFIX)}
+
+
+def _sync_sites(fn) -> dict:
+    """Where ``fn`` makes the host wait for the card: the sites of the
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``, each the
+    innermost frame of the port or of this script inside ``fn``."""
+    root = Path(__file__).resolve().parents[1]
+    sites: collections.Counter = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if ("repro_torch" in f.filename or
+                      f.filename == __file__) and f.name != "_sync_sites"]
+        if not frames:
+            sites["(no Python frame of the port)"] += 1
+            return
+        f = frames[-1]
+        rel = Path(f.filename).resolve()
+        rel = rel.relative_to(root) if rel.is_relative_to(root) else rel
+        sites[f"{rel}:{f.lineno} {f.name}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites)
+
+
 def _trace(fn, device: torch.device) -> dict:
     """Trace one call of ``fn``: wall time, device time by kernel, idle
-    share, launches (profiler count and the port's counters)."""
+    share, launches (profiler count and the port's counters) and the
+    program's spans."""
     on_card = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
                                      else [])
@@ -118,7 +168,8 @@ def _trace(fn, device: torch.device) -> dict:
             if not on_card or str(e.device_type).endswith("CUDA")]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
-    rec = {"wall_ms": wall_us / 1e3, "port_kernel_launches": counters}
+    rec = {"wall_ms": wall_us / 1e3, "port_kernel_launches": counters,
+           "spans": _spans(prof)}
     if on_card and not rows:
         # no device events in the trace: time the call by CUDA events
         start = torch.cuda.Event(enable_timing=True)
@@ -176,7 +227,8 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
                 state["params"], state["opt"], graph, prng.key(epoch), plan,
                 state["cache"])
             state["ctl"] = ctl.observe(state["ctl"], m)
-            return float(m["loss"])
+            with span("sync.loss"):
+                return float(m["loss"])
     else:
         step = make_train_step(cfg, policy, opt, meta)
 
@@ -184,7 +236,8 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
             state["params"], state["opt"], m = step(
                 state["params"], state["opt"], graph, epoch,
                 prng.key(epoch))
-            return float(m["loss"])
+            with span("sync.loss"):
+                return float(m["loss"])
     return run
 
 
@@ -241,6 +294,8 @@ def main(argv=None) -> int:
             run(0)
             run(1)                      # warm: kernels built, allocator
             rec = _trace(lambda: run(2), device)
+            if device.type == "cuda":
+                rec["sync_sites"] = _sync_sites(lambda: run(3))
             print(json.dumps({"item": "train_step", "wire": wire,
                               "run": name, "policy": spec,
                               "compressor": comp or "randmask", "epoch": 2,

@@ -49,6 +49,7 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels.ops import random_mask
 from repro_torch.kernels.randmask import keys_tensor
+from repro_torch.spans import span
 
 LANE = 128
 _F32 = torch.float32
@@ -135,8 +136,9 @@ def _random_mask(keys, x: torch.Tensor, rate, unbiased: bool):
     rate = _rate32(rate)
     p = np.float32(1.0) / rate
     scale = rate if unbiased else np.float32(1.0)
-    out, counts = random_mask(x, keys_tensor(keys, x.device), float(p),
-                              float(scale))
+    with span("sync.keys"):                 # a pageable copy
+        keys = keys_tensor(keys, x.device)
+    out, counts = random_mask(x, keys, float(p), float(scale))
     return out, (counts * _nbits(x.dtype)).to(_F32)
 
 

@@ -43,6 +43,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.spans import span
+
 #: degradation-ladder serve modes per ordered pair (receiver × sender)
 FRESH, CACHED, DEAD = 0, 1, 2
 
@@ -459,7 +461,9 @@ def make_fault_train_step(cfg, policy, opt, meta, mesh=None,
         (loss, bits), grads = _value_and_grad(loss_fn, params)
         loss, new_params, new_state = _synced_update(
             opt, loss, grads, opt_state, params, mesh, sync)
-        metrics = _auto_metrics(loss, rm, bits.detach().cpu(), q, n_ex)
+        with span("sync.step_metrics"):
+            bits = bits.detach().cpu()
+        metrics = _auto_metrics(loss, rm, bits, q, n_ex)
         # an exact step carries the EF residuals unchanged
         return new_params, new_state, metrics, \
             tuple(cache_out) if cache_out else tuple(cache), \

@@ -83,6 +83,7 @@ from repro_torch.kernels.varco_pack import (LANE, worker_block_maps,
                                             worker_block_maps_pos)
 from repro_torch.nn.gnn import (GNNConfig, gnn_forward,
                                 masked_loss_and_correct)
+from repro_torch.spans import span
 from repro_torch.train.optim import (Optimizer, apply_updates, tree_leaves,
                                      tree_map)
 
@@ -391,9 +392,11 @@ def _scatter_pairs(vals_jd: torch.Tensor, q: int) -> torch.Tensor:
     if q == 1:
         return out
     jj, rv = _ring_targets(q)
-    jj_t = torch.as_tensor(np.broadcast_to(jj, rv.shape).copy(),
-                           device=vals_jd.device)
-    out[torch.as_tensor(rv, device=vals_jd.device), jj_t] = vals_jd
+    with span("sync.halo_maps"):            # pageable copies
+        jj_t = torch.as_tensor(np.broadcast_to(jj, rv.shape).copy(),
+                               device=vals_jd.device)
+        rv_t = torch.as_tensor(rv, device=vals_jd.device)
+    out[rv_t, jj_t] = vals_jd
     return out
 
 
@@ -450,7 +453,9 @@ def _pair_ledger(meta: DistMeta, f: int, rate_map, row_bits, pair_err,
 
     dev = pair_err.device
     host = torch.cat([torch.stack([analytic, pair_t.sum()]), embed(pair_t)])
-    return torch.cat([host.to(dev), embed(pair_err.to(f32)),
+    with span("sync.halo_bits"):           # a pageable copy
+        host = host.to(dev)
+    return torch.cat([host, embed(pair_err.to(f32)),
                       embed(pair_delta.to(f32))])
 
 
@@ -665,8 +670,14 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
     calls = itertools.count()
 
     def to_dev(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
+        # a copy from pageable host memory waits for the stream
+        with span("sync.halo_maps"):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+    def bits_to_dev(bits: torch.Tensor) -> torch.Tensor:
+        with span("sync.halo_bits"):       # a pageable copy, as to_dev's
+            return bits.to(dev)
 
     def hops_of(rows: torch.Tensor) -> torch.Tensor:
         """Per-pair hop buffers ``[Q, D, H, F']`` sliced out of each
@@ -691,18 +702,20 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         rm, lix, wm = _select_maps(rate_map, width_map, n_layers, li)
         nb = f // LANE
         n_keep = _keep_of(f, rate, packed_k)
-        k_call = prng.fold_in(key, call)
-        kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+        with span("halo.keys"):
+            k_call = prng.fold_in(key, call)
+            kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+            kept_t, inv_t = to_dev(kept), to_dev(inv)
+            rks = None
+            if wm is not None and rounding == "stochastic":
+                # one rounding stream per (sender, ring hop)
+                rks = np.stack([[round_key(k_call, j, d)
+                                 for d in range(d_hops)]
+                                for j in range(q)])              # [Q, D, 2]
         pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
         k_pairs = _pair_keep(nb, rm, n_keep)                     # [Q, Q]
         k_jd = k_pairs[rv, jj]                                   # [Q, D]
-        kept_t, inv_t = to_dev(kept), to_dev(inv)
         valid = graph["p2p_send_valid"][..., None]
-        rks = None
-        if wm is not None and rounding == "stochastic":
-            # one rounding stream per (sender, ring hop)
-            rks = np.stack([[round_key(k_call, j, d) for d in range(d_hops)]
-                            for j in range(q)])                  # [Q, D, 2]
         if wm is not None and store_w:
             # sub-byte wire: each (sender, hop) row block is quantised at
             # its pair's width into store_w-bit storage and rebuilt from
@@ -804,15 +817,16 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
         rm, lix, wm = _select_maps(rate_map, width_map, n_layers, li)
         nb = f // LANE
         n_keep = _keep_of(f, rate, packed_k)
-        k_call = prng.fold_in(key, call)
-        kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+        with span("halo.keys"):
+            k_call = prng.fold_in(key, call)
+            kept, inv, pos_all = worker_block_maps_pos(k_call, q, nb, n_keep)
+            kept_t, inv_t = to_dev(kept), to_dev(inv)
+            rks = None
+            if wm is not None and rounding == "stochastic":
+                rks = np.stack([round_key(k_call, j) for j in range(q)])
         pos_kept = np.take_along_axis(pos_all, kept, axis=1)     # [Q, K]
         k_pairs = _pair_keep(nb, rm, n_keep)
         k_send, w_send = sender_maxima(k_pairs, wm)              # [Q]
-        kept_t, inv_t = to_dev(kept), to_dev(inv)
-        rks = None
-        if wm is not None and rounding == "stochastic":
-            rks = np.stack([round_key(k_call, j) for j in range(q)])
         if wm is not None and store_w:
             # sub-byte all-gather: the fused codec on [Q, B, F], each
             # sender at its own qmax under the storage width
@@ -859,17 +873,20 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             if packed_wire:
                 n_keep = _keep_of(f, rate, packed_k)
                 wire_width = n_keep * LANE
-                kept, inv = worker_block_maps(prng.fold_in(key, call), q,
-                                              f // LANE, n_keep)
-                kept_t, inv_t = to_dev(kept), to_dev(inv)
+                with span("halo.keys"):
+                    kept, inv = worker_block_maps(prng.fold_in(key, call),
+                                                  q, f // LANE, n_keep)
+                    kept_t, inv_t = to_dev(kept), to_dev(inv)
                 publish = wire_unpack(wire_pack(publish, kept_t, inv_t),
                                       inv_t, kept_t)
             elif compressor is not None:
-                k_call = prng.fold_in(key, call)
-                keys = np.stack([prng.fold_in(k_call, j) for j in range(q)])
+                with span("halo.keys"):
+                    k_call = prng.fold_in(key, call)
+                    keys = np.stack([prng.fold_in(k_call, j)
+                                     for j in range(q)])
                 publish = compressor.batched(keys, publish, rate)[0]
             return publish.reshape(q * b_sz, f), \
-                _exchange_bits(meta, f, rate, wire_width).to(dev)
+                bits_to_dev(_exchange_bits(meta, f, rate, wire_width))
         if rate_map is not None:
             sent, bits = start_rate_map(li, publish, call)
         else:
@@ -877,13 +894,14 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
             if policy.compresses:
                 n_keep = _keep_of(f, rate, packed_k)
                 wire_width = n_keep * LANE
-                kept, inv = worker_block_maps(prng.fold_in(key, call), q,
-                                              f // LANE, n_keep)
-                kept_t, inv_t = to_dev(kept), to_dev(inv)
+                with span("halo.keys"):
+                    kept, inv = worker_block_maps(prng.fold_in(key, call),
+                                                  q, f // LANE, n_keep)
+                    kept_t, inv_t = to_dev(kept), to_dev(inv)
                 publish = wire_unpack(wire_pack(publish, kept_t, inv_t),
                                       inv_t, kept_t)
             sent = hops_of(publish)                    # [Q, D, H, F]
-            bits = _exchange_bits(meta, f, rate, wire_width).to(dev)
+            bits = bits_to_dev(_exchange_bits(meta, f, rate, wire_width))
         # route: receiver i's hop-d rows come from worker (i - d) mod q
         if q > 1:
             src_w = (np.arange(q)[:, None] - np.arange(1, q)[None, :]) % q
@@ -1371,7 +1389,8 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
             wire_width = n_keep * LANE
         if packed_wire or policy.compresses:
             k_call = prng.fold_in(key, call)
-        bits = _exchange_bits(meta, f, rate, wire_width).to(dev)
+        with span("sync.halo_bits"):
+            bits = _exchange_bits(meta, f, rate, wire_width).to(dev)
         if p2p:
             pending, _ = neighbor_exchange_start(
                 publish, graph["p2p_send_slot"][0],
@@ -1509,8 +1528,10 @@ def _value_and_grad(fn, params):
     respect to every tensor leaf of ``params`` (``jax.value_and_grad``
     with ``has_aux``); the inputs are left untouched."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    value, aux = fn(live)
-    flat = iter(torch.autograd.grad(value, tree_leaves(live)))
+    with span("step.forward"):
+        value, aux = fn(live)
+    with span("step.backward"):
+        flat = iter(torch.autograd.grad(value, tree_leaves(live)))
     return (value.detach(), aux), tree_map(lambda _: next(flat), live)
 
 
@@ -1529,7 +1550,8 @@ def _step_metrics(loss, rate, bits) -> dict:
     """Common step metrics: ``bits`` is the forward ``[analytic,
     transport]`` pair; a train step ships it twice (activations +
     cotangents)."""
-    bits = bits.cpu()
+    with span("sync.step_metrics"):
+        bits = bits.cpu()
     return {"loss": loss, "rate": torch.as_tensor(rate, dtype=_F32),
             "halo_bits": 2.0 * bits[0], "transport_bits": 2.0 * bits[1]}
 
@@ -1549,19 +1571,20 @@ def _synced_update(opt: Optimizer, loss, grads, opt_state, params,
     under ``"fedavg"`` the update is local and the floating parameters and
     optimiser state are averaged over the workers (Algorithm 1's server
     step)."""
-    if mesh is not None and sync == "grad":
-        # the loss rides the gradients' all-reduce: one round trip
-        summed = _all_reduce_leaves([loss.reshape(1), *tree_leaves(grads)],
-                                    mesh)
-        loss, rest = summed[0][0], iter(summed[1:])
-        grads = tree_map(lambda _: next(rest), grads)
-    elif mesh is not None:
-        loss = mesh.all_reduce(loss.reshape(1))[0]
-    new_params, new_state = _optimize(opt, grads, opt_state, params)
-    if mesh is not None and sync == "fedavg":
-        new_params = _pmean_inexact(new_params, mesh)
-        new_state = _pmean_inexact(new_state, mesh)
-    return loss, new_params, new_state
+    with span("step.update"):
+        if mesh is not None and sync == "grad":
+            # the loss rides the gradients' all-reduce: one round trip
+            summed = _all_reduce_leaves(
+                [loss.reshape(1), *tree_leaves(grads)], mesh)
+            loss, rest = summed[0][0], iter(summed[1:])
+            grads = tree_map(lambda _: next(rest), grads)
+        elif mesh is not None:
+            loss = mesh.all_reduce(loss.reshape(1))[0]
+        new_params, new_state = _optimize(opt, grads, opt_state, params)
+        if mesh is not None and sync == "fedavg":
+            new_params = _pmean_inexact(new_params, mesh)
+            new_state = _pmean_inexact(new_state, mesh)
+        return loss, new_params, new_state
 
 
 def make_train_step(cfg: GNNConfig, policy: CommPolicy, opt: Optimizer,
@@ -1670,8 +1693,9 @@ def make_eval_step(cfg: GNNConfig, meta: DistMeta,
                                    for _, mask_key, _ in splits])
             if mesh is not None:
                 correct = mesh.all_reduce(correct)
-            return {name: (correct[i] * _per(n)).cpu()
-                    for i, (name, _, n) in enumerate(splits)}
+            with span("sync.eval"):
+                return {name: (correct[i] * _per(n)).cpu()
+                        for i, (name, _, n) in enumerate(splits)}
 
     return evaluate
 

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import schedulers
 from repro_torch.core.varco import WIRE_WIDTHS
+from repro_torch.spans import span
 
 #: controller names accepted by ``CommPolicy.parse("auto:<name>:<bits>")``
 CONTROLLERS = ("budget", "error", "stale", "qos")
@@ -60,10 +61,12 @@ class RateController:
         return self.init_fn()
 
     def observe(self, state: dict, obs: dict) -> dict:
-        return self.observe_fn(state, obs)
+        with span("ratectl.observe"):
+            return self.observe_fn(state, obs)
 
     def plan(self, state: dict, step) -> tuple[RatePlan, dict]:
-        return self.plan_fn(state, step)
+        with span("ratectl.plan"):
+            return self.plan_fn(state, step)
 
 
 def uniform_plan(q: int, rate) -> RatePlan:

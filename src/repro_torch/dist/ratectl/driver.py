@@ -47,6 +47,7 @@ from repro_torch.dist.ratectl.stale import stale_controller
 from repro_torch.kernels.ops import default_wire_rounding
 from repro_torch.kernels.varco_pack import LANE
 from repro_torch.nn.gnn import GNNConfig
+from repro_torch.spans import span
 
 _F32 = torch.float32
 #: the JAX package's reason for refusing the stale controller on a mesh
@@ -272,7 +273,9 @@ def make_auto_train_step(cfg: GNNConfig, policy: CommPolicy, opt, meta:
         (loss, bits), grads = _value_and_grad(loss_fn, params)
         loss, new_params, new_state = _synced_update(
             opt, loss, grads, opt_state, params, mesh, sync)
-        metrics = _auto_metrics(loss, rm, bits.detach().cpu(), meta.q, n_ex)
+        with span("sync.step_metrics"):
+            bits = bits.detach().cpu()
+        metrics = _auto_metrics(loss, rm, bits, meta.q, n_ex)
         return new_params, new_state, metrics, \
             tuple(cache_out) if cache_out else tuple(cache)
 

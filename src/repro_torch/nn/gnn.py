@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.data import normalized_edge_weights
+from repro_torch.spans import span
 
 from .modules import dense, dense_init
 
@@ -115,9 +116,11 @@ def gnn_forward(params: dict, cfg: GNNConfig, x: torch.Tensor,
     for li, layer in enumerate(params["layers"]):
         if cfg.conv == "sage":
             if pipelined:
-                token, b = start(li, h)                # issue the exchange
+                with span("halo.start"):
+                    token, b = start(li, h)            # issue the exchange
                 self_term = dense(layer["self"], h)    # overlaps the wire
-                agg = complete(li, h, token)           # unpack + aggregate
+                with span("halo.complete"):
+                    agg = complete(li, h, token)       # unpack + aggregate
                 bits = bits + b
                 h_new = self_term + dense(layer["neigh"], agg)
             else:

@@ -26,6 +26,7 @@ from repro_torch.dist.gnn_parallel import (DistMeta, follow_shrink,
                                            shrink_mesh, spawn_workers)
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.nn.gnn import GNNConfig, init_gnn, params_to
+from repro_torch.spans import span
 from repro_torch.train.optim import Optimizer, adamw
 
 
@@ -295,320 +296,337 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     package does on its hardware target, and half to even on the CPU,
     where the port is held to the JAX package's CPU runs.
     """
-    from repro_torch.dist import faults as faultlib
-    from repro_torch.graph.stream import ShardSet, is_shard_dir, load_shards
-    from repro_torch.train import checkpoint as ckpt
+    with span("train.setup"):
+        from repro_torch.dist import faults as faultlib
+        from repro_torch.graph.stream import (ShardSet, is_shard_dir,
+                                              load_shards)
+        from repro_torch.train import checkpoint as ckpt
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "train_gnn was asked for a CUDA device but "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the plain versions on the CPU")
-    auto = policy.mode == "auto"
-    fault = faults is not None
-    peeked = _peek_checkpoint(checkpoint_dir) if resume else None
-    mesh = None
-    if use_shard_map:
-        if auto and policy.controller == "stale":
-            from repro_torch.dist.ratectl.driver import STALE_ON_MESH
-            raise ValueError(STALE_ON_MESH)
-        if not (dist.is_available() and dist.is_initialized()):
-            kwargs = dict(q=q, scheme=scheme, policy=policy, epochs=epochs,
-                          lr=lr, weight_decay=weight_decay, hidden=hidden,
-                          layers=layers, conv=conv, seed=seed,
-                          eval_every=eval_every, optimizer=optimizer,
-                          sync=sync, wire=wire, device=str(device),
-                          faults=faults, fault_max_stale=fault_max_stale,
-                          fault_backoff_cap=fault_backoff_cap,
-                          checkpoint_dir=checkpoint_dir,
-                          checkpoint_every=checkpoint_every, resume=resume,
-                          stop_after=stop_after, log_fn=log_fn,
-                          params=None if params is None else
-                          params_to(params, "cpu"))
-            return spawn_workers(_train_worker, _world_size(g, q, peeked),
-                                 g, kwargs, device=device)
-        mesh = make_worker_mesh(_world_size(g, q, peeked), device)
-        device = mesh.device
-    if (auto or fault) and wire == "dense":
-        wire = "p2p"                   # per-pair rates need a per-pair wire
-    sched = faults
-    alive = None if peeked is None else peeked.get("alive")
-    shrunk = alive is not None and len(alive) < _world_size(g, q)
-    if is_shard_dir(g):
-        # a worker reads its own partition's file alone, unless a crash
-        # re-wires the halo (shrink_shards needs every partition)
-        own_part = mesh is not None and not shrunk and \
-            not (fault and faults.crash_at)
-        g = load_shards(g, parts=[mesh.rank] if own_part else None)
-    elif isinstance(g, (str, bytes)):
-        raise FileNotFoundError(f"{g!r} is no shard directory (no "
-                                f"shards.json)")
-    cfg = GNNConfig(conv=conv, in_dim=g.feat_dim, hidden=hidden,
-                    out_dim=g.num_classes, layers=layers)
-    if params is None:
-        params = init_gnn(cfg, torch.Generator().manual_seed(seed),
-                          device=device)
-    params = params_to(params, device)
-    # a worker holds its own partition (a one-part shard set) or stacks
-    # every partition on the host and keeps its own row
-    own = mesh is not None and isinstance(g, ShardSet) and len(g.parts) == 1
-    if own and g.parts != (mesh.rank,):
-        raise ValueError(f"worker {mesh.rank} was given the shards of "
-                         f"partition {g.parts[0]}")
-    stack_on = device if mesh is None or own else torch.device("cpu")
-    if isinstance(g, ShardSet):
-        pg = g                         # partitioned offline; q comes with it
-        graph = pg.device_arrays(stack_on)
-    else:
-        pg = g if isinstance(g, PartitionedGraph) else \
-            partition_graph(g, q, scheme=scheme, seed=seed)
-        graph = pg.device_arrays(stack_on)
-        if wire == "p2p" or auto:      # auto's per-pair stats need them
-            from repro_torch.dist.halo import attach_p2p
-            graph = attach_p2p(graph, pg, stack_on)
-    q = pg.q
-    if resume:
-        if alive is not None and len(alive) < q:
-            # the checkpointed run had already shrunk: replay the shrinks
-            # so the like-tree (and every step closure) matches its world
-            if not isinstance(pg, ShardSet):
-                raise ValueError("resuming a shrunk run needs shard-backed "
-                                 "input (a ShardSet / shard dir)")
-            cur = list(range(q))
-            for w in sorted(set(cur) - set(int(a) for a in alive)):
-                pg = faultlib.shrink_shards(pg, cur.index(w))
-                cur.remove(w)
-            q = pg.q
-            graph = pg.device_arrays(stack_on)
-            if sched is not None:
-                sched = dataclasses.replace(
-                    sched, alive=tuple(int(a) for a in alive))
-        if int(peeked.get("q", q)) != q:
-            raise ValueError(f"checkpoint world size {peeked['q']} does "
-                             f"not match this run's q={q}")
-    if mesh is not None and not own:
-        graph = shard_graph(graph, mesh)
-    meta = DistMeta.build(pg, params, wire=wire)
-    opt = optimizer or adamw(lr, weight_decay=weight_decay)
-    opt_state = opt.init(params)
-    if auto or fault:
-        from repro_torch.dist.ratectl import (init_halo_cache,
-                                              init_wire_residuals,
-                                              make_auto_train_step,
-                                              make_controller, uniform_plan)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "train_gnn was asked for a CUDA device but "
+                "torch.cuda.is_available() is False; pass device='cpu' to run "
+                "the plain versions on the CPU")
+        auto = policy.mode == "auto"
+        fault = faults is not None
+        peeked = _peek_checkpoint(checkpoint_dir) if resume else None
+        mesh = None
+        if use_shard_map:
+            if auto and policy.controller == "stale":
+                from repro_torch.dist.ratectl.driver import STALE_ON_MESH
+                raise ValueError(STALE_ON_MESH)
+            if not (dist.is_available() and dist.is_initialized()):
+                kwargs = dict(q=q, scheme=scheme, policy=policy, epochs=epochs,
+                              lr=lr, weight_decay=weight_decay, hidden=hidden,
+                              layers=layers, conv=conv, seed=seed,
+                              eval_every=eval_every, optimizer=optimizer,
+                              sync=sync, wire=wire, device=str(device),
+                              faults=faults, fault_max_stale=fault_max_stale,
+                              fault_backoff_cap=fault_backoff_cap,
+                              checkpoint_dir=checkpoint_dir,
+                              checkpoint_every=checkpoint_every, resume=resume,
+                              stop_after=stop_after, log_fn=log_fn,
+                              params=None if params is None else
+                              params_to(params, "cpu"))
+                return spawn_workers(_train_worker, _world_size(g, q, peeked),
+                                     g, kwargs, device=device)
+            mesh = make_worker_mesh(_world_size(g, q, peeked), device)
+            device = mesh.device
+        if (auto or fault) and wire == "dense":
+            wire = "p2p"               # per-pair rates need a per-pair wire
+        sched = faults
+        alive = None if peeked is None else peeked.get("alive")
+        shrunk = alive is not None and len(alive) < _world_size(g, q)
+        if is_shard_dir(g):
+            # a worker reads its own partition's file alone, unless a crash
+            # re-wires the halo (shrink_shards needs every partition)
+            own_part = mesh is not None and not shrunk and \
+                not (fault and faults.crash_at)
+            g = load_shards(g, parts=[mesh.rank] if own_part else None)
+        elif isinstance(g, (str, bytes)):
+            raise FileNotFoundError(f"{g!r} is no shard directory (no "
+                                    f"shards.json)")
+        cfg = GNNConfig(conv=conv, in_dim=g.feat_dim, hidden=hidden,
+                        out_dim=g.num_classes, layers=layers)
+        if params is None:
+            params = init_gnn(cfg, torch.Generator().manual_seed(seed),
+                              device=device)
+        params = params_to(params, device)
+        # a worker holds its own partition (a one-part shard set) or stacks
+        # every partition on the host and keeps its own row
+        own = mesh is not None and isinstance(g, ShardSet) and \
+            len(g.parts) == 1
+        if own and g.parts != (mesh.rank,):
+            raise ValueError(f"worker {mesh.rank} was given the shards of "
+                             f"partition {g.parts[0]}")
+        stack_on = device if mesh is None or own else torch.device("cpu")
+        if isinstance(g, ShardSet):
+            pg = g                     # partitioned offline; q comes with it
+            with span("train.setup.device_arrays"):
+                graph = pg.device_arrays(stack_on)
+        else:
+            pg = g if isinstance(g, PartitionedGraph) else \
+                partition_graph(g, q, scheme=scheme, seed=seed)
+            with span("train.setup.device_arrays"):
+                graph = pg.device_arrays(stack_on)
+            if wire == "p2p" or auto:      # auto's per-pair stats need them
+                from repro_torch.dist.halo import attach_p2p
+                with span("train.setup.attach_p2p"):
+                    graph = attach_p2p(graph, pg, stack_on)
+        q = pg.q
+        if resume:
+            if alive is not None and len(alive) < q:
+                # the checkpointed run had already shrunk: replay the shrinks
+                # so the like-tree (and every step closure) matches its world
+                if not isinstance(pg, ShardSet):
+                    raise ValueError("resuming a shrunk run needs "
+                                     "shard-backed input (a ShardSet / "
+                                     "shard dir)")
+                cur = list(range(q))
+                for w in sorted(set(cur) - set(int(a) for a in alive)):
+                    pg = faultlib.shrink_shards(pg, cur.index(w))
+                    cur.remove(w)
+                q = pg.q
+                with span("train.setup.device_arrays"):
+                    graph = pg.device_arrays(stack_on)
+                if sched is not None:
+                    sched = dataclasses.replace(
+                        sched, alive=tuple(int(a) for a in alive))
+            if int(peeked.get("q", q)) != q:
+                raise ValueError(f"checkpoint world size {peeked['q']} does "
+                                 f"not match this run's q={q}")
+        if mesh is not None and not own:
+            graph = shard_graph(graph, mesh)
+        with span("train.setup.meta"):
+            meta = DistMeta.build(pg, params, wire=wire)
+        if auto or fault:
+            from repro_torch.dist.ratectl import (init_halo_cache,
+                                                  init_wire_residuals,
+                                                  make_auto_train_step,
+                                                  make_controller,
+                                                  uniform_plan)
 
-    def _init_cache(meta_):
-        if not auto:
+        def _init_cache(meta_):
+            if not auto:
+                return ()
+            if policy.controller == "stale":
+                return init_halo_cache(meta_, cfg, device)
+            if policy.max_width < 32 and meta_.wire == "p2p":
+                # the cache channel carries error-feedback residuals
+                # instead (a worker holds its own slab)
+                return init_wire_residuals(meta_, cfg, device, mesh)
             return ()
-        if policy.controller == "stale":
-            return init_halo_cache(meta_, cfg, device)
-        if policy.max_width < 32 and meta_.wire == "p2p":
-            # the cache channel carries error-feedback residuals instead
-            # (a worker holds its own slab)
-            return init_wire_residuals(meta_, cfg, device, mesh)
-        return ()
 
-    def _make_step(meta_):
-        if fault:
-            return faultlib.make_fault_train_step(cfg, policy, opt, meta_,
-                                                  mesh=mesh, sync=sync)
-        if auto:
-            return make_auto_train_step(cfg, policy, opt, meta_, mesh=mesh,
-                                        sync=sync)
-        return make_train_step(cfg, policy, opt, meta_, mesh=mesh, sync=sync)
-
-    ctl = ctl_state = None
-    if auto:
-        ctl = make_controller(policy, meta, cfg, total_steps=epochs)
-        ctl_state = ctl.init()
-    cache = _init_cache(meta)
-    fcache = init_halo_cache(meta, cfg, device, mesh) if fault else ()
-    dstate = faultlib.init_degrade(q) if fault else None
-    step = _make_step(meta)
-    evaluate = make_eval_step(cfg, meta, mesh=mesh)
-
-    hist = History()
-    halo_bits_cum = transport_bits_cum = err_cum = 0.0
-    pair_bits_cum = layer_bits_cum = None
-    start_epoch = 0
-
-    def _state_tree():
-        tree = {"params": params, "opt": opt_state}
-        if auto:
-            tree["ctl"] = ctl_state
-        if cache:
-            tree["cache"] = tuple(cache)
-        if fault:
-            tree["fcache"] = tuple(fcache)
-        return tree
-
-    def _ck_tree():
-        """The train state as the emulated backend holds it, so either
-        backend resumes the file: on a worker every worker's residual
-        slabs and fault-cache blocks are gathered, the fault cache turned
-        sender-major."""
-        tree = _state_tree()
-        if mesh is not None:
-            if cache:
-                tree["cache"] = tuple(mesh.all_gather(c[0]) for c in cache)
+        def _make_step(meta_):
             if fault:
-                tree["fcache"] = tuple(faultlib._cache_recv_to_send(
-                    mesh.all_gather(c[0]), q) for c in fcache)
-        return tree
+                return faultlib.make_fault_train_step(
+                    cfg, policy, opt, meta_, mesh=mesh, sync=sync)
+            if auto:
+                return make_auto_train_step(cfg, policy, opt, meta_,
+                                            mesh=mesh, sync=sync)
+            return make_train_step(cfg, policy, opt, meta_, mesh=mesh,
+                                   sync=sync)
 
-    def _ck_like():
-        """:func:`_ck_tree`'s shapes to restore into (a worker's caches
-        on the host: it keeps its own rows)."""
-        tree = _state_tree()
-        if mesh is not None:
+        with span("train.setup.steps"):
+            opt = optimizer or adamw(lr, weight_decay=weight_decay)
+            opt_state = opt.init(params)
+            ctl = ctl_state = None
+            if auto:
+                ctl = make_controller(policy, meta, cfg, total_steps=epochs)
+                ctl_state = ctl.init()
+            cache = _init_cache(meta)
+            fcache = init_halo_cache(meta, cfg, device, mesh) if fault else ()
+            dstate = faultlib.init_degrade(q) if fault else None
+            step = _make_step(meta)
+            evaluate = make_eval_step(cfg, meta, mesh=mesh)
+
+        hist = History()
+        halo_bits_cum = transport_bits_cum = err_cum = 0.0
+        pair_bits_cum = layer_bits_cum = None
+        start_epoch = 0
+
+        def _state_tree():
+            tree = {"params": params, "opt": opt_state}
+            if auto:
+                tree["ctl"] = ctl_state
             if cache:
-                tree["cache"] = init_wire_residuals(meta, cfg, "cpu")
+                tree["cache"] = tuple(cache)
             if fault:
-                tree["fcache"] = init_halo_cache(meta, cfg, "cpu")
-        return tree
+                tree["fcache"] = tuple(fcache)
+            return tree
 
-    def _ck_extra():
-        return {
-            "q": int(q),
-            "alive": [int(w) for w in sched.alive_workers] if fault
-            else None,
-            "halo": float(halo_bits_cum),
-            "transport": float(transport_bits_cum),
-            "err": float(err_cum),
-            "pair": None if pair_bits_cum is None else pair_bits_cum.tolist(),
-            "layer": None if layer_bits_cum is None
-            else layer_bits_cum.tolist(),
-            "degrade": None if dstate is None else {
-                "age": dstate.age.tolist(),
-                "backoff": dstate.backoff.tolist(),
-                "next_try": dstate.next_try.tolist()},
-            "policy": policy.describe(),
-        }
+        def _ck_tree():
+            """The train state as the emulated backend holds it, so either
+            backend resumes the file: on a worker every worker's residual
+            slabs and fault-cache blocks are gathered, the fault cache turned
+            sender-major."""
+            tree = _state_tree()
+            if mesh is not None:
+                if cache:
+                    tree["cache"] = tuple(mesh.all_gather(c[0]) for c in cache)
+                if fault:
+                    tree["fcache"] = tuple(faultlib._cache_recv_to_send(
+                        mesh.all_gather(c[0]), q) for c in fcache)
+            return tree
 
-    if resume:
-        tree, start_epoch, ext = ckpt.restore_train_state(checkpoint_dir,
-                                                          _ck_like())
-        params, opt_state = tree["params"], tree["opt"]
-        if auto:
-            ctl_state = tree["ctl"]
-        if "cache" in tree:
-            cache = tree["cache"] if mesh is None else tuple(
-                c[mesh.rank:mesh.rank + 1].to(device) for c in tree["cache"])
-        if fault:
-            fcache = tree["fcache"] if mesh is None else tuple(
-                faultlib._cache_send_to_recv(c, q)[mesh.rank:mesh.rank + 1]
-                .to(device) for c in tree["fcache"])
-            dg = ext.get("degrade")
-            if dg is not None:
-                dstate = faultlib.DegradeState(
-                    age=np.asarray(dg["age"], np.int64),
-                    backoff=np.asarray(dg["backoff"], np.int64),
-                    next_try=np.asarray(dg["next_try"], np.int64))
-        halo_bits_cum = float(ext.get("halo", 0.0))
-        transport_bits_cum = float(ext.get("transport", 0.0))
-        err_cum = float(ext.get("err", 0.0))
-        if ext.get("pair") is not None:
-            pair_bits_cum = np.asarray(ext["pair"], np.float64)
-        if ext.get("layer") is not None:
-            layer_bits_cum = np.asarray(ext["layer"], np.float64)
+        def _ck_like():
+            """:func:`_ck_tree`'s shapes to restore into (a worker's caches
+            on the host: it keeps its own rows)."""
+            tree = _state_tree()
+            if mesh is not None:
+                if cache:
+                    tree["cache"] = init_wire_residuals(meta, cfg, "cpu")
+                if fault:
+                    tree["fcache"] = init_halo_cache(meta, cfg, "cpu")
+            return tree
+
+        def _ck_extra():
+            return {
+                "q": int(q),
+                "alive": [int(w) for w in sched.alive_workers] if fault
+                else None,
+                "halo": float(halo_bits_cum),
+                "transport": float(transport_bits_cum),
+                "err": float(err_cum),
+                "pair": None if pair_bits_cum is None
+                else pair_bits_cum.tolist(),
+                "layer": None if layer_bits_cum is None
+                else layer_bits_cum.tolist(),
+                "degrade": None if dstate is None else {
+                    "age": dstate.age.tolist(),
+                    "backoff": dstate.backoff.tolist(),
+                    "next_try": dstate.next_try.tolist()},
+                "policy": policy.describe(),
+            }
+
+        if resume:
+            tree, start_epoch, ext = ckpt.restore_train_state(checkpoint_dir,
+                                                              _ck_like())
+            params, opt_state = tree["params"], tree["opt"]
+            if auto:
+                ctl_state = tree["ctl"]
+            if "cache" in tree:
+                cache = tree["cache"] if mesh is None else tuple(
+                    c[mesh.rank:mesh.rank + 1].to(device)
+                    for c in tree["cache"])
+            if fault:
+                fcache = tree["fcache"] if mesh is None else tuple(
+                    faultlib._cache_send_to_recv(c, q)[mesh.rank:mesh.rank + 1]
+                    .to(device) for c in tree["fcache"])
+                dg = ext.get("degrade")
+                if dg is not None:
+                    dstate = faultlib.DegradeState(
+                        age=np.asarray(dg["age"], np.int64),
+                        backoff=np.asarray(dg["backoff"], np.int64),
+                        next_try=np.asarray(dg["next_try"], np.int64))
+            halo_bits_cum = float(ext.get("halo", 0.0))
+            transport_bits_cum = float(ext.get("transport", 0.0))
+            err_cum = float(ext.get("err", 0.0))
+            if ext.get("pair") is not None:
+                pair_bits_cum = np.asarray(ext["pair"], np.float64)
+            if ext.get("layer") is not None:
+                layer_bits_cum = np.asarray(ext["layer"], np.float64)
 
     crashed = False
     t0 = time.time()
     for epoch in range(start_epoch, epochs):
-        t_step = time.perf_counter()
-        if mesh is not None:
-            wire0 = _wire_counters(mesh)
-        width = 32.0
-        if fault:
-            crash = sched.crash_at_step(epoch)
-            if crash is not None:
-                if not isinstance(pg, ShardSet):
-                    raise ValueError(
-                        "elastic worker-crash recovery needs shard-backed "
-                        "input (a ShardSet / shard dir) — in-memory "
-                        "partitions cannot be renumbered at Q - 1")
-                if q <= 2:
-                    raise ValueError("cannot shrink below Q = 2 — the "
-                                     "fault plane needs at least one link")
-                q_old = q
-                pg = faultlib.shrink_shards(pg, crash)
-                q = pg.q
-                meta = DistMeta.build(pg, params, wire=wire)
-                sched = sched.shrink(crash)
-                dstate = faultlib.migrate_degrade_state(dstate, crash)
-                if mesh is None:
-                    graph = pg.device_arrays(device)
-                else:
-                    ranks = mesh.ranks
-                    mesh = shrink_mesh(mesh, crash)
-                    if mesh is None:    # this worker crashed: it trains no
-                        crashed = True  # more, and returns None
-                        _follow_crashes(sched,
-                                        ranks[:crash] + ranks[crash + 1:],
-                                        epoch, epochs if stop_after is None
-                                        else min(epochs, stop_after))
-                        break
-                    graph = shard_graph(pg.device_arrays("cpu"), mesh)
+        with span("train.step"):
+            t_step = time.perf_counter()
+            if mesh is not None:
+                wire0 = _wire_counters(mesh)
+            width = 32.0
+            if fault:
+                crash = sched.crash_at_step(epoch)
+                if crash is not None:
+                    if not isinstance(pg, ShardSet):
+                        raise ValueError(
+                            "elastic worker-crash recovery needs shard-backed "
+                            "input (a ShardSet / shard dir) — in-memory "
+                            "partitions cannot be renumbered at Q - 1")
+                    if q <= 2:
+                        raise ValueError("cannot shrink below Q = 2 — the "
+                                         "fault plane needs at least one link")
+                    q_old = q
+                    pg = faultlib.shrink_shards(pg, crash)
+                    q = pg.q
+                    meta = DistMeta.build(pg, params, wire=wire)
+                    sched = sched.shrink(crash)
+                    dstate = faultlib.migrate_degrade_state(dstate, crash)
+                    if mesh is None:
+                        graph = pg.device_arrays(device)
+                    else:
+                        ranks = mesh.ranks
+                        mesh = shrink_mesh(mesh, crash)
+                        if mesh is None:    # this worker crashed: it trains no
+                            crashed = True  # more, and returns None
+                            _follow_crashes(sched,
+                                            ranks[:crash] + ranks[crash + 1:],
+                                            epoch, epochs if stop_after is None
+                                            else min(epochs, stop_after))
+                            break
+                        graph = shard_graph(pg.device_arrays("cpu"), mesh)
+                    if auto:
+                        ctl = make_controller(policy, meta, cfg,
+                                              total_steps=epochs)
+                        ctl_state = faultlib.migrate_controller_state(
+                            ctl_state, crash, q_old)
+                    cache = _init_cache(meta)   # stale/EF buffers restart cold
+                    fcache = init_halo_cache(meta, cfg, device, mesh)
+                    step = _make_step(meta)
+                    evaluate = make_eval_step(cfg, meta, mesh=mesh)
+                    # keep cumulative pair splits shaped [..., Q, Q]: the dead
+                    # worker's history leaves the ledger with it
+                    if pair_bits_cum is not None:
+                        pair_bits_cum = np.delete(
+                            np.delete(pair_bits_cum, crash, 0), crash, 1)
+                    if layer_bits_cum is not None:
+                        layer_bits_cum = np.delete(
+                            np.delete(layer_bits_cum, crash, 1), crash, 2)
+                serve, dstate = faultlib.degrade_plan(
+                    dstate, sched.effective_drops(epoch), epoch,
+                    max_stale=fault_max_stale, backoff_cap=fault_backoff_cap)
+                fskip, dead = faultlib.serve_masks(serve)
+                ladder = (int(fskip.sum()), int(dead.sum()))
                 if auto:
-                    ctl = make_controller(policy, meta, cfg,
-                                          total_steps=epochs)
-                    ctl_state = faultlib.migrate_controller_state(
-                        ctl_state, crash, q_old)
-                cache = _init_cache(meta)   # stale/EF buffers restart cold
-                fcache = init_halo_cache(meta, cfg, device, mesh)
-                step = _make_step(meta)
-                evaluate = make_eval_step(cfg, meta, mesh=mesh)
-                # keep cumulative pair splits shaped [..., Q, Q]: the dead
-                # worker's history leaves the ledger with it
-                if pair_bits_cum is not None:
-                    pair_bits_cum = np.delete(
-                        np.delete(pair_bits_cum, crash, 0), crash, 1)
-                if layer_bits_cum is not None:
-                    layer_bits_cum = np.delete(
-                        np.delete(layer_bits_cum, crash, 1), crash, 2)
-            serve, dstate = faultlib.degrade_plan(
-                dstate, sched.effective_drops(epoch), epoch,
-                max_stale=fault_max_stale, backoff_cap=fault_backoff_cap)
-            fskip, dead = faultlib.serve_masks(serve)
-            ladder = (int(fskip.sum()), int(dead.sum()))
-            if auto:
+                    plan, ctl_state = ctl.plan(ctl_state, epoch)
+                    width = _plan_width(plan, q)
+                else:
+                    r = float(policy.rate(epoch)) if policy.compresses else 1.0
+                    plan = uniform_plan(q, r)
+                params, opt_state, m, cache, fcache = step(
+                    params, opt_state, graph, prng.key(epoch), plan, fskip,
+                    dead, cache, fcache)
+                if auto:
+                    ctl_state = ctl.observe(ctl_state, m)
+            elif auto:
                 plan, ctl_state = ctl.plan(ctl_state, epoch)
                 width = _plan_width(plan, q)
-            else:
-                r = float(policy.rate(epoch)) if policy.compresses else 1.0
-                plan = uniform_plan(q, r)
-            params, opt_state, m, cache, fcache = step(
-                params, opt_state, graph, prng.key(epoch), plan, fskip,
-                dead, cache, fcache)
-            if auto:
+                params, opt_state, m, cache = step(
+                    params, opt_state, graph, prng.key(epoch), plan, cache)
                 ctl_state = ctl.observe(ctl_state, m)
-        elif auto:
-            plan, ctl_state = ctl.plan(ctl_state, epoch)
-            width = _plan_width(plan, q)
-            params, opt_state, m, cache = step(params, opt_state, graph,
-                                               prng.key(epoch), plan, cache)
-            ctl_state = ctl.observe(ctl_state, m)
-        else:
-            params, opt_state, m = step(params, opt_state, graph, epoch,
-                                        prng.key(epoch))
-        if auto or fault:
-            pair_t = np.asarray(m["pair_transport"], np.float64)
-            pair_bits_cum = pair_t if pair_bits_cum is None \
-                else pair_bits_cum + pair_t
-            err_cum += float(np.asarray(m["pair_err"], np.float64).sum())
-            if "layer_transport" in m:
-                layer_t = np.asarray(m["layer_transport"], np.float64)
-                layer_bits_cum = layer_t if layer_bits_cum is None \
-                    else layer_bits_cum + layer_t
-        loss = float(m["loss"])                 # the step's device sync
-        step_s = time.perf_counter() - t_step
+            else:
+                params, opt_state, m = step(params, opt_state, graph, epoch,
+                                            prng.key(epoch))
+            if auto or fault:
+                pair_t = np.asarray(m["pair_transport"], np.float64)
+                pair_bits_cum = pair_t if pair_bits_cum is None \
+                    else pair_bits_cum + pair_t
+                err_cum += float(np.asarray(m["pair_err"], np.float64).sum())
+                if "layer_transport" in m:
+                    layer_t = np.asarray(m["layer_transport"], np.float64)
+                    layer_bits_cum = layer_t if layer_bits_cum is None \
+                        else layer_bits_cum + layer_t
+            with span("sync.loss"):
+                loss = float(m["loss"])             # the step's device sync
+            step_s = time.perf_counter() - t_step
         if mesh is not None:
             moved = [b - a for a, b in zip(wire0, _wire_counters(mesh))]
         halo_bits_cum += float(m["halo_bits"])
         transport_bits_cum += float(m["transport_bits"])
         if epoch % eval_every == 0 or epoch == epochs - 1:
-            accs = evaluate(params, graph)
+            with span("train.evaluate"):
+                accs = evaluate(params, graph)
             hist.epoch.append(epoch)
             hist.loss.append(loss)
             hist.rate.append(float(m["rate"]))
