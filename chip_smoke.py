@@ -42,7 +42,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    2048]`` and the stacked MLP projection ``[1, 40, 2048, 8192]`` at rate
    128 — and ragged, bitwise, its plain version over 2^26 elements at a
    time (each chunk from its counter offset).  The ELL SpMM also runs over the
-   reversed lists (the training backward); its records carry the bytes
+   reversed lists (the training backward), and at ``arxiv-q16-p2p-full``'s
+   remote shapes (the full-size graph cut at random into 16, built here:
+   compact ``[16, C, 256]`` -> partition over the remote lists, and back
+   over their reversed lists), beside the edge-list chain they replaced
+   (gather, product, zero-fill, ``index_add``) as the library call; its
+   records carry the bytes
    its gathers move (one row slice per valid slot) and their rate.  Each
    autograd function's backward on the card is held to the plain
    version's autograd within 1e-4 (atomic scatters reorder f32 sums).
@@ -175,7 +180,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    worker with CACHED and DEAD pairs from a seeded random cache against
    the emulated step (loss within 1e-4; the first exchange's served
    cache bitwise, the CACHED pairs' rows equal to the cache, the rest
-   within 1e-4: the remote scatter's atomics); the cap-2 run stopped
+   within 1e-4: f32 sums in another order); the cap-2 run stopped
    after epoch 4 into a checkpoint (one file, 3 live workers), resumed
    over 3 spawned workers and on the emulated backend, both within 1e-4
    of the uninterrupted group run.  Every kernel call of these runs is
@@ -721,7 +726,10 @@ def build_phase():
 # ---------------------------------------------------------------------------
 
 
-def _ell_case(name, x, nbr, w, reps):
+def _ell_case(name, x, nbr, w, reps, library=None):
+    """One ``ell_spmm`` case against its plain version.  The library
+    column is one cuSPARSE CSR product, or ``library``: a callable that
+    computes the same function (timed as one)."""
     from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_plain
 
     out = ell_spmm(x, nbr, w)
@@ -736,19 +744,22 @@ def _ell_case(name, x, nbr, w, reps):
     rows = int(torch.unique(nbr[valid].long() +
                             (torch.arange(q, device=x.device) * n_src)
                             [:, None, None].expand_as(nbr)[valid]).numel())
-    # library yardstick: one cuSPARSE CSR product over the block-diagonal
-    # [Q·Nd, Q·Ns] operator (built outside the timing)
-    dst = torch.arange(q * n_dst, device=x.device)[:, None].expand(-1, k)
-    src = nbr.long() + (torch.arange(q, device=x.device) * n_src)[:, None,
-                                                                 None]
-    coo = torch.sparse_coo_tensor(
-        torch.stack([dst.reshape(q * n_dst, k)[valid.reshape(-1, k)],
-                     src.reshape(q * n_dst, k)[valid.reshape(-1, k)]]),
-        w[valid], (q * n_dst, q * n_src)).coalesce()
-    csr = coo.to_sparse_csr()
-    x2 = x.reshape(q * n_src, f)
-    lib_err = float((torch.sparse.mm(csr, x2).reshape(q, n_dst, f) -
-                     ref).abs().max())
+    if library is None:
+        # library yardstick: one cuSPARSE CSR product over the
+        # block-diagonal [Q·Nd, Q·Ns] operator (built outside the timing)
+        dst = torch.arange(q * n_dst, device=x.device)[:, None].expand(-1, k)
+        src = nbr.long() + (torch.arange(q, device=x.device) *
+                            n_src)[:, None, None]
+        coo = torch.sparse_coo_tensor(
+            torch.stack([dst.reshape(q * n_dst, k)[valid.reshape(-1, k)],
+                         src.reshape(q * n_dst, k)[valid.reshape(-1, k)]]),
+            w[valid], (q * n_dst, q * n_src)).coalesce()
+        csr = coo.to_sparse_csr()
+        x2 = x.reshape(q * n_src, f)
+
+        def library():
+            return torch.sparse.mm(csr, x2).reshape(q, n_dst, f)
+    lib_err = float((library() - ref).abs().max())
     b_ms, b_by = bound_ms(rows * f * 4 + 2 * nbr.numel() * 4 +
                           q * n_dst * f * 4, 2.0 * nnz * f)
     kernel_ms = cuda_ms(lambda: ell_spmm(x, nbr, w), reps)
@@ -762,10 +773,74 @@ def _ell_case(name, x, nbr, w, reps):
            "gathered_tb_s": gathered / (kernel_ms * 1e-3) / 1e12,
            "plain_ms": cuda_ms(lambda: ell_spmm_plain(x, nbr, w),
                                max(reps // 5, 1)),
-           "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x2), reps),
+           "library_ms": cuda_ms(library, reps),
            "bound_ms": b_ms, "bound_by": b_by}
     emit(rec)
     return rec
+
+
+def _reverse_w(w, rslot):
+    """The reversed lists' weights, gathered through ``rslot`` as the
+    training backward gathers them (``-1`` pads weigh 0)."""
+    q = w.shape[0]
+    rw = torch.gather(w.reshape(q, -1), 1,
+                      rslot.reshape(q, -1).clamp(min=0).long())
+    return torch.where(rslot >= 0, rw.reshape(rslot.shape),
+                       torch.zeros((), device=w.device)).contiguous()
+
+
+def _remote_ell_cases(gen, reps):
+    """The p2p wire's remote aggregation at ``arxiv-q16-p2p-full``'s shapes
+    (the OGBN-Arxiv analogue at its full size, cut at random into 16): the
+    forward over the remote lists, compact ``[16, C, 256]`` -> partition,
+    and the cotangent over their reversed lists, partition -> compact.  The
+    library column is the edge-list chain the lists replaced, timed as
+    one: the gather of every remote edge's row, the weight product, the
+    zero-fill and the ``index_add`` (backward: its mirror, as autograd ran
+    it)."""
+    from repro_torch.dist import gnn_parallel as gp
+    from repro_torch.dist.halo import attach_p2p, remote_ell, remote_ell_stats
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.graph.synthetic import citation_graph
+
+    pg = partition_graph(
+        citation_graph(n=169_343, n_classes=40, feat_dim=128,
+                       avg_degree=13.8, homophily=0.82, feature_signal=0.06,
+                       seed=0), 16, scheme="random", seed=0)
+    dev = torch.device("cuda")
+    graph = attach_p2p(pg.device_arrays(dev), pg, dev)
+    del pg
+    lists = remote_ell(graph)
+    q, p_sz, _ = lists["remote_nbr"].shape
+    n_c = lists["remote_rnbr"].shape[1]
+    f = 256
+    src, dst, w = (graph[k] for k in ("remote_src_p2p", "remote_dst",
+                                      "remote_w"))
+    off_c = (torch.arange(q, device=dev) * n_c)[:, None]
+    x = torch.randn((q, n_c, f), generator=gen, device=dev)
+    cot = torch.randn((q, p_sz, f), generator=gen, device=dev)
+
+    def chain_forward():
+        return gp._remote_scatter(w[..., None] * gp._rows_of(x, src, n_c),
+                                  dst, p_sz)
+
+    def chain_backward():
+        g1 = torch.cat([cot, cot.new_zeros((q, 1, f))], 1)  # dropped row P
+        vals = w[..., None] * gp._rows_of(g1, dst, p_sz + 1)
+        return torch.zeros((q * n_c, f), device=dev).index_add(
+            0, (src.long() + off_c).reshape(-1),
+            vals.reshape(-1, f)).reshape(q, n_c, f)
+
+    emit({"kernel": "ell_spmm", "case": "remote_lists",
+          **remote_ell_stats(graph), "real_edges": int((w != 0).sum()),
+          "padded_edges": w.numel(),
+          "library": "gather · product · zero-fill · index_add"})
+    return [_ell_case("remote_f256", x, lists["remote_nbr"],
+                      lists["remote_ell_w"], reps, library=chain_forward),
+            _ell_case("remote_reverse_f256", cot, lists["remote_rnbr"],
+                      _reverse_w(lists["remote_ell_w"],
+                                 lists["remote_rslot"]),
+                      reps, library=chain_backward)]
 
 
 def _pack_case(name, x, kept, reps):
@@ -1131,15 +1206,13 @@ def kernels_phase(eng, reps: int = 20):
                        reps), f == 256)
     # the training backward: the same kernel over the reversed lists, with
     # the forward weights gathered through rslot
-    w = graph["ell_w"]
-    rslot = graph["ell_rslot"]
-    rw = torch.gather(w.reshape(q, -1), 1,
-                      rslot.reshape(q, -1).clamp(min=0).long())
-    rw = torch.where(rslot >= 0, rw.reshape(rslot.shape),
-                     torch.zeros((), device=dev)).contiguous()
     keep(_ell_case("reverse_f256",
                    torch.randn((q, p_sz, 256), generator=gen, device=dev),
-                   graph["ell_rnbr"], rw, reps), False)
+                   graph["ell_rnbr"],
+                   _reverse_w(graph["ell_w"], graph["ell_rslot"]), reps),
+         False)
+    for rec in _remote_ell_cases(gen, reps):
+        keep(rec, False)
     for f in (128, 256):
         nb = f // LANE
         publish = torch.randn((q, b_sz, f), generator=gen, device=dev)

@@ -29,12 +29,14 @@ summed over every kernel (self time), the device's idle share of the
 wall time (an upper bound: the profiler's host cost inflates the wall
 time), the number of kernels launched, the port's kernel launch
 counters, the shares of ``ell_spmm``'s and ``random_mask``'s kernels,
-the kernels with the most device time, and the host milliseconds and
-count of each of the program's spans (``repro_torch.spans``: the step's
-parts, the halo exchange, the controller's ``ratectl.plan`` /
-``ratectl.observe``, the ``sync.*`` waits).  On the card each step item
-also lists where a fourth step, run under
-``torch.cuda.set_sync_debug_mode("warn")``, makes the host wait for the
+the kernels with the most device time (on the p2p wire, beside
+``ell_spmm``'s launches its launches over the remote ELL lists,
+``ell_spmm.remote``, and the lists' degrees ``Kr``/``RKr`` and fill),
+and the host milliseconds and count of each of the program's spans
+(``repro_torch.spans``: the step's parts, the halo exchange, the
+controller's ``ratectl.plan`` / ``ratectl.observe``, the ``sync.*``
+waits).  On the card each step item also lists where a fourth step, run
+under ``torch.cuda.set_sync_debug_mode("warn")``, makes the host wait for the
 card (``sync_sites``: the innermost frame of the port or of this script,
 with counts), to hold against the ``sync.*`` spans' counts.  The
 card's name and power limit go on the first line. If the trace holds no
@@ -63,12 +65,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch import prng  # noqa: E402
 from repro_torch.core.varco import CommPolicy  # noqa: E402
 from repro_torch.dist.gnn_parallel import DistMeta, make_train_step  # noqa
-from repro_torch.dist.halo import attach_p2p  # noqa: E402
+from repro_torch.dist.halo import (attach_p2p, remote_ell,  # noqa: E402
+                                   remote_ell_stats)
 from repro_torch.dist.ratectl import (exchange_widths,  # noqa: E402
                                       init_halo_cache, init_wire_residuals,
                                       make_auto_train_step, make_controller)
 from repro_torch.graph.synthetic import citation_graph  # noqa: E402
 from repro_torch.kernels import ell_spmm as _ell  # noqa: E402
+from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import randmask as _rm  # noqa: E402
 from repro_torch.kernels import varco_pack as _vp  # noqa: E402
 from repro_torch.nn.gnn import GNNConfig, init_gnn  # noqa: E402
@@ -85,6 +89,21 @@ COUNTERS = {"ell_spmm": _ell.ell_spmm, "varco_pack": _vp.varco_pack,
             "random_mask": _rm.random_mask,
             "varco_pack_quant_stochastic": _vp.varco_pack_quant_stochastic,
             "random_uniform": _rm.random_uniform}
+#: the data pointers of the traced run's remote ELL lists (forward and
+#: reversed) and the ``ell_spmm`` launches over them
+REMOTE = {"lists": set(), "launches": 0}
+
+
+def _count_remote(kernel):
+    """``ops.ell_spmm`` noting each launch over the remote lists: the
+    remote share of ``ell_spmm.launches``."""
+    def launch(x, nbr, w):
+        if nbr.data_ptr() in REMOTE["lists"]:
+            REMOTE["launches"] += 1
+        return kernel(x, nbr, w)
+    return launch
+
+
 #: the traced runs of each wire: name -> (policy spec, compressor);
 #: ``{half}`` is half the full-rate transport of EPOCHS steps
 RUNS = {"p2p": {"full": ("full", "blockmask"),
@@ -154,6 +173,7 @@ def _trace(fn, device: torch.device) -> dict:
                                      else [])
     for c in COUNTERS.values():
         c.launches = 0
+    REMOTE["launches"] = 0
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -161,6 +181,7 @@ def _trace(fn, device: torch.device) -> dict:
             torch.cuda.synchronize(device)
         wall_us = (time.perf_counter() - t0) * 1e6
     counters = {name: c.launches for name, c in COUNTERS.items()}
+    counters["ell_spmm.remote"] = REMOTE["launches"]
     # on the card: the kernels (device-side events) only, so no time is
     # counted both under a kernel and under the operator that launched it
     rows = [(e.key[:160], _self_time_us(e, on_card), e.count)
@@ -207,8 +228,12 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
     waits for its loss."""
     policy = CommPolicy.parse(spec, EPOCHS, compressor=compressor)
     graph = pg.device_arrays(device)
+    REMOTE["lists"] = set()
     if wire == "p2p" or policy.mode == "auto":
         graph = attach_p2p(graph, pg, device)
+    if wire == "p2p":                    # derived here, outside the trace
+        REMOTE["lists"] = {remote_ell(graph)[k].data_ptr()
+                           for k in ("remote_nbr", "remote_rnbr")}
     meta = DistMeta.build(pg, params, wire=wire)
     opt = adamw(5e-3)
     state = {"params": params, "opt": opt.init(params), "cache": ()}
@@ -238,6 +263,7 @@ def _step_fn(pg, cfg, params, spec: str, device, wire: str = "p2p",
                 prng.key(epoch))
             with span("sync.loss"):
                 return float(m["loss"])
+    run.remote_ell = remote_ell_stats(graph) if wire == "p2p" else None
     return run
 
 
@@ -261,6 +287,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown runs {sorted(only - known)}; have "
                  f"{sorted(known)}")
 
+    _ops.ell_spmm = _count_remote(_ops.ell_spmm)
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -296,6 +323,8 @@ def main(argv=None) -> int:
             rec = _trace(lambda: run(2), device)
             if device.type == "cuda":
                 rec["sync_sites"] = _sync_sites(lambda: run(3))
+            if wire == "p2p":
+                rec["remote_ell"] = run.remote_ell
             print(json.dumps({"item": "train_step", "wire": wire,
                               "run": name, "policy": spec,
                               "compressor": comp or "randmask", "epoch": 2,

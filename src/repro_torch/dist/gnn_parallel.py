@@ -15,10 +15,11 @@ aggregation is
 * a **local** ELL aggregation over edges whose endpoints are both owned
   (the ``ell_spmm`` kernel, one launch for all partitions; its backward
   is the same kernel over the reversed lists), plus
-* a **remote** scatter over cross edges whose source rows arrive through
-  the p2p halo exchange: every sender slices one hop buffer per ring
-  offset out of its boundary block, and each receiver reads its hops out
-  of a compact halo buffer.
+* a **remote** aggregation over cross edges whose source rows arrive
+  through the p2p halo exchange: every sender slices one hop buffer per
+  ring offset out of its boundary block, and each receiver aggregates its
+  hops out of a compact halo buffer with the same kernel, over remote
+  ELL lists (its backward over their reversed lists).
 
 Wires:
 
@@ -75,6 +76,7 @@ from repro_torch.core.collectives import (WorkerMesh, _gather,
                                           neighbor_exchange_start,
                                           packed_all_gather, sender_maxima)
 from repro_torch.core.varco import FULL_COMM, CommPolicy
+from repro_torch.dist.halo import remote_ell
 from repro_torch.kernels.ops import (WIRE_WIDTHS, ell_aggregate,
                                      per_block_wire_bits, qmax_of,
                                      quant_hop, round_key, wire_pack,
@@ -539,10 +541,15 @@ def _gathered_remote(graph: dict, halo: torch.Tensor, q: int,
 def _p2p_remote(graph: dict, compact: torch.Tensor,
                 p_sz: int) -> torch.Tensor:
     """The remote edges' aggregation out of each receiver's compact
-    ``[Q, C, F]`` hop buffer (the p2p wire)."""
-    vals = graph["remote_w"][..., None] * \
-        _rows_of(compact, graph["remote_src_p2p"], compact.shape[1])
-    return _remote_scatter(vals, graph["remote_dst"], p_sz)
+    ``[Q, C, F]`` hop buffer (the p2p wire): ``ell_spmm`` over the remote
+    ELL lists ``[Q, P, Kr]`` (``repro_torch.dist.halo.remote_ell``,
+    derived at a graph's first call), its backward over their reversed
+    lists ``[Q, C, RKr]`` — no ``[Q, E, F]`` edge values and no atomics.
+    The lists fix ``P`` (``p_sz``)."""
+    del p_sz
+    lists = remote_ell(graph)
+    return ell_aggregate(compact, lists["remote_nbr"], lists["remote_ell_w"],
+                         lists["remote_rnbr"], lists["remote_rslot"])
 
 
 def _ell_local(graph: dict, x: torch.Tensor,
@@ -914,7 +921,8 @@ def _make_aggregate_emulated(graph: dict, meta: DistMeta, policy: CommPolicy,
 
     def complete(li, x, token):
         """Consume layer ``li``'s delivered halo: the local aggregation
-        (ELL on the p2p wire) plus the remote scatter out of the token."""
+        (ELL on the p2p wire) plus the remote aggregation out of the
+        token (ELL over the compact buffer on the p2p wire)."""
         del li
         if not policy.communicates:                    # No-Comm baseline
             return _scatter_rows(x, graph["local_dst"], graph["local_src"],
@@ -1411,7 +1419,7 @@ def _make_aggregate_shard(graph: dict, meta: DistMeta, policy: CommPolicy,
     def complete(li, x, token):
         """Consume layer ``li``'s exchange: the local aggregation (ELL on
         the p2p wire, before the hops are waited on) plus the remote
-        scatter."""
+        aggregation (ELL over the compact buffer on the p2p wire)."""
         del li
         if not policy.communicates:                    # No-Comm baseline
             return _scatter_rows(x, graph["local_dst"], graph["local_src"],

@@ -10,7 +10,12 @@ partition).  Built on the host at partition time:
   into the receiver's concatenated per-hop buffer ``[(Q-1)·H, F]``;
 * **degree-padded ELL neighbour lists** for the local edges — forward
   lists ``(nbr, w, w_iso)`` for the ``ell_spmm`` kernel plus the reversed
-  lists ``(rnbr, rslot)`` the training backward will run over.
+  lists ``(rnbr, rslot)`` the training backward will run over;
+* **remote ELL lists** over the receiver's compact halo buffer
+  (:func:`remote_ell`), derived on the device from the remote edge list
+  and its compact remap where the p2p wire's remote aggregation first
+  runs them through the same kernel.  They are neither attached nor
+  stored in shard files.
 
 :func:`attach_p2p` merges them, as torch tensors on the requested
 device, into the graph dict consumed by ``repro_torch.dist.gnn_parallel``.
@@ -22,6 +27,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,17 +170,44 @@ def _ell_degrees(pg) -> tuple[int, int]:
     return ell_k, rev_k
 
 
-def _group_slots(ids: np.ndarray, minlength: int
-                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _group_slots(ids, minlength: int):
     """Stable grouping by id: ``(order, slot_in, counts)`` with
-    ``ids[order]`` group-sorted and ``slot_in`` each element's index within
-    its group — the ELL slot-assignment rule."""
-    order = np.argsort(ids, kind="stable")
-    sorted_ids = ids[order]
-    counts = np.bincount(sorted_ids, minlength=minlength)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    slot_in = np.arange(len(sorted_ids)) - starts[sorted_ids]
-    return order, slot_in, counts
+    ``ids[order]`` group-sorted (a group keeps its elements' order) and
+    ``slot_in`` each sorted element's index within its group — the ELL
+    slot-assignment rule, for the local lists (numpy, on the host) and the
+    remote ones (torch, on the graph's device).  The results are of
+    ``ids``' kind."""
+    host = isinstance(ids, np.ndarray)
+    t = torch.from_numpy(np.require(ids, requirements=["C", "W"])) \
+        if host else ids
+    sorted_ids, order = torch.sort(t, stable=True)
+    sorted_ids = sorted_ids.long()
+    counts = torch.bincount(sorted_ids, minlength=minlength)
+    slot_in = torch.arange(len(t), device=t.device) - \
+        (torch.cumsum(counts, 0) - counts)[sorted_ids]
+    out = (order, slot_in, counts)
+    return tuple(v.numpy() for v in out) if host else out
+
+
+def _reverse_slots(src: torch.Tensor, dst: torch.Tensor, flat: torch.Tensor,
+                   n_src: int, rev_k: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reversed lists of edges given in the order each source sums
+    them: ``(rnbr [n_src, RK], rslot [n_src, RK])``, ``rnbr[s]`` the
+    destinations of source ``s``'s edges and ``rslot[s]`` their flat
+    forward slots ``flat`` (``-1`` pad); ``RK`` is ``rev_k`` or the largest
+    out-degree (one host read)."""
+    order, pos, counts = _group_slots(src, n_src)
+    most = int(counts.max()) if counts.numel() else 0
+    rk = rev_k or max(most, 1)
+    if most > rk:
+        raise ValueError(f"rev_k={rk} below the max reverse degree {most}")
+    rnbr = torch.zeros((n_src, rk), dtype=torch.int32, device=src.device)
+    rslot = torch.full((n_src, rk), -1, dtype=torch.int32, device=src.device)
+    src_o = src[order].long()
+    rnbr[src_o, pos] = dst[order].int()
+    rslot[src_o, pos] = flat[order].int()
+    return rnbr, rslot
 
 
 def build_reverse_ell(nbr: np.ndarray, valid: np.ndarray, n_src: int,
@@ -184,21 +217,12 @@ def build_reverse_ell(nbr: np.ndarray, valid: np.ndarray, n_src: int,
     ``rnbr[s]`` lists the destination rows fed by source ``s`` and
     ``rslot[s]`` the flat ``i·K + k`` position of the matching forward
     weight (``-1`` pad)."""
-    n, k = nbr.shape
+    k = nbr.shape[1]
     d_idx, k_idx = np.nonzero(valid)
-    src = nbr[d_idx, k_idx]
-    order, pos, counts = _group_slots(src, n_src)
-    src_o, d_o = src[order], d_idx[order]
-    flat_o = (d_idx * k + k_idx)[order]
-    rk = rev_k or max(int(counts.max(initial=0)), 1)
-    if counts.max(initial=0) > rk:
-        raise ValueError(f"rev_k={rk} below the max reverse degree "
-                         f"{int(counts.max())}")
-    rnbr = np.zeros((n_src, rk), np.int32)
-    rslot = np.full((n_src, rk), -1, np.int32)
-    rnbr[src_o, pos] = d_o
-    rslot[src_o, pos] = flat_o
-    return rnbr, rslot
+    rnbr, rslot = _reverse_slots(
+        torch.from_numpy(nbr[d_idx, k_idx]), torch.from_numpy(d_idx),
+        torch.from_numpy(d_idx * k + k_idx), n_src, rev_k)
+    return rnbr.numpy(), rslot.numpy()
 
 
 def ell_arrays(pg, spec: HaloSpec | None = None) -> dict[str, np.ndarray]:
@@ -208,24 +232,101 @@ def ell_arrays(pg, spec: HaloSpec | None = None) -> dict[str, np.ndarray]:
     spec = spec or build_halo_spec(pg)
     q, p_sz = pg.q, pg.part_size
     k, rk = spec.ell_degree, spec.rev_degree
-    nbr = np.zeros((q, p_sz, k), np.int32)
-    w = np.zeros((q, p_sz, k), np.float32)
-    w_iso = np.zeros((q, p_sz, k), np.float32)
-    rnbr = np.zeros((q, p_sz, rk), np.int32)
-    rslot = np.full((q, p_sz, rk), -1, np.int32)
-    for p in range(q):
-        ok = pg.local_dst[p] < p_sz
-        d_ = pg.local_dst[p][ok]
-        order, slot_in, _ = _group_slots(d_, p_sz)
-        d_o = d_[order]
-        nbr[p, d_o, slot_in] = pg.local_src[p][ok][order]
-        w[p, d_o, slot_in] = pg.local_w[p][ok][order]
-        w_iso[p, d_o, slot_in] = pg.local_w_iso[p][ok][order]
-        valid = np.zeros((p_sz, k), bool)
-        valid[d_o, slot_in] = True
-        rnbr[p], rslot[p] = build_reverse_ell(nbr[p], valid, p_sz, rev_k=rk)
+    ok = pg.local_dst < p_sz
+    row = np.nonzero(ok)[0] * p_sz + pg.local_dst[ok]     # p·P + destination
+    order, slot_in, _ = _group_slots(row, q * p_sz)
+    row_o = row[order]
+    nbr = np.zeros((q * p_sz, k), np.int32)
+    w = np.zeros((q * p_sz, k), np.float32)
+    w_iso = np.zeros((q * p_sz, k), np.float32)
+    valid = np.zeros((q * p_sz, k), bool)
+    nbr[row_o, slot_in] = pg.local_src[ok][order]
+    w[row_o, slot_in] = pg.local_w[ok][order]
+    w_iso[row_o, slot_in] = pg.local_w_iso[ok][order]
+    valid[row_o, slot_in] = True
+    # the reversed lists of every partition at once, each source's edges in
+    # (destination, slot) order as build_reverse_ell lays them out
+    r, kk = np.nonzero(valid)
+    d_ = r % p_sz
+    rnbr, rslot = _reverse_slots(torch.from_numpy(r - d_ + nbr[r, kk]),
+                                 torch.from_numpy(d_),
+                                 torch.from_numpy(d_ * k + kk), q * p_sz, rk)
+    nbr, w, w_iso = (v.reshape(q, p_sz, k) for v in (nbr, w, w_iso))
+    rnbr, rslot = (v.numpy().reshape(q, p_sz, rk) for v in (rnbr, rslot))
     return {"ell_nbr": nbr, "ell_w": w, "ell_w_iso": w_iso,
             "ell_rnbr": rnbr, "ell_rslot": rslot}
+
+
+# ---------------------------------------------------------------------------
+# ELL construction (remote edges, over the compact halo buffer)
+# ---------------------------------------------------------------------------
+
+
+#: each graph's remote ELL lists, derived on first use (by its
+#: ``remote_src_p2p`` tensor, with the ``remote_dst``/``remote_w`` tensors
+#: they were derived beside): only the p2p wire's aggregation reads them
+_REMOTE_ELL = WeakIdKeyDictionary()
+
+
+def remote_ell(graph: dict) -> dict[str, torch.Tensor]:
+    """Destination-major ELL lists of a p2p graph dict's remote edges over
+    each receiver's compact ``[C, F]`` halo buffer, derived on the graph's
+    device from ``remote_dst``, ``remote_src_p2p`` and ``remote_w`` at the
+    first call for those tensors and kept while they live:
+
+    * ``remote_nbr``/``remote_ell_w [Q, P, Kr]`` — each destination's
+      compact rows and weights, its edges in edge-list order (the stable
+      grouping of :func:`_group_slots`);
+    * ``remote_rnbr``/``remote_rslot [Q, C, RKr]`` — the reversed lists
+      the compact buffer's cotangent runs over (:func:`_reverse_slots`, as
+      :func:`build_reverse_ell` lays them out), each compact row's edges
+      in edge-list order.
+
+    Pad edges (``remote_w == 0``) are dropped: ``Kr``/``RKr`` are the
+    largest real remote in- and out-degrees (at least 1), and pad slots
+    point at row 0 with weight 0.  ``C = D·H`` comes from the hop layout
+    (``p2p_send_slot [Q, D, H]``).  Two host reads (the two degrees).
+    """
+    dst, src, w = (graph[k] for k in ("remote_dst", "remote_src_p2p",
+                                      "remote_w"))
+    hit = _REMOTE_ELL.get(src)
+    if hit is not None and hit[0] is dst and hit[1] is w:
+        return hit[2]
+    q, p_sz = graph["node_valid"].shape
+    n_c = graph["p2p_send_slot"].shape[1] * graph["p2p_send_slot"].shape[2]
+    dev = w.device
+    real = w != 0
+    part = torch.arange(q, device=dev)[:, None].expand_as(w)[real]
+    d, s, wv = dst[real].long(), src[real].long(), w[real]
+    key = part * p_sz + d
+    order, slot, counts = _group_slots(key, q * p_sz)
+    k = max(int(counts.max()), 1)
+    nbr = torch.zeros((q * p_sz, k), dtype=torch.int32, device=dev)
+    ew = torch.zeros((q * p_sz, k), dtype=w.dtype, device=dev)
+    nbr[key[order], slot] = s[order].int()
+    ew[key[order], slot] = wv[order]
+    slot_of = torch.empty_like(d)            # each edge's forward slot
+    slot_of[order] = slot
+    rnbr, rslot = _reverse_slots(part * n_c + s, d, d * k + slot_of, q * n_c)
+    lists = {"remote_nbr": nbr.reshape(q, p_sz, k),
+             "remote_ell_w": ew.reshape(q, p_sz, k),
+             "remote_rnbr": rnbr.reshape(q, n_c, -1),
+             "remote_rslot": rslot.reshape(q, n_c, -1)}
+    _REMOTE_ELL[src] = (dst, w, lists)
+    return lists
+
+
+def remote_ell_stats(graph: dict) -> dict:
+    """The padding of a p2p graph dict's remote ELL lists
+    (:func:`remote_ell`): ``Kr``, ``RKr`` and the fill (real remote edges
+    over ``Q·P·Kr`` slots) — how much of the lists' length is padding the
+    kernel walks over (one host read)."""
+    lists = remote_ell(graph)
+    q, p_sz, k = lists["remote_nbr"].shape
+    real = int((lists["remote_ell_w"] != 0).sum())
+    return {"remote_ell_degree": k,
+            "remote_rev_degree": int(lists["remote_rnbr"].shape[-1]),
+            "remote_ell_fill": real / max(q * p_sz * k, 1)}
 
 
 def attach_p2p(graph: dict, pg, device="cuda",

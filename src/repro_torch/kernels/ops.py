@@ -8,8 +8,9 @@ version and no global backend switch — the tensor decides.
 * :func:`wire_pack` / :func:`wire_unpack` — lane-block gather/scatter
   (``varco_pack`` / ``varco_unpack`` kernels), differentiable: each is the
   other's VJP under the same ``(kept, inv)`` pair;
-* :func:`ell_aggregate` — the local-edge ELL aggregation (``ell_spmm``
-  kernel); its x-cotangent is the same kernel over the reversed lists;
+* :func:`ell_aggregate` — the ELL aggregation of the local edges and, on
+  the p2p wire, of the remote ones (``ell_spmm`` kernel); its
+  x-cotangent is the same kernel over the reversed lists;
 * :func:`pack_quant` / :func:`unpack_quant` — the fused quantised-wire
   codecs (``varco_pack_quant`` / ``varco_unpack_quant`` kernels; with
   ``keys``, stochastic rounding in the ``varco_pack_quant_stochastic``
@@ -206,11 +207,13 @@ def aggregate(x: torch.Tensor, nbr, w: torch.Tensor) -> torch.Tensor:
 class _EllAggregate(torch.autograd.Function):
     """``ell_spmm`` forward; ``ell_spmm`` over the reversed lists for the
     x-cotangent, K-sliced plain PyTorch for the weight cotangent (the JAX
-    package computes it outside any kernel too)."""
+    package computes it outside any kernel too).  ``x`` is kept for the
+    backward only where the weights need their cotangent."""
 
     @staticmethod
     def forward(ctx, x, nbr, w, rnbr, rslot):
-        ctx.save_for_backward(x, nbr, w, rnbr, rslot)
+        ctx.save_for_backward(x if ctx.needs_input_grad[2] else None, nbr, w,
+                              rnbr, rslot)
         return _route(ell_spmm, ell_spmm_plain, x.contiguous(), nbr, w)
 
     @staticmethod
@@ -246,8 +249,9 @@ def ell_aggregate(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
                   rnbr: torch.Tensor | None = None,
                   rslot: torch.Tensor | None = None) -> torch.Tensor:
     """ELL aggregation ``out[q, i] = Σ_k w[q, i, k] x[q, nbr[q, i, k]]``
-    over every partition at once.  ``rnbr``/``rslot [Q, P, RK]`` are the
-    reversed lists (``repro_torch.dist.halo.build_reverse_ell``) the
+    over every partition at once: ``x [Q, Ns, F]``, ``nbr``/``w [Q, Nd,
+    K]``.  ``rnbr``/``rslot [Q, Ns, RK]`` are the reversed lists
+    (``repro_torch.dist.halo.build_reverse_ell``, ``remote_ell``) the
     x-cotangent runs over; without them the op is forward-only."""
     empty = _no_index(x)
     return _EllAggregate.apply(x, nbr, w,

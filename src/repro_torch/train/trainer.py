@@ -239,8 +239,8 @@ def train_gnn(g, *, q: int = 8, scheme: str = "random",
     persist the full train state atomically every N epochs
     (``stop_after`` also saves, then stops after that many epochs);
     ``resume=True`` restores it and continues at the saved epoch —
-    bitwise on the CPU; on the card the remote scatter's atomics reorder
-    f32 sums — replaying any recorded worker shrink.  On the CPU::
+    bitwise on the CPU; on the card the dense wire's scatter atomics
+    reorder f32 sums — replaying any recorded worker shrink.  On the CPU::
 
         train_gnn(shard_dir, policy=CommPolicy.parse("varco:linear:5", 6),
                   epochs=6, wire="p2p", device="cpu",

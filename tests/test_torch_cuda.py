@@ -8,7 +8,8 @@ the JAX package, so it runs on a machine that has only PyTorch:
 Pack/unpack and the fused quantised codecs must agree bitwise (IEEE
 division, round-half-even, one multiply per decoded lane); the ELL SpMM
 within 1e-5 (the kernel contracts ``acc + w·x`` into an FMA, the plain
-version rounds the product first).  Each autograd ``Function``'s backward
+version rounds the product first), also at the p2p wire's remote
+shapes (``Ns != Nd``, both ways).  Each autograd ``Function``'s backward
 on the card is held to the plain version's autograd on the CPU within
 1e-5 (atomic scatters and FMA contraction reorder f32 sums).  The LM
 kernels: flash attention within 2e-5 in f32 and 2e-2 in bf16 (one bf16
@@ -216,6 +217,42 @@ def test_cuda_ell_aggregate_backward(cuda_device):
         lambda a, n_, w_, rn, rs: tops.ell_aggregate(a, n_, w_, rn, rs),
         [x, nbr, w, torch.from_numpy(rnbr), torch.from_numpy(rslot)],
         cuda_device, 3)
+    assert tell.ell_spmm.launches == before + 2           # forward + VJP
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gx, gx_ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,p,c,e,f", [(16, 661, 5870, 8600, 256),
+                                       (4, 300, 2000, 2500, 128)])
+def test_cuda_ell_remote_shapes(cuda_device, q, p, c, e, f):
+    """The p2p wire's remote aggregation at its shapes scaled down (the
+    first case is ``arxiv-q16-p2p-full``'s over 16): compact ``[Q, C, F]``
+    -> partition ``[Q, P, F]`` over the remote lists that
+    ``dist.halo.remote_ell`` derives from an edge list with pads, and the
+    cotangent partition -> compact over their reversed lists; both ways
+    ``ell_spmm`` against the plain version's autograd within 1e-5."""
+    from repro_torch.dist.halo import remote_ell
+
+    rng = np.random.default_rng(q * p)
+    real = rng.uniform(size=(q, e)) < 0.8               # the rest pads
+    dst = np.where(real, rng.integers(0, p, (q, e)), p)
+    src = np.where(real, rng.integers(0, c, (q, e)), 0)
+    w = np.where(real, rng.uniform(0.05, 0.2, (q, e)), 0.0)
+    lists = remote_ell({
+        "remote_dst": torch.from_numpy(dst.astype(np.int32)),
+        "remote_src_p2p": torch.from_numpy(src.astype(np.int32)),
+        "remote_w": torch.from_numpy(w.astype(np.float32)),
+        "node_valid": torch.ones((q, p), dtype=torch.bool),
+        "p2p_send_slot": torch.zeros((q, 1, c), dtype=torch.int32)})
+    nbr, ew, rnbr, rslot = (lists[k] for k in (
+        "remote_nbr", "remote_ell_w", "remote_rnbr", "remote_rslot"))
+    assert nbr.shape[:2] == (q, p) and rnbr.shape[:2] == (q, c)
+    x = torch.from_numpy(rng.normal(size=(q, c, f)).astype(np.float32))
+    before = tell.ell_spmm.launches
+    (y, gx), (y_ref, gx_ref) = _grad_pair(
+        lambda a, n_, w_, rn, rs: tops.ell_aggregate(a, n_, w_, rn, rs),
+        [x, nbr, ew, rnbr, rslot], cuda_device, 6)
     assert tell.ell_spmm.launches == before + 2           # forward + VJP
     torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(gx, gx_ref, rtol=0, atol=1e-5)
